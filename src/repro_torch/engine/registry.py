@@ -1,0 +1,94 @@
+"""Layer-backend registry: the single place that knows every datapath.
+
+A backend is one way to store and execute a projection leaf at serving
+time. It registers a :class:`BackendSpec` with
+
+* ``eligible(ctx)``  -- can this leaf run here, and if not, why not,
+* ``pack(ctx, leaf, pack_ctx)`` -- master weight -> serving representation,
+* ``apply(leaf, x)`` -- execute the layer on an input batch,
+
+plus the leaf class it produces, which is how ``apply_linear`` dispatches:
+the registry maps the leaf's type to its spec, and plain tensors to dense.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+#: Eligibility result: (ok, reason); reason is "ok" when eligible.
+EligibilityFn = Callable[["LeafContext"], tuple[bool, str]]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafContext:
+    """Static facts about one parameter-tree leaf."""
+
+    path: str                 # '/'-joined tree path, e.g. "layers/1/kernel"
+    index: int                # leaf position in tree order
+    shape: tuple[int, ...]
+    is_conv: bool             # 4-D conv-stack kernel (policy.is_conv_kernel)
+    selected: bool            # weight policy selects this path
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackContext:
+    """Per-``pack`` arguments shared by all leaves: the weight mode and the
+    generator stochastic binarization draws from."""
+
+    weight_mode: Any          # BinarizeMode for the weight values
+    generator: Any = None     # torch.Generator on the leaves' device
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    name: str
+    priority: int             # higher wins among eligible backends
+    leaf_type: Optional[type]  # serving leaf class; None = plain tensor
+    eligible: EligibilityFn
+    pack: Callable[[LeafContext, Any, PackContext], Any]
+    apply: Callable[..., Any]
+    doc: str = ""
+
+
+_REGISTRY: dict[str, BackendSpec] = {}
+_LEAF_DISPATCH: dict[type, BackendSpec] = {}
+
+
+def register_backend(spec: BackendSpec) -> BackendSpec:
+    """Adds (or replaces) a backend. Returns the spec for chaining."""
+    old = _REGISTRY.get(spec.name)
+    if old is not None:
+        for t in [t for t, v in _LEAF_DISPATCH.items() if v is old]:
+            del _LEAF_DISPATCH[t]
+    _REGISTRY[spec.name] = spec
+    if spec.leaf_type is not None:
+        _LEAF_DISPATCH[spec.leaf_type] = spec
+    return spec
+
+
+def get_backend(name: str) -> BackendSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}") from None
+
+
+def backends() -> list[BackendSpec]:
+    """All registered backends, highest priority first."""
+    return sorted(_REGISTRY.values(), key=lambda s: -s.priority)
+
+
+def backend_for_leaf(leaf: Any) -> BackendSpec:
+    """The backend that produced ``leaf``; anything unregistered is dense."""
+    spec = _LEAF_DISPATCH.get(type(leaf))
+    return spec if spec is not None else _REGISTRY["dense"]
+
+
+def apply_linear(w: Any, x: Any) -> Any:
+    """x @ w through whichever backend produced ``w``."""
+    return backend_for_leaf(w).apply(w, x)

@@ -1,0 +1,52 @@
+"""The paper's permutation-invariant fully-connected MNIST network.
+
+784 -> hidden -> hidden -> hidden -> 10, batch norm after every layer,
+ReLU between layers, He initialization (the paper's section III-A). The
+parameter tree has the reference's keys, so plan paths such as
+``layers/1/kernel`` match its manifests. ``apply`` is the eval-mode forward
+and does not care whether a kernel leaf is a dense tensor or packed.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.models.layers import apply_linear, batch_norm, he_normal
+
+DEFAULT_HIDDEN = (2048, 2048, 2048)
+N_CLASSES = 10
+IN_DIM = 784
+
+
+def init(generator: torch.Generator, hidden=DEFAULT_HIDDEN, in_dim: int = IN_DIM,
+         n_classes: int = N_CLASSES, *, device) -> dict:
+    """Master weights and batch-norm running stats, drawn from ``generator``
+    (which must live on ``device``)."""
+    dims = (in_dim,) + tuple(hidden) + (n_classes,)
+    params: dict[str, Any] = {"layers": []}
+    state: dict[str, Any] = {"layers": []}
+    for a, b in zip(dims[:-1], dims[1:]):
+        params["layers"].append({
+            "kernel": he_normal(generator, (a, b), device=device),
+            "bias": torch.zeros(b, device=device),
+            "bn_scale": torch.ones(b, device=device),
+            "bn_bias": torch.zeros(b, device=device),
+        })
+        state["layers"].append({
+            "mean": torch.zeros(b, device=device),
+            "var": torch.ones(b, device=device),
+        })
+    return {"params": params, "state": state}
+
+
+def apply(params: dict, state: dict, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, 784) -> logits (B, 10), eval mode."""
+    h = x
+    n = len(params["layers"])
+    for i, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
+        h = apply_linear(lp["kernel"], h, lp["bias"])
+        h = batch_norm(h, lp["bn_scale"], lp["bn_bias"], ls["mean"], ls["var"])
+        if i < n - 1:
+            h = torch.relu(h)
+    return h
