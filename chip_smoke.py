@@ -6,27 +6,41 @@
 Phases, each on its own lines of output; any failure exits non-zero:
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
+2. build the CUDA kernels K1-K5 from ``src/repro_torch/kernels/csrc`` (timed);
 3. K1 binarize + bitpack against its plain version, det and stoch with the
    same words, at 2048x2048 and ragged shapes: the words must be equal;
 4. K2 packed-weight matmul against its plain version, f32 and bf16, with
    and without scale, at M in {4, 256} x 2048 x 2048 and a ragged shape,
    within rtol 1e-4 / atol 1e-3 (f32: only the order of the f32 sum
    differs) or 3e-2 (bf16);
-5. serve full-width mnist_fc (784-2048x3-10) in det and stoch through
-   ``repro_torch.launch.serve.serve_classifier``, 4 slots, 64 requests
-   after one untimed warm-up batch, with every launch counter set to 0 just before and read just after:
-   2 K1 launches per pack and 2 K2 launches per batch; the served packed
-   words and logits are held against the plain versions;
-6. time each kernel at the path shapes with CUDA events, beside its plain
+5. K3 sign + pack, K4 XNOR-popcount matmul and K5 patch pack against their
+   plain versions, word for word and bit for bit, at every serving shape of
+   the xnor paths and at ragged shapes (K % 32 != 0, M not a multiple of 8,
+   allow_extra_words layouts, scaled and unscaled, stride 2, VALID, ragged
+   H/W, C % 32 != 0, 0.0 / -0.0 / NaN planted); and the dense f32 conv
+   against an f64 conv (cuDNN's TF32 must stay off);
+6. the main path: serve full-width mnist_fc (784-2048x3-10) in det, stoch
+   and xnor, and full-width VGG-16/CIFAR-10 in det, stoch and xnor, through
+   ``repro_torch.launch.serve.serve_classifier``, 4 slots, 64 requests after
+   one untimed warm-up batch. Every launch counter is set to 0 just before
+   each serve and read just after, and must equal the per-batch counts times
+   17 batches plus the pack-time K1 launches. The served words are held
+   against a plain pack of the same master weights, and the served logits
+   against the same forward with the plain kernel versions on the same
+   card (so the dense ops are identical and any difference is the
+   kernels'); the difference from the plain forward on the CPU and the
+   count of sign activations that differ from it are printed;
+7. time each kernel at the path shapes with CUDA events, beside its plain
    version, a library call where one computes the same function, and the
-   least time the card could take.
+   least time the card could take; and each xnor conv layer as a whole
+   against F.conv2d on +-1 f32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -34,21 +48,49 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM data sheet (700 W): HBM3 bandwidth and the f32 rate of the CUDA
-# cores (the non-tensor-core f32 peak), and the dense bf16 tensor-core rate.
+# H100 SXM data sheet (700 W): HBM3 bandwidth, the f32 rate of the CUDA
+# cores (the non-tensor-core f32 peak) and the dense bf16 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+# XNOR-popcount words: popc issues 16 a clock per SM on compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput), the
+# slowest of the XOR / popc / add each word needs; 132 SMs at the H100 SXM's
+# 1,980 MHz maximum SM clock.
+PEAK_POPC_WORDS_PER_S = 16 * 132 * 1.98e9
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2, to time pack-time calls cold
+BATCHES = 17                   # 64 requests / 4 slots + 1 warm-up
+
+# Kernel launches per batch and per pack on each served path (PERF.md's
+# table): K2 binary_matmul, K3 sign_pack, K4 xnor_matmul, K5 patch_pack per
+# batch; K1 binarize_pack once per packed leaf.
+SERVES = [
+    ("mnist_fc", "det", {"binary_matmul": 2}, 2),
+    ("mnist_fc", "stoch", {"binary_matmul": 2}, 2),
+    ("mnist_fc", "xnor", {"sign_pack": 2, "xnor_matmul": 2}, 2),
+    ("vgg16_cifar10", "det", {"binary_matmul": 1}, 1),
+    ("vgg16_cifar10", "stoch", {"binary_matmul": 1}, 13),
+    ("vgg16_cifar10", "xnor", {"sign_pack": 1, "xnor_matmul": 12, "patch_pack": 11}, 12),
+]
+
+# VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
+VGG_XNOR_CONVS = [((4, 16, 16, 64), 128), ((4, 16, 16, 128), 128),
+                  ((4, 8, 8, 128), 256), ((4, 8, 8, 256), 256), ((4, 8, 8, 256), 256),
+                  ((4, 4, 4, 256), 512), ((4, 4, 4, 512), 512), ((4, 4, 4, 512), 512),
+                  ((4, 2, 2, 512), 512), ((4, 2, 2, 512), 512), ((4, 2, 2, 512), 512)]
 
 
-def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def main() -> int:
@@ -58,18 +100,115 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import repro_torch.kernels.ops as kops_mod
+    import repro_torch.xnor.conv.ops as cops_mod
+    import repro_torch.xnor.ops as xops_mod
+    from repro_torch.core.packing import unpack_bits
+    from repro_torch.core.policy import make_paper_policy
+    from repro_torch.engine import compile_plan
+    from repro_torch.engine.plan import tree_leaves_with_path, tree_map
     from repro_torch.kernels import _build
     from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
     from repro_torch.kernels.ops import random_words
     from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
-    from repro_torch.core.packing import unpack_bits
-    from repro_torch.engine.plan import tree_map
-    from repro_torch.launch.serve import serve_classifier
-    from repro_torch.models import mnist_fc
+    from repro_torch.launch.serve import build_model, serve_classifier
+    from repro_torch.models import mnist_fc, vgg
+    from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
+    from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
+    from repro_torch.xnor.conv.packing import pack_conv_kernel
+    from repro_torch.xnor.kernel import (sign_pack, sign_pack_plain, xnor_matmul,
+                                         xnor_matmul_plain)
+    from repro_torch.xnor.packing import unpack_activations
 
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 references in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    counters = {"binarize_pack": binarize_pack, "binary_matmul": binary_matmul,
+                "sign_pack": sign_pack, "xnor_matmul": xnor_matmul,
+                "patch_pack": patch_pack}
+
+    def launch_counts() -> dict[str, int]:
+        return {name: fn.launches for name, fn in counters.items()}
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """Every call site of a kernel wrapper takes its plain version, on
+        whatever device the tensors are; no kernel may launch meanwhile."""
+        swaps = [(kops_mod, "binarize_pack",
+                  lambda w, bits, stochastic: binarize_pack_plain(w, bits, stochastic=stochastic)),
+                 (kops_mod, "_binary_matmul", binary_matmul_plain),
+                 (xops_mod, "_sign_pack", sign_pack_plain),
+                 (xops_mod, "_xnor_matmul", xnor_matmul_plain),
+                 (cops_mod, "patch_pack", patch_pack_plain)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        before = launch_counts()
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        if launch_counts() != before:
+            raise AssertionError("a kernel launched inside plain_kernels()")
+
+    @contextlib.contextmanager
+    def record_signs(module, into: list):
+        """Records the inputs of the model's sign activations (> 0)."""
+        orig = module.deterministic_binarize
+
+        def rec(x):
+            into.append((x > 0).cpu())
+            return orig(x)
+
+        module.deterministic_binarize = rec
+        try:
+            yield
+        finally:
+            module.deterministic_binarize = orig
+
+    def profiled(fn, reps: int) -> dict[str, float] | None:
+        """Device time per rep of each CUDA kernel ``fn`` launches, in ms, by
+        kernel name, from torch.profiler; None if the profiler records no
+        device activity on this machine."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        # only entering and leaving the profiler may fail here (no CUPTI);
+        # a fault of the kernels surfaces at the synchronize outside the try
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        try:
+            prof.__enter__()
+        except RuntimeError as e:
+            print(f"  torch.profiler failed to start ({e}); device times not measured")
+            return None
+        try:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        except BaseException:
+            prof.__exit__(None, None, None)
+            raise
+        try:
+            prof.__exit__(None, None, None)
+        except RuntimeError as e:
+            print(f"  torch.profiler failed to stop ({e}); device times not measured")
+            return None
+        kern = {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
+        return kern or None
+
+    def device_ms(fn, kernel: str, reps: int = 20) -> float | None:
+        """Device time of one launch of the named kernel inside ``fn``. The
+        profiler now and then records no event for a kernel that ran, so
+        up to three profiles are taken."""
+        for _ in range(3):
+            kern = profiled(fn, reps)
+            hits = [v for k, v in (kern or {}).items() if kernel in k]
+            if hits:
+                return sum(hits)
+        return None
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,48 +275,145 @@ def main() -> int:
                 if m == 4 and dtype == torch.float32 and s is not None:
                     errs["k2"] = err
 
-    # 5. the main path: serve full-width mnist_fc, det and stoch
-    launches: dict[str, int] = {}
-    for mode in ("det", "stoch"):
-        print(f"== serve mnist_fc 784-2048x3-10, --binarize {mode}, 4 slots, 64 requests")
-        binarize_pack.launches = 0
-        binary_matmul.launches = 0
-        res = serve_classifier(arch="mnist_fc", binarize=mode, slots=4, requests=64,
-                               seed=0, device="cuda")
-        k1, k2 = binarize_pack.launches, binary_matmul.launches
+    # 5. K3, K4, K5 against their plain versions, exact
+    def acts(shape, dtype=torch.float32):
+        x = torch.randn(shape, generator=g, device=dev)
+        flat = x.view(-1)
+        flat[: min(flat.numel(), 3)] = torch.tensor([0.0, -0.0, float("nan")],
+                                                    device=dev)[: flat.numel()]
+        return x.to(dtype)
+
+    def words(shape):
+        return random_words(shape, g, dev)
+
+    def exact(tag, got, want):
+        torch.cuda.synchronize()
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        print(f"  {tag}: out {tuple(got.shape)} {str(got.dtype)[6:]}, mismatched {bad}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag} differs from its plain version")
+
+    print("== K3 sign_pack vs plain (exact; 0.0, -0.0, NaN planted)")
+    for (m, k) in [(4, 2048), (4, 512), (5, 100), (7, 33), (1024, 96)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = acts((m, k), dtype)
+            exact(f"K3 {m}x{k} {str(dtype)[6:]}", sign_pack(x), sign_pack_plain(x))
+
+    print("== K4 xnor_matmul vs plain (exact)")
+    k4_cases = [(4, 64, 2048, 2048, "mnist_fc layers/1-2")]
+    k4_cases += [(b * h * w_, 9 * (c // 32), n, 9 * c, f"vgg conv {b}x{h}x{w_}x{c}->{n}")
+                 for (b, h, w_, c), n in VGG_XNOR_CONVS]
+    k4_cases += [(4, 16, 512, 512, "vgg fc/1"), (5, 4, 300, 100, "ragged K=100"),
+                 (33, 9 * 2, 65, 9 * 40, "extra words C=40"), (3, 1, 1, 7, "tiny")]
+    for m, wds, n, k, what in k4_cases:
+        a, w = words((m, wds)), words((wds, n))
+        for s in (None, torch.rand(n, generator=g, device=dev) + 0.5):
+            tag = f"K4 {what} {m}x{wds}w x{n} k={k} {'scaled' if s is not None else 'int'}"
+            exact(tag, xnor_matmul(a, w, s, k_total=k), xnor_matmul_plain(a, w, s, k_total=k))
+    errs["k3"] = errs["k4"] = 0.0
+
+    print("== K5 patch_pack vs plain (exact)")
+    k5_cases = [(shape, (3, 3), (1, 1), "SAME") for shape, _ in VGG_XNOR_CONVS]
+    k5_cases += [((2, 9, 7, 40), (3, 3), (2, 2), "SAME"), ((1, 7, 7, 8), (3, 3), (2, 2), "VALID"),
+                 ((2, 10, 6, 24), (5, 3), (2, 1), ((2, 0), (1, 1)))]
+    for shape, ks, st, pad in k5_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = acts(shape, dtype)
+            kw = dict(ksize=ks, stride=st, padding=pad)
+            exact(f"K5 {shape} k={ks} s={st} {pad} {str(dtype)[6:]}",
+                  patch_pack(x, **kw), patch_pack_plain(x, **kw))
+    errs["k5"] = 0.0
+
+    print("== dense conv (conv/1 shape) against f64: cuDNN TF32 must stay off")
+    torch.backends.cudnn.allow_tf32 = True     # the default the conv apply overrides
+    xc, wc = acts((4, 32, 32, 64)).nan_to_num(), acts((3, 3, 64, 64)).nan_to_num()
+    got = conv2d_nhwc(xc, wc, (1, 1), ((1, 1), (1, 1)))
+    want = conv2d_nhwc(xc.double(), wc.double(), (1, 1), ((1, 1), (1, 1)))
+    err = (got.double() - want).abs().max().item()
+    print(f"  max_abs_err {err:.3e} against f64 (|out| max {want.abs().max().item():.1f}); "
+          f"global allow_tf32 restored: {torch.backends.cudnn.allow_tf32}")
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 6. the main path: serve both nets in every mode
+    launches = {name: {} for name in counters}
+    serve_ms = {}
+    for arch, mode, per_batch, packs in SERVES:
+        print(f"== serve {arch} full width, --binarize {mode}, 4 slots, 64 requests")
+        for fn in counters.values():
+            fn.launches = 0
+        res = serve_classifier(arch=arch, binarize=mode, slots=4, requests=64, seed=0,
+                               device="cuda")
+        got = launch_counts()
         n_batches = len(res.batch_seconds) + res.warmup
-        print(f"  launches: binarize_pack {k1}, binary_matmul {k2} over {n_batches} "
-              f"batches ({res.warmup} untimed warm-up); {res.img_per_s:.1f} img/s, {res.ms_per_batch:.4f} ms/batch "
-              f"median, packed {res.packed_bytes} B vs {res.dense_bytes} B bf16 dense")
-        if k1 != 2 or k2 != 2 * n_batches:
-            raise AssertionError(f"{mode}: expected 2 K1 and {2 * n_batches} K2 launches")
-        launches[f"k1_{mode}"] = k1
-        launches["k2"] = launches.get("k2", 0) + k2
-        # the served words against the plain pack of the same master weights
+        want = {name: per_batch.get(name, 0) * n_batches for name in counters}
+        want["binarize_pack"] = packs
+        print(f"  launches {got} over {n_batches} batches ({res.warmup} untimed warm-up); "
+              f"{res.img_per_s:.1f} img/s, {res.ms_per_batch:.4f} ms/batch median, "
+              f"packed {res.packed_bytes} B vs {res.dense_bytes} B bf16 dense")
+        if n_batches != BATCHES or got != want:
+            raise AssertionError(f"{arch} {mode}: expected launches {want}")
+        for name, count in got.items():
+            launches[name][(arch, mode)] = count
+        serve_ms[(arch, mode)] = (res.ms_per_batch, res.img_per_s)
+        # the served words against a plain pack of the same master weights
         # and words (same seeds, drawn in the same order)
-        master = mnist_fc.init(torch.Generator(device=dev).manual_seed(0), device=dev)
-        gw = torch.Generator(device=dev).manual_seed(1)
-        for i in (1, 2):
-            w = master["params"]["layers"][i]["kernel"]
-            bits = random_words(w.shape, gw, dev) if mode == "stoch" else None
-            want = binarize_pack_plain(w, bits, stochastic=mode == "stoch")
-            if not torch.equal(res.params["layers"][i]["kernel"].packed, want):
-                raise AssertionError(f"{mode}: served layers/{i} words differ from plain")
-        # the served logits against the plain forward on the CPU
+        tree, apply_fn, _, n_fc = build_model(arch, 0, device=dev)
+        plan = compile_plan(tree["params"], make_paper_policy(n_fc), mode)
+        with plain_kernels():
+            plain = plan.pack(tree["params"], generator=torch.Generator(device=dev).manual_seed(1))
+        n_leaves = 0
+        for (path, a), (_, b) in zip(tree_leaves_with_path(res.params),
+                                     tree_leaves_with_path(plain)):
+            if type(a) is not type(b):
+                raise AssertionError(f"{arch} {mode}: {path} served as {type(a).__name__}")
+            if hasattr(a, "packed"):
+                n_leaves += 1
+                if not torch.equal(a.packed, b.packed):
+                    raise AssertionError(f"{arch} {mode}: served {path} words differ from plain")
+        # the served logits against the plain kernels on this card, and on the CPU
+        binary_act = mode == "xnor"
         logits = res.last_logits
         if logits.shape != (4, 10) or not torch.isfinite(logits).all():
-            raise AssertionError(f"{mode}: bad logits {tuple(logits.shape)}")
+            raise AssertionError(f"{arch} {mode}: bad logits {tuple(logits.shape)}")
+        model = mnist_fc if arch == "mnist_fc" else vgg
+        signs_gpu, signs_cpu = [], []
+        with torch.inference_mode(), record_signs(model, signs_gpu):
+            again = apply_fn(res.params, res.state, res.last_x, binary_act=binary_act)
+        with torch.inference_mode(), plain_kernels():
+            plain_gpu = apply_fn(res.params, res.state, res.last_x, binary_act=binary_act)
         to_cpu = (lambda t: t.to("cpu"))
-        ref = mnist_fc.apply(tree_map(to_cpu, res.params), tree_map(to_cpu, res.state),
-                             res.last_x.cpu())
-        err = (logits.cpu() - ref).abs().max().item()
-        print(f"  served words == plain pack; logits vs plain CPU forward: "
-              f"max_abs_err {err:.3e}")
-        torch.testing.assert_close(logits.cpu(), ref, **F32_TOL)
+        with torch.inference_mode(), plain_kernels(), record_signs(model, signs_cpu):
+            plain_cpu = apply_fn(tree_map(to_cpu, res.params), tree_map(to_cpu, res.state),
+                                 res.last_x.cpu(), binary_act=binary_act)
+        flips = sum(int((a != b).sum()) for a, b in zip(signs_gpu, signs_cpu))
+        err_gpu = (again - plain_gpu).abs().max().item()
+        err_cpu = (again.cpu() - plain_cpu).abs().max().item()
+        print(f"  {n_leaves} served packed leaves == plain pack; logits vs plain kernels on "
+              f"the card: max_abs_err {err_gpu:.3e}; vs plain CPU forward: {err_cpu:.3e}, "
+              f"sign activations differing {flips} of {sum(s.numel() for s in signs_cpu)}")
+        with torch.inference_mode():
+            kern = profiled(lambda: apply_fn(res.params, res.state, res.last_x,
+                                             binary_act=binary_act), reps=5)
+        if kern is None:
+            print("  device time per batch: not measured (no device activity profiled)")
+        else:
+            busy = sum(kern.values())
+            top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
+            serve_ms[(arch, mode)] += (busy,)
+            print(f"  device time per batch (torch.profiler, 5 batches): {busy:.4f} ms in "
+                  f"{len(kern)} kernels, {100 * busy / res.ms_per_batch:.1f}% of the "
+                  f"{res.ms_per_batch:.4f} ms median; top: "
+                  + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
+        torch.testing.assert_close(again, logits, **F32_TOL)
+        torch.testing.assert_close(again, plain_gpu, **F32_TOL)
+        if arch == "mnist_fc" and not binary_act:
+            torch.testing.assert_close(again.cpu(), plain_cpu, **F32_TOL)
 
-    # 6. timing at the path shapes
-    print("== timing (CUDA events; K1 cold: L2 flushed before each call, as at "
-          "pack time; K2 warm: back-to-back, as per batch)")
+    # 7. timing at the path shapes
+    print("== timing (kernel_ms: CUDA events around 200 back-to-back wrapper calls, K1 "
+          "cold with L2 flushed before each call, as at pack time; device_ms: the "
+          "kernel's own device time from torch.profiler)")
     flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
     def time_cold(fn, iters=20) -> float:
@@ -205,27 +441,35 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b) / iters
 
+    def total(counts: dict, keys) -> int:
+        return sum(v for key, v in counts.items() if key in keys)
+
     kernels = []
     k, n = 2048, 2048
     w = torch.randn(k, n, generator=g, device=dev) * 0.7
     bits = random_words((k, n), g, dev)
+    k1_serves = {"det": [s[:2] for s in SERVES if s[1] != "stoch"],
+                 "stoch": [s[:2] for s in SERVES if s[1] == "stoch"]}
     for mode in ("det", "stoch"):
         st = mode == "stoch"
         b_ = bits if st else None
         ms = time_cold(lambda: binarize_pack(w, b_, stochastic=st))
         plain_ms = time_cold(lambda: binarize_pack_plain(w, b_, stochastic=st))
+        dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(w, b_, stochastic=st)),
+                           "binarize_pack_kernel")
         nbytes = k * n * 4 * (2 if st else 1) + (k // 32) * n * 4
         bms, by = bound(nbytes, 0, PEAK_F32_FLOP_PER_S)
-        print(f"  K1 {mode} {k}x{n} f32: kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-              f"library_ms none, bound_ms {bms:.4f} ({by}, {nbytes} B)")
+        print(f"  K1 {mode} {k}x{n} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, "
+              f"plain_ms {plain_ms:.4f}, library_ms none, bound_ms {bms:.4f} ({by}, {nbytes} B)")
         kernels.append({
             "name": f"binarize_pack ({mode})", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/binarize_pack.cu",
             "replaces": ("src/repro/kernels/stoch_binarize.py:118" if st
                          else "src/repro/kernels/stoch_binarize.py:98"),
-            "launches": launches[f"k1_{mode}"], "max_abs_err": errs[f"k1_{mode}"],
+            "launches": total(launches["binarize_pack"], k1_serves[mode]),
+            "max_abs_err": errs[f"k1_{mode}"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None})
+            "library_ms": None, "device_ms": dev_ms})
 
     wk = torch.randn(k, n, generator=g, device=dev)
     wp = binarize_pack(wk, stochastic=False)
@@ -237,6 +481,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             ms = time_warm(lambda: binary_matmul(x, wp, scale))
+            dev_ms = device_ms(lambda: binary_matmul(x, wp, scale), "binary_matmul_kernel")
             plain_ms = time_warm(lambda: binary_matmul_plain(x, wp, scale))
             wl = w_pm1 if dtype == torch.float32 else w_pm1_bf16
             lib_ms = time_warm(lambda: (x @ wl).float() * scale)
@@ -245,16 +490,123 @@ def main() -> int:
             peak = PEAK_F32_FLOP_PER_S if dtype == torch.float32 else PEAK_BF16_FLOP_PER_S
             bms, by = bound(nbytes, 2.0 * m * k * n, peak)
             print(f"  K2 scaled {m}x{k}x{n} {str(dtype)[6:]}: kernel_ms {ms:.4f}, "
-                  f"plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (torch.matmul on "
+                  f"device_ms {fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (torch.matmul on "
                   f"unpacked +-1 times scale), bound_ms {bms:.4f} ({by})")
             if m == 4 and dtype == torch.float32:   # the serving path's shape
                 kernels.append({
                     "name": "binary_matmul (scaled, f32, M=4)", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/binary_matmul.cu",
                     "replaces": "src/repro/kernels/binary_matmul.py:125",
-                    "launches": launches["k2"], "max_abs_err": errs["k2"],
+                    "launches": sum(launches["binary_matmul"].values()),
+                    "max_abs_err": errs["k2"],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                    "library_ms": lib_ms})
+                    "library_ms": lib_ms, "device_ms": dev_ms})
+
+    def entry(name, source, replaces, count, err, rows):
+        """One kernels-line entry; ``rows`` holds (ms, plain, bound_ms,
+        t_bytes_ms, t_ops_ms, library_ms, device_ms) per shape, summed over
+        the shapes one batch runs."""
+        t_bytes = sum(r[3] for r in rows)
+        t_ops = sum(r[4] for r in rows)
+        libs = [r[5] for r in rows]
+        devs = [r[6] for r in rows]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": count, "max_abs_err": err,
+                "ms": sum(r[0] for r in rows), "plain_ms": sum(r[1] for r in rows),
+                "bound_ms": sum(r[2] for r in rows),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None if None in libs else sum(libs),
+                "device_ms": None if None in devs else sum(devs)}
+
+    def k3_row(m, kk):
+        x = torch.randn(m, kk, generator=g, device=dev)
+        ms = time_warm(lambda: sign_pack(x))
+        dev_ms = device_ms(lambda: sign_pack(x), "sign_pack_kernel")
+        plain_ms = time_warm(lambda: sign_pack_plain(x))
+        nbytes = m * kk * 4 + m * ((kk + 31) // 32) * 4
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"  K3 {m}x{kk} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, plain_ms "
+              f"{plain_ms:.4f}, library_ms none, bound_ms {t_b:.5f} (bytes, {nbytes} B)")
+        return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms)
+
+    def k4_row(m, wds, n, kk, scaled):
+        a, w4 = words((m, wds)), words((wds, n))
+        s = torch.rand(n, generator=g, device=dev) + 0.5 if scaled else None
+        ms = time_warm(lambda: xnor_matmul(a, w4, s, k_total=kk))
+        dev_ms = device_ms(lambda: xnor_matmul(a, w4, s, k_total=kk), "xnor_matmul_kernel")
+        plain_ms = time_warm(lambda: xnor_matmul_plain(a, w4, s, k_total=kk), iters=20)
+        a_pm1 = unpack_activations(a)                    # the library call's operands
+        w_pm1_ = unpack_bits(w4)
+        if s is None:
+            lib_ms = time_warm(lambda: a_pm1 @ w_pm1_)
+        else:
+            lib_ms = time_warm(lambda: (a_pm1 @ w_pm1_) * s)
+        nbytes = (m * wds + wds * n + m * n) * 4 + (n * 4 if scaled else 0)
+        bms, by = bound(nbytes, m * n * wds, PEAK_POPC_WORDS_PER_S)
+        print(f"  K4 {m}x{wds}w x{n} k={kk} {'scaled' if scaled else 'int'}: kernel_ms "
+              f"{ms:.4f}, device_ms {fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms "
+              f"{lib_ms:.4f} (f32 torch.matmul on unpacked +-1), bound_ms {bms:.5f} ({by})")
+        return (ms, plain_ms, bms, nbytes / PEAK_BYTES_PER_S * 1e3,
+                m * n * wds / PEAK_POPC_WORDS_PER_S * 1e3, lib_ms, dev_ms)
+
+    def k5_row(shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        ms = time_warm(lambda: patch_pack(x, ksize=(3, 3)))
+        dev_ms = device_ms(lambda: patch_pack(x, ksize=(3, 3)), "patch_pack_kernel")
+        plain_ms = time_warm(lambda: patch_pack_plain(x, ksize=(3, 3)), iters=50)
+        b, h, w_, c = shape
+        nbytes = b * h * w_ * c * 4 + b * h * w_ * 9 * ((c + 31) // 32) * 4
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"  K5 {shape} 3x3 SAME f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, "
+              f"plain_ms {plain_ms:.4f}, library_ms none, bound_ms {t_b:.5f} "
+              f"(bytes, {nbytes} B)")
+        return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms)
+
+    k3_src, k3_rep = "src/repro_torch/kernels/csrc/sign_pack.cu", "src/repro/xnor/kernel.py:164"
+    k4_src, k4_rep = "src/repro_torch/kernels/csrc/xnor_matmul.cu", "src/repro/xnor/kernel.py:125"
+    mnist_x, vgg_x = ("mnist_fc", "xnor"), ("vgg16_cifar10", "xnor")
+    kernels.append(entry("sign_pack (mnist_fc xnor, 4x2048 f32, per layer)", k3_src, k3_rep,
+                         launches["sign_pack"][mnist_x], errs["k3"], [k3_row(4, 2048)]))
+    kernels.append(entry("sign_pack (vgg16 xnor fc/1, 4x512 f32)", k3_src, k3_rep,
+                         launches["sign_pack"][vgg_x], errs["k3"], [k3_row(4, 512)]))
+    kernels.append(entry("xnor_matmul (mnist_fc xnor, 4x64w x2048 scaled, per layer)",
+                         k4_src, k4_rep, launches["xnor_matmul"][mnist_x], errs["k4"],
+                         [k4_row(4, 64, 2048, 2048, True)]))
+    vgg_k4 = [k4_row(b * h * w_, 9 * c // 32, n, 9 * c, False)
+              for (b, h, w_, c), n in VGG_XNOR_CONVS] + [k4_row(4, 16, 512, 512, True)]
+    kernels.append(entry("xnor_matmul (vgg16 xnor, the 12 shapes of one batch, summed)",
+                         k4_src, k4_rep, launches["xnor_matmul"][vgg_x], errs["k4"], vgg_k4))
+    kernels.append(entry("patch_pack (vgg16 xnor, the 11 conv inputs of one batch, summed)",
+                         "src/repro_torch/kernels/csrc/patch_pack.cu",
+                         "src/repro/xnor/conv/kernel.py:76", launches["patch_pack"][vgg_x],
+                         errs["k5"], [k5_row(shape) for shape, _ in VGG_XNOR_CONVS]))
+
+    print("== xnor conv layers as a whole (K5 + K4 + border correction + epilogue) "
+          "against F.conv2d on +-1 f32, TF32 off")
+    F = torch.nn.functional
+    layer_ms = lib_ms = 0.0
+    for shape, n_out in VGG_XNOR_CONVS:
+        c = shape[-1]
+        xw = torch.randn(3, 3, c, n_out, generator=g, device=dev)
+        leaf = XnorConv(pack_conv_kernel(xw), xw.abs().mean(dim=(0, 1, 2)), (3, 3), c)
+        x = torch.randn(shape, generator=g, device=dev)
+        ms = time_warm(lambda: apply_conv2d(leaf, x))
+        xs = torch.where(x > 0, 1.0, -1.0).permute(0, 3, 1, 2).contiguous()
+        ws = torch.where(xw > 0, 1.0, -1.0).permute(3, 2, 0, 1).contiguous()
+        lms = time_warm(lambda: F.conv2d(xs, ws, padding=1))
+        layer_dev = profiled(lambda: apply_conv2d(leaf, x), reps=20)
+        lib_dev = profiled(lambda: F.conv2d(xs, ws, padding=1), reps=20)
+        layer_ms, lib_ms = layer_ms + ms, lib_ms + lms
+        print(f"  {shape} -> {n_out}: xnor layer_ms {ms:.4f} (device "
+              f"{fmt(layer_dev and sum(layer_dev.values()))} in "
+              f"{len(layer_dev or {})} kernels), F.conv2d library_ms {lms:.4f} (device "
+              f"{fmt(lib_dev and sum(lib_dev.values()))})")
+    print(f"  the 11 layers of one batch: xnor {layer_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms")
+
+    print("== serving summary (ms/batch median, img/s)")
+    for (arch, mode), (ms, ips, *busy) in serve_ms.items():
+        dev = f", device busy {busy[0]:.4f} ms ({100 * busy[0] / ms:.1f}%)" if busy else ""
+        print(f"  {arch} {mode}: {ms:.4f} ms/batch, {ips:.1f} img/s{dev}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,4 @@
+"""VGG-16 for CIFAR-10 (the paper's CNN benchmark)."""
+WIDTH_MULT = 1.0
+SMOKE_WIDTH_MULT = 0.125
+BATCH_SIZE = 4          # the paper's batch

@@ -71,6 +71,40 @@ def make_paper_policy(n_fc_layers: int) -> BinarizePolicy:
     )
 
 
+# Layers whose *inputs* are real-valued stay off the binary-activation path:
+# index 0 of ``layers/`` (FC nets) or ``fc/`` (the VGG head) consumes raw
+# pixels or conv features, and VGG's first conv block (``conv/0..1``) sits
+# closest to the raw pixels. This is an activation boundary only: the weight
+# policy still binarizes conv/1's weights, and they serve binarized-dense.
+_XNOR_EXTRA_EXCLUDE = (
+    r"(^|.*/)(layers|fc)/0/[^/]+$",
+    r"(^|.*/)conv/[01]/kernel$",
+)
+
+#: Which weight-binarized leaves may also binarize their activations and
+#: dispatch to the XNOR-popcount engine (``repro_torch.xnor``). A leaf must
+#: be selected by both the weight policy and this one to become an
+#: XnorLinear or XnorConv.
+XNOR_POLICY = BinarizePolicy(exclude=_DEFAULT_EXCLUDE + _XNOR_EXTRA_EXCLUDE)
+
+
+def xnor_policy(extra_exclude: Sequence[str] = ()) -> BinarizePolicy:
+    """XNOR eligibility with model-specific real-valued-input layers added."""
+    return BinarizePolicy(
+        exclude=_DEFAULT_EXCLUDE + _XNOR_EXTRA_EXCLUDE + tuple(extra_exclude))
+
+
+_XNOR_BOUNDARY_RES = tuple(re.compile(p) for p in _XNOR_EXTRA_EXCLUDE)
+
+
+def is_xnor_boundary(path: str) -> bool:
+    """True iff ``path`` is excluded from binary activations because its
+    input is real-valued (the first-layer / first-conv-block patterns), as
+    opposed to a generic policy exclusion. The plan compiler phrases the
+    row's reason with it."""
+    return any(p.fullmatch(path) for p in _XNOR_BOUNDARY_RES)
+
+
 _CONV_KERNEL_RE = re.compile(r"(^|.*/)conv/\d+/kernel$")
 
 

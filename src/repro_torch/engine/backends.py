@@ -1,21 +1,44 @@
-"""Built-in layer backends of this slice: ``dense`` and ``packed``.
+"""Built-in layer backends: dense, binarized_dense, packed_conv, packed,
+xnor and xnor_conv.
 
-``packed`` (priority 20) binarizes a (K, N) projection (Eq. 1, or Eq. 2
-with words from the pack generator) and bitpacks it with the K1 kernel,
-then serves it with the K2 kernel; ``dense`` (0) keeps the master weight
-and runs ``torch.matmul``, as the reference leaves dense layers to XLA.
-The other datapaths register with their slices.
+Priority order (highest wins among eligible), as in the reference:
+
+  xnor_conv (40) > xnor (30) > packed (20) > packed_conv (15)
+    > binarized_dense (10) > dense (0)
+
+* ``packed`` binarizes a (K, N) projection (Eq. 1, or Eq. 2 with words from
+  the pack generator) and bitpacks it with K1, then serves it with K2.
+* ``xnor`` packs the same way (Eq. 1) and serves with K3 (sign + pack the
+  activations) and K4 (XNOR-popcount matmul).
+* ``xnor_conv`` packs a conv kernel in the per-tap layout with K1 and serves
+  with K5 (patch packing) and K4, plus the border correction in plain torch.
+* ``packed_conv`` (stoch only) packs a conv kernel along the flat kh*kw*C
+  axis with K1 and, at apply time, unpacks in plain torch and runs the dense
+  conv, as the reference unpacks with jnp outside any kernel.
+* ``binarized_dense`` keeps a binarized conv kernel (+-1 [* scale]) dense.
+* ``dense`` keeps the master weight: ``torch.matmul``, or ``F.conv2d`` in
+  full f32, as the reference leaves dense layers to XLA.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import binarize as B
 from repro_torch.core.binarize import BinarizeMode
-from repro_torch.core.packing import PACK
+from repro_torch.core.packing import PACK, unpack_bits
 from repro_torch.engine.registry import (BackendSpec, LeafContext, PackContext,
                                          register_backend)
 from repro_torch.kernels import ops
-from repro_torch.models.layers import PackedLinear
+from repro_torch.models.layers import (PackedConv, PackedLinear, XnorConv, XnorLinear,
+                                       conv2d_nhwc)
+from repro_torch.xnor import ops as xops
+from repro_torch.xnor.conv import ops as cops
+from repro_torch.xnor.conv.packing import conv_geometry, pack_conv_kernel
+
+# ---------------------------------------------------------------------------
+# eligibility (reason strings copied from the reference, which the golden
+# plan manifests record)
+# ---------------------------------------------------------------------------
 
 
 def _dense_eligible(lc: LeafContext) -> tuple[bool, str]:
@@ -23,7 +46,7 @@ def _dense_eligible(lc: LeafContext) -> tuple[bool, str]:
 
 
 def _packable(lc: LeafContext) -> tuple[bool, str]:
-    """Gate for the bitpacked-weight matmul backend."""
+    """Gate for the bitpacked-weight matmul backends."""
     if not lc.selected:
         return False, "policy-excluded"
     if lc.is_conv:
@@ -35,42 +58,182 @@ def _packable(lc: LeafContext) -> tuple[bool, str]:
     return True, "ok"
 
 
+def _xnor_gate(lc: LeafContext) -> tuple[bool, str]:
+    """Mode and activation-policy gate of the fully-binary backends."""
+    if lc.mode != "xnor":
+        return False, f"mode={lc.mode} != xnor"
+    if not lc.xnor_selected:
+        return False, ("xnor-policy-excluded (real-valued-input boundary)"
+                       if lc.xnor_boundary else "xnor-policy-excluded")
+    return True, "ok"
+
+
+def _xnor_eligible(lc: LeafContext) -> tuple[bool, str]:
+    ok, why = _packable(lc)
+    return _xnor_gate(lc) if ok else (ok, why)
+
+
+def _conv_selected(lc: LeafContext) -> tuple[bool, str]:
+    if not lc.is_conv:
+        return False, "not a conv-stack kernel"
+    if not lc.selected:
+        return False, "policy-excluded"
+    return True, "ok"
+
+
+def _xnor_conv_eligible(lc: LeafContext) -> tuple[bool, str]:
+    ok, why = _conv_selected(lc)
+    return _xnor_gate(lc) if ok else (ok, why)
+
+
+def _packed_conv_eligible(lc: LeafContext) -> tuple[bool, str]:
+    """Bitpacked conv weights, stoch mode only (1-bit storage is what a
+    stochastic ensemble needs; in det/xnor mode binarized_dense is free)."""
+    ok, why = _conv_selected(lc)
+    if not ok:
+        return ok, why
+    if lc.mode != "stoch":
+        return False, f"mode={lc.mode} != stoch (dense ±1 fallback is free)"
+    return True, "ok"
+
+
+# ---------------------------------------------------------------------------
+# pack transforms
+# ---------------------------------------------------------------------------
+
+
 def _pack_dense(lc: LeafContext, leaf, pc: PackContext):
     return leaf
 
 
-def _pack_linear(lc: LeafContext, leaf: torch.Tensor, pc: PackContext) -> PackedLinear:
-    """Binarize + bitpack a (K, N) projection; the scale is the mean |w|
-    over K (per output channel)."""
-    if leaf.ndim != 2:
-        raise NotImplementedError(
-            f"{lc.path!r}: stacked {tuple(leaf.shape)} leaves pack with the LM slice")
-    stochastic = pc.weight_mode is BinarizeMode.STOCHASTIC
-    if stochastic and pc.generator is None:
+def _stochastic(lc: LeafContext, pc: PackContext) -> bool:
+    """Whether the leaf binarizes by Eq. 2; then the generator is required."""
+    if pc.weight_mode is not BinarizeMode.STOCHASTIC:
+        return False
+    if pc.generator is None:
         raise ValueError(
             f"stochastic packing requires a generator, but none was supplied for "
             f"leaf {lc.path!r} (leaf index {lc.index}): pass "
             f"generator=torch.Generator(device).manual_seed(seed) to plan.pack(...), "
             f"or compile the plan with mode='det'")
+    return True
+
+
+def _conv_scale(leaf: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel mean |w| of a (kh, kw, C, N) kernel."""
+    return leaf.to(torch.float32).abs().mean(dim=(0, 1, 2))
+
+
+def _pack_binarized_dense(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
+    """Binarized values (+-1 * scale) kept dense: the Alg.-1 inference
+    network for conv layers with no bitpacked lowering."""
+    scale = _conv_scale(leaf)
+    if _stochastic(lc, pc):
+        wb = B.stochastic_binarize(leaf, pc.generator)
+    else:
+        wb = B.deterministic_binarize(leaf)
+    return (wb.to(torch.float32) * scale).to(leaf.dtype)
+
+
+def _pack_linear(cls, lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
+    """Binarize + bitpack a (K, N) projection into ``cls`` through K1; the
+    scale is the mean |w| over K (per output channel)."""
+    if leaf.ndim != 2:
+        raise NotImplementedError(
+            f"{lc.path!r}: stacked {tuple(leaf.shape)} leaves pack with the LM slice")
+    stochastic = _stochastic(lc, pc)
     packed = ops.binarize_and_pack(leaf, generator=pc.generator, stochastic=stochastic)
-    return PackedLinear(packed, leaf.to(torch.float32).abs().mean(dim=0), leaf.shape[0])
+    return cls(packed, leaf.to(torch.float32).abs().mean(dim=0), leaf.shape[0])
 
 
-def _apply_dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return x @ w.to(x.dtype)
+def _pack_packed_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
+    """Stochastic binarize + bitpack a (kh, kw, C, N) kernel along the flat
+    kh*kw*C axis through K1 (stoch mode only, so the generator is required)."""
+    kh, kw, c_in, n = leaf.shape
+    _stochastic(lc, pc)
+    packed = ops.binarize_and_pack(leaf.reshape(kh * kw * c_in, n),
+                                   generator=pc.generator, stochastic=True)
+    return PackedConv(packed, _conv_scale(leaf), (kh, kw), c_in)
+
+
+def _pack_xnor_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
+    kh, kw, c_in, _ = leaf.shape
+    return XnorConv(pack_conv_kernel(leaf), _conv_scale(leaf), (kh, kw), c_in)
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+
+def _apply_dense(w: torch.Tensor, x: torch.Tensor, *, stride=None, padding=None):
+    if stride is None:
+        return x @ w.to(x.dtype)
+    _, _, pads = conv_geometry(x.shape[1], x.shape[2], w.shape[:2], stride, padding)
+    return conv2d_nhwc(x, w.to(x.dtype), stride, pads)
 
 
 def _apply_packed(w: PackedLinear, x: torch.Tensor) -> torch.Tensor:
     return ops.binary_matmul(x, w.packed, w.scale).to(x.dtype)
 
 
+def _apply_xnor(w: XnorLinear, x: torch.Tensor) -> torch.Tensor:
+    return xops.xnor_matmul(x, w.packed, w.scale, k=w.k,
+                            out_dtype=torch.float32).to(x.dtype)
+
+
+def _apply_packed_conv(w: PackedConv, x: torch.Tensor, *, stride=(1, 1), padding="SAME"):
+    wb = unpack_bits(w.packed, dtype=torch.float32)[: w.k]   # drop the ragged pad
+    if w.scale is not None:
+        wb = wb * w.scale.to(torch.float32)[None, :]
+    wk = wb.reshape(*w.ksize, w.c_in, w.packed.shape[-1])
+    return _apply_dense(wk, x, stride=stride, padding=padding)
+
+
+def _apply_xnor_conv(w: XnorConv, x: torch.Tensor, *, stride=(1, 1), padding="SAME"):
+    out = cops.xnor_conv2d(x, w.packed, w.scale, ksize=w.ksize, c_in=w.c_in,
+                           stride=stride, padding=padding, out_dtype=torch.float32)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# registration
+# ---------------------------------------------------------------------------
+
 DENSE = register_backend(BackendSpec(
-    name="dense", priority=0, leaf_type=None,
+    name="dense", kinds=("linear", "conv"), priority=0, leaf_type=None,
     eligible=_dense_eligible, pack=_pack_dense, apply=_apply_dense,
-    doc="Full-width master weights, torch.matmul."))
+    doc="Full-width master weights: torch.matmul, or F.conv2d in full f32."))
+
+BINARIZED_DENSE = register_backend(BackendSpec(
+    name="binarized_dense", kinds=("conv",), priority=10, leaf_type=None,
+    eligible=_conv_selected, pack=_pack_binarized_dense, apply=_apply_dense,
+    doc="Conv fallback: Alg.-1 binarized values (+-1 * scale) stored densely."))
+
+PACKED_CONV = register_backend(BackendSpec(
+    name="packed_conv", kinds=("conv",), priority=15, leaf_type=PackedConv,
+    eligible=_packed_conv_eligible, pack=_pack_packed_conv, apply=_apply_packed_conv,
+    doc="Stoch-mode conv: K1-bitpacked binary kernel, unpacked to +-1 * scale "
+        "for the dense conv at apply time."))
 
 PACKED = register_backend(BackendSpec(
-    name="packed", priority=20, leaf_type=PackedLinear,
-    eligible=_packable, pack=_pack_linear, apply=_apply_packed,
+    name="packed", kinds=("linear",), priority=20, leaf_type=PackedLinear,
+    eligible=_packable,
+    pack=lambda lc, leaf, pc: _pack_linear(PackedLinear, lc, leaf, pc),
+    apply=_apply_packed,
     doc="Bitpacked binary weights (+ per-channel scale) through the K2 "
         "packed-weight matmul kernel."))
+
+XNOR = register_backend(BackendSpec(
+    name="xnor", kinds=("linear",), priority=30, leaf_type=XnorLinear,
+    eligible=_xnor_eligible,
+    pack=lambda lc, leaf, pc: _pack_linear(XnorLinear, lc, leaf, pc),
+    apply=_apply_xnor,
+    doc="Fully-binary FC: binary weights and sign-packed activations (K3), "
+        "XNOR-popcount dot (K4)."))
+
+XNOR_CONV = register_backend(BackendSpec(
+    name="xnor_conv", kinds=("conv",), priority=40, leaf_type=XnorConv,
+    eligible=_xnor_conv_eligible, pack=_pack_xnor_conv, apply=_apply_xnor_conv,
+    doc="Fully-binary conv: packed im2col patches (K5) + popcount matmul (K4) "
+        "+ border correction."))

@@ -15,7 +15,7 @@ import warnings
 from typing import Any, Iterator
 
 from repro_torch.core.binarize import BinarizeMode
-from repro_torch.core.policy import is_conv_kernel
+from repro_torch.core.policy import XNOR_POLICY, is_conv_kernel, is_xnor_boundary
 from repro_torch.engine import registry
 
 
@@ -63,13 +63,14 @@ class LayerAssignment:
     reason: str
     eligible: dict[str, str]       # backend -> "ok" | why-not
     selected: bool                 # whether the weight policy selected the path
+    xnor_selected: bool            # whether the xnor policy also selected it
 
 
 @dataclasses.dataclass
 class ExecutionPlan:
     """Explicit per-path backend assignment for one parameter tree."""
 
-    mode: str                      # det | stoch
+    mode: str                      # det | stoch | xnor
     layers: list[LayerAssignment]
 
     def assignments(self, backend: str | None = None) -> list[LayerAssignment]:
@@ -79,14 +80,16 @@ class ExecutionPlan:
         """Applies each row's backend ``pack`` transform to its leaf.
 
         ``generator`` (a ``torch.Generator`` on the leaves' device) feeds the
-        stochastic words, drawn leaf by leaf in tree order. The tree must
-        match the plan leaf for leaf (path and shape)."""
+        stochastic words, drawn leaf by leaf in tree order; ``xnor`` plans
+        binarize deterministically (Eq. 1). The tree must match the plan leaf
+        for leaf (path and shape)."""
         leaves = list(tree_leaves_with_path(params))
         if len(leaves) != len(self.layers):
             raise ValueError(f"plan/params mismatch: plan has {len(self.layers)} "
                              f"leaves, params has {len(leaves)}")
-        pc = registry.PackContext(weight_mode=BinarizeMode.parse(self.mode),
-                                  generator=generator)
+        weight_mode = (BinarizeMode.STOCHASTIC if self.mode == "stoch"
+                       else BinarizeMode.DETERMINISTIC)
+        pc = registry.PackContext(weight_mode=weight_mode, generator=generator)
         out = []
         for a, (path, leaf) in zip(self.layers, leaves):
             if path != a.path:
@@ -98,33 +101,43 @@ class ExecutionPlan:
             lc = registry.LeafContext(
                 path=a.path, index=a.index, shape=a.shape,
                 is_conv=is_conv_kernel(a.path) and len(a.shape) == 4,
-                selected=a.selected)
+                selected=a.selected, xnor_selected=a.xnor_selected, mode=self.mode,
+                xnor_boundary=is_xnor_boundary(a.path))
             out.append(registry.get_backend(a.backend).pack(lc, leaf, pc))
         return tree_unflatten(params, out)
 
 
-_MODES = ("det", "stoch")
+_MODES = ("det", "stoch", "xnor")
 
 
-def compile_plan(params: Any, policy, mode: str | BinarizeMode = "det") -> ExecutionPlan:
+def compile_plan(params: Any, policy, mode: str | BinarizeMode = "det", *,
+                 xnor_policy=None) -> ExecutionPlan:
     """Assigns every leaf of ``params`` the highest-priority eligible
     backend under ``policy``/``mode`` and returns the explicit plan.
-    Packed leaves always carry a per-channel scale (the reference's
-    default ``with_scale=True``). A policy-selected leaf no binary backend
-    can serve stays dense, with the reason in its row and a warning."""
+
+    ``mode="xnor"`` enables the fully-binary backends for leaves that
+    ``xnor_policy`` (default ``core.policy.XNOR_POLICY``) also selects;
+    weights still binarize by Eq. 1. Packed leaves always carry a
+    per-channel scale (the reference's default ``with_scale=True``). A
+    policy-selected leaf no binary backend can serve stays dense, with the
+    reason in its row and a warning."""
     mode_str = mode.value if isinstance(mode, BinarizeMode) else str(mode)
     if mode_str not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode_str!r}")
+    if xnor_policy is None:
+        xnor_policy = XNOR_POLICY
     rows: list[LayerAssignment] = []
     for i, (path, leaf) in enumerate(tree_leaves_with_path(params)):
         shape = tuple(leaf.shape)
         lc = registry.LeafContext(
             path=path, index=i, shape=shape,
             is_conv=is_conv_kernel(path) and len(shape) == 4,
-            selected=policy.selects(path))
+            selected=policy.selects(path),
+            xnor_selected=mode_str == "xnor" and xnor_policy.selects(path),
+            mode=mode_str, xnor_boundary=is_xnor_boundary(path))
         elig: dict[str, str] = {}
         chosen = None
-        for spec in registry.backends():
+        for spec in registry.backends("conv" if lc.is_conv else "linear"):
             ok, why = spec.eligible(lc)
             elig[spec.name] = "ok" if ok else why
             if ok and chosen is None:
@@ -135,7 +148,8 @@ def compile_plan(params: Any, policy, mode: str | BinarizeMode = "det") -> Execu
             if pat:
                 reason = f"policy-excluded (pattern {pat!r})"
         rows.append(LayerAssignment(path=path, index=i, shape=shape, backend=chosen,
-                                    reason=reason, eligible=elig, selected=lc.selected))
+                                    reason=reason, eligible=elig, selected=lc.selected,
+                                    xnor_selected=lc.xnor_selected))
     bad = [a for a in rows if a.reason.startswith("cannot pack")]
     if bad:
         warnings.warn(
@@ -148,9 +162,16 @@ def compile_plan(params: Any, policy, mode: str | BinarizeMode = "det") -> Execu
 
 def _reason(lc: registry.LeafContext, chosen: str, elig: dict) -> str:
     """Why the leaf landed where it did; in particular why a
-    policy-selected leaf did not land on a binary backend."""
+    policy-selected leaf did not land on a better backend."""
     if not lc.selected:
         return "policy-excluded"
     if chosen == "dense":
-        return f"cannot pack: {elig.get('packed', '')}"
+        blocker = elig.get("xnor_conv" if lc.is_conv else "packed", "")
+        return f"cannot pack: {blocker}"
+    if chosen == "binarized_dense":
+        return ("no packed-weight conv lowering"
+                if lc.mode != "xnor"
+                else elig.get("xnor_conv", "xnor-policy-excluded"))
+    if chosen == "packed" and lc.mode == "xnor":
+        return elig.get("xnor", "xnor-policy-excluded")
     return "selected"

@@ -7,8 +7,10 @@ time. It registers a :class:`BackendSpec` with
 * ``pack(ctx, leaf, pack_ctx)`` -- master weight -> serving representation,
 * ``apply(leaf, x)`` -- execute the layer on an input batch,
 
-plus the leaf class it produces, which is how ``apply_linear`` dispatches:
-the registry maps the leaf's type to its spec, and plain tensors to dense.
+plus the apply seams it serves (``kinds``: "linear" and/or "conv") and the
+leaf class it produces, which is how ``apply_linear`` / ``apply_conv2d``
+dispatch: the registry maps (kind, leaf type) to its spec, and plain
+tensors (binarized-dense conv kernels included) to dense.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ class LeafContext:
     shape: tuple[int, ...]
     is_conv: bool             # 4-D conv-stack kernel (policy.is_conv_kernel)
     selected: bool            # weight policy selects this path
+    xnor_selected: bool       # xnor (activation) policy also selects it
+    mode: str                 # requested engine mode: det | stoch | xnor
+    xnor_boundary: bool = False  # excluded because its input is real-valued
 
     @property
     def ndim(self) -> int:
@@ -46,6 +51,7 @@ class PackContext:
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
     name: str
+    kinds: tuple[str, ...]    # apply seams served: ("linear",) / ("conv",)
     priority: int             # higher wins among eligible backends
     leaf_type: Optional[type]  # serving leaf class; None = plain tensor
     eligible: EligibilityFn
@@ -55,18 +61,19 @@ class BackendSpec:
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
-_LEAF_DISPATCH: dict[type, BackendSpec] = {}
+_LEAF_DISPATCH: dict[tuple[str, type], BackendSpec] = {}
 
 
 def register_backend(spec: BackendSpec) -> BackendSpec:
     """Adds (or replaces) a backend. Returns the spec for chaining."""
     old = _REGISTRY.get(spec.name)
     if old is not None:
-        for t in [t for t, v in _LEAF_DISPATCH.items() if v is old]:
-            del _LEAF_DISPATCH[t]
+        for key in [k for k, v in _LEAF_DISPATCH.items() if v is old]:
+            del _LEAF_DISPATCH[key]
     _REGISTRY[spec.name] = spec
     if spec.leaf_type is not None:
-        _LEAF_DISPATCH[spec.leaf_type] = spec
+        for kind in spec.kinds:
+            _LEAF_DISPATCH[(kind, spec.leaf_type)] = spec
     return spec
 
 
@@ -78,17 +85,25 @@ def get_backend(name: str) -> BackendSpec:
             f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}") from None
 
 
-def backends() -> list[BackendSpec]:
-    """All registered backends, highest priority first."""
-    return sorted(_REGISTRY.values(), key=lambda s: -s.priority)
+def backends(kind: str | None = None) -> list[BackendSpec]:
+    """The registered backends serving ``kind`` (all if None), highest
+    priority first."""
+    specs = [s for s in _REGISTRY.values() if kind is None or kind in s.kinds]
+    return sorted(specs, key=lambda s: -s.priority)
 
 
-def backend_for_leaf(leaf: Any) -> BackendSpec:
-    """The backend that produced ``leaf``; anything unregistered is dense."""
-    spec = _LEAF_DISPATCH.get(type(leaf))
+def backend_for_leaf(leaf: Any, kind: str) -> BackendSpec:
+    """The backend that produced ``leaf`` for the ``kind`` seam; anything
+    unregistered is dense."""
+    spec = _LEAF_DISPATCH.get((kind, type(leaf)))
     return spec if spec is not None else _REGISTRY["dense"]
 
 
 def apply_linear(w: Any, x: Any) -> Any:
     """x @ w through whichever backend produced ``w``."""
-    return backend_for_leaf(w).apply(w, x)
+    return backend_for_leaf(w, "linear").apply(w, x)
+
+
+def apply_conv2d(w: Any, x: Any, *, stride=(1, 1), padding="SAME") -> Any:
+    """conv2d(x, w), NHWC/HWIO, through whichever backend produced ``w``."""
+    return backend_for_leaf(w, "conv").apply(w, x, stride=stride, padding=padding)

@@ -1,19 +1,26 @@
 """Carries parameter trees from the reference package into the port.
 
 ``from_jax_tree`` takes a tree of dicts and lists whose leaves are arrays
-(numpy, or anything ``numpy.asarray`` accepts) or packed serving leaves
-(any object with ``packed``, ``scale`` and ``k`` attributes), and returns
-the same tree with torch tensors and :class:`PackedLinear` leaves. Array
-bits are kept as they are: int32 packed words keep their bit patterns.
+(numpy, or anything with ``__array__``), numbers, or the reference's serving
+leaves, and returns the same tree with torch tensors and the port's serving
+leaves. A serving leaf is recognised by its class name (``PackedLinear``,
+``XnorLinear``, ``XnorConv``, ``PackedConv``), never by its attributes:
+all four have ``packed`` and ``k``, but their word layouts differ. Any
+other class raises. Array bits are kept as they are: int32 packed words
+keep their bit patterns.
 """
 from __future__ import annotations
 
+import numbers
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.models.layers import PackedLinear
+from repro_torch.models.layers import PackedConv, PackedLinear, XnorConv, XnorLinear
+
+_LINEAR = {"PackedLinear": PackedLinear, "XnorLinear": XnorLinear}
+_CONV = {"XnorConv": XnorConv, "PackedConv": PackedConv}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -26,7 +33,13 @@ def from_jax_tree(tree: Any, *, device="cuda") -> Any:
         return {k: from_jax_tree(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_jax_tree(v, device=device) for v in tree]
-    if hasattr(tree, "packed") and hasattr(tree, "k"):
+    name = type(tree).__name__
+    if name in _LINEAR or name in _CONV:
+        packed = _tensor(tree.packed, device)
         scale = None if tree.scale is None else _tensor(tree.scale, device)
-        return PackedLinear(_tensor(tree.packed, device), scale, int(tree.k))
-    return _tensor(tree, device)
+        if name in _LINEAR:
+            return _LINEAR[name](packed, scale, int(tree.k))
+        return _CONV[name](packed, scale, tuple(int(s) for s in tree.ksize), int(tree.c_in))
+    if isinstance(tree, numbers.Number) or hasattr(tree, "__array__"):
+        return _tensor(tree, device)
+    raise TypeError(f"from_jax_tree: unknown leaf class {type(tree).__qualname__!r}")

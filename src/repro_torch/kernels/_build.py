@@ -6,7 +6,9 @@ compiled to an object in its own ``nvcc`` process, all started together,
 and the objects are linked into ``build/kernels/libbnn_kernels_<hash>.so``
 at the root of the checkout; the hash covers the sources and flags, so an
 edited source never loads a stale library. The first CUDA call builds; a
-failed build raises.
+failed build raises. ``kernel_device`` is every wrapper's device rule: CPU
+tensors take the plain version, CUDA tensors the kernel, anything else
+raises.
 """
 from __future__ import annotations
 
@@ -18,9 +20,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("binarize_pack.cu", "binary_matmul.cu", "errors.cu")
+SOURCES = ("binarize_pack.cu", "binary_matmul.cu", "sign_pack.cu", "xnor_matmul.cu",
+           "patch_pack.cu", "errors.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -95,9 +100,33 @@ def library() -> ctypes.CDLL:
     lib.bnn_binarize_pack.restype = i32
     lib.bnn_binary_matmul.argtypes = [vp, vp, vp, vp, i64, i64, i64, i32, vp]
     lib.bnn_binary_matmul.restype = i32
+    lib.bnn_sign_pack.argtypes = [vp, vp, i64, i64, i32, vp]
+    lib.bnn_sign_pack.restype = i32
+    lib.bnn_xnor_matmul.argtypes = [vp, vp, vp, vp, i64, i64, i64, i32, vp]
+    lib.bnn_xnor_matmul.restype = i32
+    lib.bnn_patch_pack.argtypes = [vp, vp] + [i64] * 6 + [i32] * 7 + [vp]
+    lib.bnn_patch_pack.restype = i32
     lib.bnn_error_string.argtypes = [i32]
     lib.bnn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_device(name: str, tensors) -> str:
+    """The device type the tensors share: ``cpu`` (plain version) or
+    ``cuda`` (kernel, on the current device, contiguous); raises otherwise."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs must share a device")
+    if dev.type == "cpu":
+        return "cpu"
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: inputs are on {dev}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+    return "cuda"
 
 
 def check(code: int, what: str) -> None:

@@ -47,17 +47,8 @@ def binary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"scale must be float32 of shape ({n},), got "
                          f"{scale.dtype} {tuple(scale.shape)}")
     tensors = [x, w_packed] + ([] if scale is None else [scale])
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("x, w_packed and scale must share a device")
-    if x.device.type == "cpu":
+    if _build.kernel_device("binary_matmul", tensors) == "cpu":
         return binary_matmul_plain(x, w_packed, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"binary_matmul runs on cpu or cuda tensors, not {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"x is on {x.device}, the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("binary_matmul needs contiguous inputs")
     if m > _MAX_M:
         raise ValueError(f"M={m} exceeds the kernel's grid limit {_MAX_M}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

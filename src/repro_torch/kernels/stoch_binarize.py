@@ -44,17 +44,8 @@ def binarize_pack(w: torch.Tensor, bits: torch.Tensor | None = None, *,
         if bits.shape != w.shape or bits.dtype != torch.int32:
             raise ValueError(f"bits must be int32 of shape {tuple(w.shape)}, got "
                              f"{bits.dtype} {tuple(bits.shape)}")
-        if bits.device != w.device:
-            raise ValueError(f"bits on {bits.device}, w on {w.device}")
-    if w.device.type == "cpu":
+    if _build.kernel_device("binarize_pack", [w] + ([bits] if stochastic else [])) == "cpu":
         return binarize_pack_plain(w, bits, stochastic=stochastic)
-    if w.device.type != "cuda":
-        raise ValueError(f"binarize_pack runs on cpu or cuda tensors, not {w.device}")
-    if w.device.index != torch.cuda.current_device():
-        raise ValueError(f"w is on {w.device}, the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    if not w.is_contiguous() or (stochastic and not bits.is_contiguous()):
-        raise ValueError("binarize_pack needs contiguous inputs")
     k, n = w.shape
     out = torch.empty(((k + PACK - 1) // PACK, n), dtype=torch.int32, device=w.device)
     lib = _build.library()

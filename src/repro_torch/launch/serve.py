@@ -1,14 +1,18 @@
-"""Serving driver: fixed-batch inference of the paper's MNIST FC net with
-bitpacked binary weights.
+"""Serving driver: fixed-batch inference of the paper's nets (the MNIST FC
+net and VGG-16 on CIFAR-10) with binary weights, and in ``xnor`` mode binary
+activations too.
 
 The master weights are compiled into an execution plan (``repro_torch.engine``)
-and packed: the hidden 2048x2048 projections go to the ``packed`` backend
-(K1 binarize + bitpack at pack time, K2 packed-weight matmul per batch),
-the input and classifier layers stay dense. Prints the weight bytes before
-and after packing, ms/batch and img/s.
+and packed with K1. Per batch, ``det``/``stoch`` run the hidden projections
+on K2 (packed weights) and VGG's binarized convs densely (``packed_conv``
+unpacks its words first); ``xnor`` runs the hidden projections on K3 + K4
+and VGG's conv blocks 2-5 on K5 + K4. The input and classifier layers stay
+dense. Prints the weight bytes before and after packing, ms/batch and img/s.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mnist_fc \
       --binarize det --slots 4 --requests 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16_cifar10 \
+      --binarize xnor --slots 4 --requests 64
 
 Runs on the CUDA device unless ``--device cpu`` is given; asking for CUDA
 where there is none raises.
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import statistics
 import time
 from typing import Any
@@ -24,12 +29,14 @@ from typing import Any
 import torch
 
 from repro_torch.configs import mnist_fc as C
+from repro_torch.configs import vgg16_cifar10 as VC
 from repro_torch.core.policy import make_paper_policy
 from repro_torch.data import synthetic as syn
 from repro_torch.engine import compile_plan
 from repro_torch.engine.plan import tree_leaves_with_path
-from repro_torch.models import mnist_fc
-from repro_torch.models.layers import PackedLinear
+from repro_torch.models import mnist_fc, vgg
+
+ARCHS = ("mnist_fc", "vgg16_cifar10")
 
 # untimed batches before the clock starts: the first forward in a process pays
 # for library initialisation and module loads, not for serving
@@ -46,12 +53,14 @@ def resolve_device(device) -> torch.device:
 
 
 def packed_param_bytes(params) -> tuple[int, int]:
-    """(dense bf16 bytes, served bytes): packed leaves count their words and
-    scale, every other leaf its bf16 size on both sides."""
+    """(dense bf16 bytes, served bytes): a serving leaf counts its master
+    shape on the dense side (never its word count, which includes pad words)
+    and its words and scale on the served side; every other leaf counts its
+    bf16 size on both sides."""
     dense = packed = 0
     for _, leaf in tree_leaves_with_path(params):
-        if isinstance(leaf, PackedLinear):
-            dense += leaf.k * leaf.packed.shape[-1] * 2
+        if hasattr(leaf, "master_shape"):
+            dense += math.prod(leaf.master_shape) * 2
             packed += leaf.nbytes()
         else:
             dense += leaf.numel() * 2
@@ -81,38 +90,52 @@ class ServeResult:
         return self.requests / self.seconds
 
 
+def build_model(arch: str, seed: int, *, device, smoke: bool = False):
+    """(master tree, apply fn, data kind, number of FC layers) of ``arch``,
+    with weights drawn from ``seed`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if arch == "mnist_fc":
+        tree = mnist_fc.init(gen, hidden=C.SMOKE_HIDDEN if smoke else C.HIDDEN,
+                             device=device)
+        return tree, mnist_fc.apply, "mnist", len(tree["params"]["layers"])
+    if arch == "vgg16_cifar10":
+        tree = vgg.init(gen, width_mult=VC.SMOKE_WIDTH_MULT if smoke else VC.WIDTH_MULT,
+                        device=device)
+        return tree, vgg.apply, "cifar", len(tree["params"]["fc"])
+    raise ValueError(f"arch must be one of {ARCHS}, not {arch!r}")
+
+
 def serve_classifier(*, arch: str = "mnist_fc", binarize: str = "det",
                      slots: int = C.BATCH_SIZE, requests: int = 64, seed: int = 0,
                      device="cuda", smoke: bool = False) -> ServeResult:
-    """Fixed-batch image-classification serving of the paper's FC net.
+    """Fixed-batch image-classification serving of the paper's nets.
     ``WARMUP_BATCHES`` untimed batches run first and are not counted as
-    requests."""
-    if arch != "mnist_fc":
-        raise ValueError(f"only mnist_fc is ported, not {arch!r}")
+    requests. The plan's mode decides the sign-activation forward."""
+    arch = arch.replace("-", "_")
     if slots < 1 or requests < 1:
         raise ValueError("slots and requests must be >= 1")
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    tree = mnist_fc.init(torch.Generator(device=dev).manual_seed(seed),
-                         hidden=C.SMOKE_HIDDEN if smoke else C.HIDDEN, device=dev)
+    tree, apply_fn, kind, n_fc = build_model(arch, seed, device=dev, smoke=smoke)
     params, state = tree["params"], tree["state"]
-    plan = compile_plan(params, make_paper_policy(len(params["layers"])), binarize)
+    plan = compile_plan(params, make_paper_policy(n_fc), binarize)
     params = plan.pack(params, generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    binary_act = plan.mode == "xnor"
     dense_b, packed_b = packed_param_bytes(params)
     print(f"packed weights ({plan.mode}): {dense_b / 1e6:.1f}MB (bf16 dense) -> "
           f"{packed_b / 1e6:.1f}MB ({dense_b / max(packed_b, 1):.1f}x smaller)")
 
-    spec = syn.SyntheticSpec("mnist", batch_size=slots, seed=seed)
+    spec = syn.SyntheticSpec(kind, batch_size=slots, seed=seed)
     with torch.inference_mode():
         for _ in range(WARMUP_BATCHES):
             x, _ = syn.train_batch(spec, 0, device=dev)
-            torch.argmax(mnist_fc.apply(params, state, x), dim=-1)
+            torch.argmax(apply_fn(params, state, x, binary_act=binary_act), dim=-1)
         sync()
         t0, done, lat = time.perf_counter(), 0, []
         for step in range(-(-requests // slots)):
             x, _ = syn.train_batch(spec, step, device=dev)
             t1 = time.perf_counter()
-            logits = mnist_fc.apply(params, state, x)
+            logits = apply_fn(params, state, x, binary_act=binary_act)
             preds = torch.argmax(logits, dim=-1)
             sync()
             lat.append(time.perf_counter() - t1)
@@ -129,8 +152,9 @@ def serve_classifier(*, arch: str = "mnist_fc", binarize: str = "det",
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="mnist_fc", choices=["mnist_fc"])
-    ap.add_argument("--binarize", default="det", choices=["det", "stoch"])
+    ap.add_argument("--arch", default="mnist_fc",
+                    choices=list(ARCHS) + ["vgg16-cifar10"])
+    ap.add_argument("--binarize", default="det", choices=["det", "stoch", "xnor"])
     ap.add_argument("--slots", type=int, default=C.BATCH_SIZE,
                     help="images per batch (the paper's batch is 4)")
     ap.add_argument("--requests", type=int, default=64)
@@ -138,7 +162,8 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cpu runs the plain versions")
     ap.add_argument("--smoke", action="store_true",
-                    help=f"hidden widths {C.SMOKE_HIDDEN} instead of {C.HIDDEN}")
+                    help=f"mnist_fc hidden widths {C.SMOKE_HIDDEN} instead of {C.HIDDEN}; "
+                         f"vgg16_cifar10 width_mult {VC.SMOKE_WIDTH_MULT}")
     args = ap.parse_args(argv)
     return serve_classifier(arch=args.arch, binarize=args.binarize, slots=args.slots,
                             requests=args.requests, seed=args.seed, device=args.device,

@@ -1,35 +1,102 @@
-"""Base layers: linear application (dense or bitpacked binary), eval-mode
-batch norm and the He initializer.
+"""Base layers: linear and conv application (dense, bitpacked binary, or
+fully binary), eval-mode batch norm and the He initializer.
 
-Models are binarization-agnostic: the serving path substitutes
-:class:`PackedLinear` leaves for master weights, and ``apply_linear``
-dispatches on the leaf type through the ``repro_torch.engine`` registry, so
-the same model code serves every datapath.
+Models are binarization-agnostic: the serving path substitutes serving
+leaves (:class:`PackedLinear`, :class:`XnorLinear`, :class:`XnorConv`,
+:class:`PackedConv`) for master weights, and ``apply_linear`` /
+``apply_conv2d`` dispatch on the leaf type through the ``repro_torch.engine``
+registry, so the same model code serves every datapath. Convolutions are
+NHWC/HWIO at every interface, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+
+
+def _nbytes(packed: torch.Tensor, scale: torch.Tensor | None) -> int:
+    """Bytes stored by a serving leaf: the packed words plus the scale."""
+    return packed.numel() * 4 + (0 if scale is None else scale.numel() * 4)
 
 
 @dataclasses.dataclass
-class PackedLinear:
-    """Bitpacked binary weight: ``unpack(packed)[:k] * scale`` of shape (k, N)."""
+class _LinearLeaf:
+    """Bitpacked (K, N) weight: words, optional per-column scale, true K."""
 
     packed: torch.Tensor             # (ceil(k / 32), N) int32
     scale: torch.Tensor | None       # (N,) f32 or None
     k: int                           # true contraction size
 
-    def nbytes(self) -> int:
-        """Bytes stored: the packed words plus the scale."""
-        s = 0 if self.scale is None else self.scale.numel() * 4
-        return self.packed.numel() * 4 + s
+    @property
+    def master_shape(self) -> tuple[int, ...]:
+        """The master weight's (K, N), whatever pad words the layout holds."""
+        return (self.k, self.packed.shape[-1])
 
-    def to(self, device) -> "PackedLinear":
-        return PackedLinear(self.packed.to(device),
-                            None if self.scale is None else self.scale.to(device),
-                            self.k)
+    def nbytes(self) -> int:
+        return _nbytes(self.packed, self.scale)
+
+    def to(self, device):
+        return type(self)(self.packed.to(device),
+                          None if self.scale is None else self.scale.to(device), self.k)
+
+
+@dataclasses.dataclass
+class PackedLinear(_LinearLeaf):
+    """Bitpacked binary weight: ``unpack(packed)[:k] * scale`` of shape (k, N)."""
+
+
+@dataclasses.dataclass
+class XnorLinear(_LinearLeaf):
+    """Fully-binary linear: weights bitpacked like :class:`PackedLinear`, and
+    activations sign-binarized and bitpacked on the fly, so the dot product
+    is an integer XNOR-popcount (``repro_torch.xnor``)."""
+
+
+@dataclasses.dataclass
+class _ConvLeaf:
+    """Bitpacked (kh, kw, C, N) conv kernel: words, optional per-channel
+    scale, kernel size and input channels."""
+
+    packed: torch.Tensor             # int32 words, layout set by the subclass
+    scale: torch.Tensor | None       # (N,) f32 or None
+    ksize: tuple[int, int]           # (kh, kw)
+    c_in: int                        # input channels
+
+    @property
+    def k(self) -> int:
+        """True contraction length kh*kw*c_in."""
+        return self.ksize[0] * self.ksize[1] * self.c_in
+
+    @property
+    def master_shape(self) -> tuple[int, ...]:
+        """The master (kh, kw, C, N), with the true C."""
+        return (*self.ksize, self.c_in, self.packed.shape[-1])
+
+    def nbytes(self) -> int:
+        return _nbytes(self.packed, self.scale)
+
+    def to(self, device):
+        return type(self)(self.packed.to(device),
+                          None if self.scale is None else self.scale.to(device),
+                          self.ksize, self.c_in)
+
+
+@dataclasses.dataclass
+class XnorConv(_ConvLeaf):
+    """Fully-binary 2-D convolution: the kernel is bitpacked along kh*kw*C in
+    the per-tap word layout, (kh*kw*ceil(c_in/32), N) int32
+    (``repro_torch.xnor.conv``); at apply time the input is packed into
+    im2col patches on the fly."""
+
+
+@dataclasses.dataclass
+class PackedConv(_ConvLeaf):
+    """Bitpacked binary-weight conv with real-valued activations: the
+    kernel is bitpacked along the flattened kh*kw*C axis (flat FC word
+    layout, (ceil(kh*kw*c_in/32), N) int32) and unpacked to +-1 [* scale]
+    for the ordinary dense conv at apply time."""
 
 
 def apply_linear(w, x: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -40,6 +107,44 @@ def apply_linear(w, x: torch.Tensor, bias: torch.Tensor | None = None) -> torch.
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def apply_conv2d(w, x: torch.Tensor, bias: torch.Tensor | None = None, *,
+                 stride=(1, 1), padding="SAME") -> torch.Tensor:
+    """conv2d(x, w) (+ bias), NHWC/HWIO; the leaf type of ``w`` selects its
+    backend."""
+    from repro_torch.engine import registry
+
+    out = registry.apply_conv2d(w, x, stride=stride, padding=padding)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride, pads) -> torch.Tensor:
+    """conv2d of an NHWC input with an HWIO kernel and explicit
+    ((ph0, ph1), (pw0, pw1)) zero padding, returned NHWC. ``F.conv2d`` wants
+    NCHW/OIHW, so the permutes happen here and nowhere else. cuDNN's TF32 is
+    switched off for the call (its default is on), so an f32 conv stays full
+    f32 on the card; the global flag is restored after."""
+    (ph0, ph1), (pw0, pw1) = pads
+    xc = x.permute(0, 3, 1, 2)
+    if (ph0, pw0) == (ph1, pw1):
+        pad = (ph0, pw0)
+    else:
+        xc, pad = F.pad(xc, (pw0, pw1, ph0, ph1)), 0
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=tuple(stride), padding=pad)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return out.permute(0, 2, 3, 1)
+
+
+def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool, stride 2, VALID, NHWC in and out."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
 def he_normal(generator: torch.Generator, shape, *, device,

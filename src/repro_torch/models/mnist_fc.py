@@ -4,7 +4,9 @@
 ReLU between layers, He initialization (the paper's section III-A). The
 parameter tree has the reference's keys, so plan paths such as
 ``layers/1/kernel`` match its manifests. ``apply`` is the eval-mode forward
-and does not care whether a kernel leaf is a dense tensor or packed.
+and does not care whether a kernel leaf is a dense tensor or packed; with
+``binary_act`` the hidden non-linearity is the Eq.-1 sign (the fully-binary
+``xnor`` path).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.binarize import deterministic_binarize
 from repro_torch.models.layers import apply_linear, batch_norm, he_normal
 
 DEFAULT_HIDDEN = (2048, 2048, 2048)
@@ -40,13 +43,18 @@ def init(generator: torch.Generator, hidden=DEFAULT_HIDDEN, in_dim: int = IN_DIM
     return {"params": params, "state": state}
 
 
-def apply(params: dict, state: dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, 784) -> logits (B, 10), eval mode."""
+def apply(params: dict, state: dict, x: torch.Tensor, *,
+          binary_act: bool = False) -> torch.Tensor:
+    """x: (B, 784) -> logits (B, 10), eval mode.
+
+    With ``binary_act`` every hidden activation is the Eq.-1 sign (+-1), so
+    hidden layers packed as ``XnorLinear`` compute exact XNOR-popcount dot
+    products; the first layer still sees the real-valued input."""
     h = x
     n = len(params["layers"])
     for i, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
         h = apply_linear(lp["kernel"], h, lp["bias"])
         h = batch_norm(h, lp["bn_scale"], lp["bn_bias"], ls["mean"], ls["var"])
         if i < n - 1:
-            h = torch.relu(h)
+            h = deterministic_binarize(h) if binary_act else torch.relu(h)
     return h

@@ -1,0 +1,47 @@
+"""Public wrappers of the XNOR conv engine: ``sign_and_pack_patches`` (K5)
+and ``xnor_conv2d``, which lowers a binary convolution onto the K4 popcount
+matmul with the exact zero-padding border correction and the epilogue in
+plain torch (they are jnp in the reference).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.xnor import ops as xops
+from repro_torch.xnor.conv.kernel import patch_pack
+from repro_torch.xnor.conv.packing import (border_correction, conv_epilogue,
+                                           conv_geometry, conv_k, patch_words)
+
+
+def sign_and_pack_patches(x: torch.Tensor, *, ksize, stride=(1, 1),
+                          padding="SAME") -> torch.Tensor:
+    """Fused sign-binarize + bitpack of im2col patches:
+    (B, H, W, C) -> (B, OH, OW, kh*kw*ceil(C/32)) int32. Spatial zero padding
+    and per-tap channel padding both carry sign bit 0."""
+    return patch_pack(x.contiguous(), ksize=tuple(ksize), stride=tuple(stride),
+                      padding=padding)
+
+
+def xnor_conv2d(x: torch.Tensor, w_packed: torch.Tensor,
+                scale: torch.Tensor | None = None, *, ksize, c_in: int,
+                stride=(1, 1), padding="SAME", out_dtype=None) -> torch.Tensor:
+    """Fully-binary 2-D convolution, NHWC x (packed HWIO) -> NHWC.
+
+    ``w_packed`` is a ``pack_conv_kernel``-layout (kh*kw*ceil(c_in/32), N)
+    int32 weight. Exactly ``conv(sign(x), sign(w))`` with zero padding
+    (border pixels contribute 0, not -1), optionally times a per-channel
+    ``scale``. ``out_dtype`` defaults to int32, or f32 when scaled."""
+    ksize, stride = tuple(ksize), tuple(stride)
+    b, h, w, c = x.shape
+    if c != c_in:
+        raise ValueError(f"x has C={c}, packed kernel expects C={c_in}")
+    if w_packed.shape[0] != patch_words(ksize, c_in):
+        raise ValueError(f"w_packed has {w_packed.shape[0]} words, layout needs "
+                         f"{patch_words(ksize, c_in)} (k={ksize}, C={c_in})")
+    n = w_packed.shape[-1]
+    oh, ow, _ = conv_geometry(h, w, ksize, stride, padding)
+    a = sign_and_pack_patches(x, ksize=ksize, stride=stride, padding=padding)
+    dot = xops.xnor_matmul_packed(a.reshape(b * oh * ow, -1), w_packed, None,
+                                  k=conv_k(ksize, c_in), allow_extra_words=True)
+    corr = border_correction(w_packed, h, w, ksize, stride, padding, c_in)
+    return conv_epilogue(dot, corr, scale, out_dtype, b, oh, ow, n)

@@ -1,0 +1,98 @@
+"""K3 and K4 wrappers: fused sign + bitpack of activations, and the
+XNOR-popcount matmul over packed operands.
+
+* ``sign_pack(x)``: (M, K) f32/bf16 -> (M, ceil(K/32)) int32, bit = x > 0
+  (``csrc/sign_pack.cu``).
+* ``xnor_matmul(a, w, scale, k_total=k)``: a (M, W) int32 x w (W, N) int32
+  -> ``k - 2 * popcount(a XOR w)`` as int32, or f32(dot) * scale
+  (``csrc/xnor_matmul.cu``). W is taken as given: surplus words that are 0
+  on both sides cancel.
+
+A CPU tensor runs the plain version in ``xnor.ref``; a CUDA tensor launches
+the kernel or raises. ``sign_pack.launches`` and ``xnor_matmul.launches``
+count kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.packing import PACK
+from repro_torch.kernels import _build
+from repro_torch.xnor import ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_N = 65535 * 64   # grid.y limit times the block's columns
+
+
+def sign_pack_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of :func:`sign_pack`, on any device."""
+    return ref.sign_pack_ref(x)
+
+
+def sign_pack(x: torch.Tensor) -> torch.Tensor:
+    """(M, K) f32/bf16 -> (M, ceil(K/32)) int32, packed along the last axis."""
+    if x.ndim != 2 or x.shape[1] == 0:
+        raise ValueError(f"x must be an (M, K) matrix with K >= 1, got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if _build.kernel_device("sign_pack", [x]) == "cpu":
+        return sign_pack_plain(x)
+    m, k = x.shape
+    out = torch.empty((m, (k + PACK - 1) // PACK), dtype=torch.int32, device=x.device)
+    if m == 0:
+        return out
+    code = _build.library().bnn_sign_pack(
+        x.data_ptr(), out.data_ptr(), m, k, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "sign_pack")
+    sign_pack.launches += 1
+    return out
+
+
+sign_pack.launches = 0
+
+
+def xnor_matmul_plain(a_packed: torch.Tensor, w_packed: torch.Tensor,
+                      scale: torch.Tensor | None = None, *, k_total: int) -> torch.Tensor:
+    """The plain torch version of :func:`xnor_matmul`, on any device."""
+    return ref.xnor_matmul_ref(a_packed, w_packed, k_total, scale)
+
+
+def xnor_matmul(a_packed: torch.Tensor, w_packed: torch.Tensor,
+                scale: torch.Tensor | None = None, *, k_total: int) -> torch.Tensor:
+    """(M, W) int32 x (W, N) int32 [* (N,) f32] -> (M, N) int32 (f32 if scaled)."""
+    if a_packed.ndim != 2 or w_packed.ndim != 2:
+        raise ValueError(f"a_packed must be (M, W) and w_packed (W, N), got "
+                         f"{tuple(a_packed.shape)} and {tuple(w_packed.shape)}")
+    m, words = a_packed.shape
+    if w_packed.shape[0] != words or words == 0 or w_packed.shape[1] == 0:
+        raise ValueError(f"packed K mismatch: a has {words} words, w has "
+                         f"{w_packed.shape[0]} (needs equal counts >= 1 and N >= 1)")
+    n = w_packed.shape[1]
+    if a_packed.dtype != torch.int32 or w_packed.dtype != torch.int32:
+        raise TypeError(f"packed operands must be int32, got {a_packed.dtype} "
+                        f"and {w_packed.dtype}")
+    if not 0 <= k_total <= words * PACK:
+        raise ValueError(f"k_total={k_total} outside [0, {words * PACK}]")
+    if scale is not None and (scale.shape != (n,) or scale.dtype != torch.float32):
+        raise ValueError(f"scale must be float32 of shape ({n},), got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    tensors = [a_packed, w_packed] + ([] if scale is None else [scale])
+    if _build.kernel_device("xnor_matmul", tensors) == "cpu":
+        return xnor_matmul_plain(a_packed, w_packed, scale, k_total=k_total)
+    if n > _MAX_N:
+        raise ValueError(f"N={n} exceeds the kernel's grid limit {_MAX_N}")
+    out = torch.empty((m, n), dtype=torch.int32 if scale is None else torch.float32,
+                      device=a_packed.device)
+    if m == 0:
+        return out
+    code = _build.library().bnn_xnor_matmul(
+        a_packed.data_ptr(), w_packed.data_ptr(),
+        None if scale is None else scale.data_ptr(), out.data_ptr(), m, words, n,
+        k_total, torch.cuda.current_stream(a_packed.device).cuda_stream)
+    _build.check(code, "xnor_matmul")
+    xnor_matmul.launches += 1
+    return out
+
+
+xnor_matmul.launches = 0

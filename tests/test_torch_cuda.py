@@ -16,6 +16,10 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
 from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 from repro_torch.launch import serve
+from repro_torch.models.layers import conv2d_nhwc
+from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
+from repro_torch.xnor.kernel import (sign_pack, sign_pack_plain, xnor_matmul,
+                                     xnor_matmul_plain)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)   # only the order of the f32 sum differs
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -140,3 +144,143 @@ def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
         serve.serve_classifier(smoke=True, requests=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1"])
+
+
+def _acts(shape, seed, device, dtype=torch.float32):
+    """Normal activations with 0.0, -0.0 and NaN planted."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    x.reshape(-1)[: min(x.size, 3)] = np.array([0.0, -0.0, np.nan], np.float32)[: x.size]
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def _words(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    w.reshape(-1)[:4] = np.array([0, -1, -(2**31), 2**31 - 1], np.int32)[: w.size]
+    return torch.from_numpy(w).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(4, 2048), (4, 512), (5, 100), (7, 33), (1024, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain(cuda, m, k, dtype):
+    x = _acts((m, k), m + k, cuda, dtype)
+    got = sign_pack(x)
+    assert got.shape == (m, (k + 31) // 32)
+    assert torch.equal(got, sign_pack_plain(x))
+
+
+# (M, words, N, k): mnist_fc's hidden layers, VGG conv/2..12 and fc/1 at batch
+# 4, ragged M/N, K % 32 != 0, and surplus words (allow_extra_words layouts)
+K4_SHAPES = [(4, 64, 2048, 2048), (1024, 18, 128, 576), (256, 72, 256, 2304),
+             (16, 144, 512, 4608), (4, 16, 512, 512), (5, 4, 300, 100),
+             (33, 9, 65, 9 * 8), (3, 1, 1, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,words,n,k", K4_SHAPES)
+@pytest.mark.parametrize("scaled", [False, True])
+def test_k4_matches_plain(cuda, m, words, n, k, scaled):
+    a, w = _words((m, words), m + n, cuda), _words((words, n), words + k, cuda)
+    scale = (torch.from_numpy(np.random.default_rng(n).uniform(0.5, 2, n)
+                              .astype(np.float32)).to(cuda) if scaled else None)
+    got = xnor_matmul(a, w, scale, k_total=k)
+    assert got.dtype == (torch.float32 if scaled else torch.int32)
+    assert torch.equal(got, xnor_matmul_plain(a, w, scale, k_total=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ksize,stride,pad", [
+    ((4, 16, 16, 64), (3, 3), (1, 1), "SAME"), ((4, 2, 2, 512), (3, 3), (1, 1), "SAME"),
+    ((2, 9, 7, 40), (3, 3), (2, 2), "SAME"), ((1, 7, 7, 8), (3, 3), (2, 2), "VALID"),
+    ((2, 10, 6, 24), (5, 3), (2, 1), ((2, 0), (1, 1))),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_matches_plain(cuda, shape, ksize, stride, pad, dtype):
+    x = _acts(shape, sum(shape), cuda, dtype)
+    k = dict(ksize=ksize, stride=stride, padding=pad)
+    assert torch.equal(patch_pack(x, **k), patch_pack_plain(x, **k))
+
+
+@pytest.mark.cuda
+def test_dense_conv_stays_full_f32(cuda):
+    """cuDNN would run an f32 conv in TF32 by default; the dense conv apply
+    switches that off, so it matches an f64 conv to f32 precision."""
+    torch.backends.cudnn.allow_tf32 = True
+    x = _acts((4, 32, 32, 64), 1, cuda).nan_to_num()
+    w = _acts((3, 3, 64, 64), 2, cuda).nan_to_num()
+    pads = ((1, 1), (1, 1))
+    got = conv2d_nhwc(x, w, (1, 1), pads)
+    want = conv2d_nhwc(x.double(), w.double(), (1, 1), pads)
+    assert torch.backends.cudnn.allow_tf32          # the global flag is restored
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode,per_batch,packs", [
+    ("mnist_fc", "xnor", {"sign_pack": 1, "xnor_matmul": 1}, 1),   # one hidden xnor layer
+    ("vgg16_cifar10", "det", {"binary_matmul": 1}, 1),
+    ("vgg16_cifar10", "stoch", {"binary_matmul": 1}, 13),
+    ("vgg16_cifar10", "xnor", {"sign_pack": 1, "xnor_matmul": 12, "patch_pack": 11}, 12),
+])
+def test_new_serves_run_the_kernels(cuda, arch, mode, per_batch, packs):
+    counters = {"binarize_pack": binarize_pack, "binary_matmul": binary_matmul,
+                "sign_pack": sign_pack, "xnor_matmul": xnor_matmul,
+                "patch_pack": patch_pack}
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve.serve_classifier(arch=arch, binarize=mode, slots=4, requests=8,
+                                 smoke=True)
+    batches = res.warmup + len(res.batch_seconds)
+    want = {name: per_batch.get(name, 0) * batches for name in counters}
+    want["binarize_pack"] = packs
+    assert {name: fn.launches for name, fn in counters.items()} == want
+    assert res.last_logits.device.type == "cuda" and torch.isfinite(res.last_logits).all()
+
+
+def test_new_wrappers_take_the_plain_version_on_cpu():
+    counts = (sign_pack.launches, xnor_matmul.launches, patch_pack.launches)
+    x = _acts((3, 40), 0, "cpu")
+    assert torch.equal(sign_pack(x), sign_pack_plain(x))
+    a, w = _words((3, 2), 1, "cpu"), _words((2, 5), 2, "cpu")
+    assert torch.equal(xnor_matmul(a, w, k_total=40), xnor_matmul_plain(a, w, k_total=40))
+    x4 = _acts((1, 4, 4, 8), 3, "cpu")
+    assert torch.equal(patch_pack(x4, ksize=(3, 3)), patch_pack_plain(x4, ksize=(3, 3)))
+    assert (sign_pack.launches, xnor_matmul.launches, patch_pack.launches) == counts
+
+
+@pytest.mark.parametrize("call", [
+    lambda: sign_pack(torch.empty(2, 64, device="meta")),
+    lambda: xnor_matmul(torch.empty(2, 2, dtype=torch.int32, device="meta"),
+                        torch.empty(2, 8, dtype=torch.int32, device="meta"), k_total=64),
+    lambda: patch_pack(torch.empty(1, 4, 4, 8, device="meta"), ksize=(3, 3)),
+])
+def test_new_wrappers_raise_on_other_devices(call):
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        call()
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: sign_pack(torch.zeros(2, 64, dtype=torch.float64)), TypeError),
+    (lambda: sign_pack(torch.zeros(2, 3, 64)), ValueError),
+    (lambda: xnor_matmul(torch.zeros(2, 2, dtype=torch.int32),
+                         torch.zeros(3, 8, dtype=torch.int32), k_total=64), ValueError),
+    (lambda: xnor_matmul(torch.zeros(2, 2, dtype=torch.int32),
+                         torch.zeros(2, 8, dtype=torch.int32), k_total=65), ValueError),
+    (lambda: xnor_matmul(torch.zeros(2, 2), torch.zeros(2, 8), k_total=64), TypeError),
+    (lambda: xnor_matmul(torch.zeros(2, 2, dtype=torch.int32),
+                         torch.zeros(2, 8, dtype=torch.int32), torch.zeros(7),
+                         k_total=64), ValueError),
+    (lambda: patch_pack(torch.zeros(4, 4, 8), ksize=(3, 3)), ValueError),
+])
+def test_new_wrappers_check_their_inputs(call, err):
+    with pytest.raises(err):
+        call()
+
+
+def test_vgg_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "vgg16_cifar10", "--binarize", "xnor", "--smoke",
+                    "--requests", "1"])

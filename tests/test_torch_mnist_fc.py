@@ -116,10 +116,9 @@ def test_dense_forward_matches_reference():
 
 
 def test_interop_keeps_int32_bit_patterns():
-    class Leaf:          # duck-typed like the reference's PackedLinear
-        packed = np.array([[-1, -(2**31), 2**31 - 1, 5]], np.int32)
-        scale = None
-        k = 32
+    # a stand-in named like the reference's leaf class, which interop keys on
+    Leaf = type("PackedLinear", (), dict(
+        packed=np.array([[-1, -(2**31), 2**31 - 1, 5]], np.int32), scale=None, k=32))
 
     out = from_jax_tree({"a": [Leaf()], "b": np.arange(3, dtype=np.int32)}, device="cpu")
     assert out["a"][0].packed.dtype == torch.int32 and out["a"][0].scale is None
@@ -148,7 +147,7 @@ def test_plan_pack_rejects_a_mismatched_tree():
     with pytest.raises(ValueError, match="shape mismatch"):
         plan.pack(other["params"])
     with pytest.raises(ValueError, match="mode"):
-        compile_plan(tree["params"], make_paper_policy(3), "xnor")
+        compile_plan(tree["params"], make_paper_policy(3), "ternary")
 
 
 def test_synthetic_batches_are_deterministic_images():
