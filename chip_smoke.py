@@ -8,11 +8,15 @@ Phases, each on its own lines of output; any failure exits non-zero:
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the CUDA kernels K1-K5 from ``src/repro_torch/kernels/csrc`` (timed);
 3. K1 binarize + bitpack against its plain version, det and stoch with the
-   same words, at 2048x2048 and ragged shapes: the words must be equal;
+   same words, at 2048x2048 and ragged shapes: the words must be equal; and
+   K1's on-chip variant (in-kernel Philox words, ``on_chip_prng=True``)
+   against its plain version, bit for bit, at 2048x2048, 512x512 and
+   ragged shapes, with the Eq.-3 frequency within 4 sigma and the exact
+   endpoints on the card;
 4. K2 packed-weight matmul against its plain version, f32 and bf16, with
-   and without scale, at M in {4, 256} x 2048 x 2048 and a ragged shape,
-   within rtol 1e-4 / atol 1e-3 (f32: only the order of the f32 sum
-   differs) or 3e-2 (bf16);
+   and without scale, at M in {4, 256} x 2048 x 2048, 4 x 512 x 512 and a
+   ragged shape, within rtol 1e-4 / atol 1e-3 (f32: only the order of the
+   f32 sum differs) or 3e-2 (bf16); and two calls bit-identical;
 5. K3 sign + pack, K4 XNOR-popcount matmul and K5 patch pack against their
    plain versions, word for word and bit for bit, at every serving shape of
    the xnor paths and at ragged shapes (K % 32 != 0, M not a multiple of 8,
@@ -32,8 +36,9 @@ Phases, each on its own lines of output; any failure exits non-zero:
    count of sign activations that differ from it are printed;
 7. time each kernel at the path shapes with CUDA events, beside its plain
    version, a library call where one computes the same function, and the
-   least time the card could take; and each xnor conv layer as a whole
-   against F.conv2d on +-1 f32.
+   least time the card could take (the on-chip K1 variant, which no path
+   runs, beside the operand route: torch.randint words + K1); and each
+   xnor conv layer as a whole against F.conv2d on +-1 f32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -58,6 +63,12 @@ PEAK_BF16_FLOP_PER_S = 989e12
 # slowest of the XOR / popc / add each word needs; 132 SMs at the H100 SXM's
 # 1,980 MHz maximum SM clock.
 PEAK_POPC_WORDS_PER_S = 16 * 132 * 1.98e9
+# 32-bit integer multiply, add and logic: 64 a clock per SM on compute
+# capability 9.0 (same table), at the same clock.
+PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Integer instructions per Philox4x32-10 call: 10 rounds of four multiply
+# halves, two three-way XORs and two key bumps (csrc/binarize_pack.cu).
+PHILOX_INT32_OPS = 10 * 8
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -123,12 +134,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 references in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    counters = {"binarize_pack": binarize_pack, "binary_matmul": binary_matmul,
-                "sign_pack": sign_pack, "xnor_matmul": xnor_matmul,
-                "patch_pack": patch_pack}
+    # name -> (wrapper, its counter attribute); binarize_pack counts its
+    # on-chip-PRNG launches apart as well
+    counters = {"binarize_pack": (binarize_pack, "launches"),
+                "binarize_pack_on_chip": (binarize_pack, "launches_on_chip"),
+                "binary_matmul": (binary_matmul, "launches"),
+                "sign_pack": (sign_pack, "launches"), "xnor_matmul": (xnor_matmul, "launches"),
+                "patch_pack": (patch_pack, "launches")}
 
     def launch_counts() -> dict[str, int]:
-        return {name: fn.launches for name, fn in counters.items()}
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
     @contextlib.contextmanager
     def plain_kernels():
@@ -231,6 +246,13 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(1234)
     errs: dict[str, float] = {}
 
+    def exact(tag, got, want):
+        torch.cuda.synchronize()
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        print(f"  {tag}: out {tuple(got.shape)} {str(got.dtype)[6:]}, mismatched {bad}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag} differs from its plain version")
+
     # 3. K1 against its plain version
     print("== K1 binarize_pack vs plain (exact)")
     for (k, n), dtype in [((2048, 2048), torch.float32), ((784, 2048), torch.float32),
@@ -244,19 +266,37 @@ def main() -> int:
         bits[:, :3] = -1 - top                   # uint32 words >= 2^32 - 128
         for stoch in (False, True):
             mode = "stoch" if stoch else "det"
-            got = binarize_pack(w, bits if stoch else None, stochastic=stoch)
-            want = binarize_pack_plain(w, bits if stoch else None, stochastic=stoch)
-            torch.cuda.synchronize()
-            tag = f"{mode} {k}x{n} {str(dtype)[6:]}"
-            print(f"  {tag}: words {tuple(got.shape)}, mismatched "
-                  f"{int((got != want).sum())}")
-            if not torch.equal(got, want):
-                raise AssertionError(f"K1 {tag} differs from its plain version")
+            exact(f"K1 {mode} {k}x{n} {str(dtype)[6:]}",
+                  binarize_pack(w, bits if stoch else None, stochastic=stoch),
+                  binarize_pack_plain(w, bits if stoch else None, stochastic=stoch))
             errs[f"k1_{mode}"] = 0.0
+
+    print("== K1 binarize_pack on-chip Philox variant vs plain (exact)")
+    for (k, n), dtype in [((2048, 2048), torch.float32), ((2048, 2048), torch.bfloat16),
+                          ((512, 512), torch.float32), ((100, 300), torch.float32),
+                          ((33, 1), torch.bfloat16)]:
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.7).to(dtype)
+        seed = k * 7919 + n
+        exact(f"K1 on-chip {k}x{n} {str(dtype)[6:]}",
+              binarize_pack(w, stochastic=True, seed=seed, on_chip_prng=True),
+              binarize_pack_plain(w, None, stochastic=True, seed=seed, on_chip_prng=True))
+    # 512 columns per level; p = clip((w + 1) / 2, 0, 1); p = 0 and 1 must be exact
+    w_levels = [-1.5, -1.0, -0.8, -0.5, 0.0, 0.5, 0.8, 1.0, 1.5]
+    ps = [min(max((v + 1) / 2, 0.0), 1.0) for v in w_levels]
+    w = torch.tensor(w_levels, device=dev).repeat_interleave(512)[None, :].expand(2048, -1)
+    ones = unpack_bits(binarize_pack(w.contiguous(), stochastic=True, seed=99,
+                                     on_chip_prng=True)) > 0
+    fracs = ones.float().reshape(2048, len(ps), 512).mean(dim=(0, 2)).tolist()
+    print("  Eq.-3 frequency over 2048x512 words per level: " + ", ".join(
+        f"p={p} -> {f:.5f}" for p, f in zip(ps, fracs)))
+    for p, f in zip(ps, fracs):
+        if abs(f - p) > 4 * (p * (1 - p) / (2048 * 512)) ** 0.5:
+            raise AssertionError(f"on-chip K1: frequency {f} at p={p} is off by > 4 sigma")
+    errs["k1_onchip"] = 0.0
 
     # 4. K2 against its plain version
     print("== K2 binary_matmul vs plain")
-    for m, k, n in [(4, 2048, 2048), (256, 2048, 2048), (5, 100, 300)]:
+    for m, k, n in [(4, 2048, 2048), (4, 512, 512), (256, 2048, 2048), (5, 100, 300)]:
         x32 = torch.randn(m, k, generator=g, device=dev)
         wp = binarize_pack(torch.randn(k, n, generator=g, device=dev), stochastic=False)
         scale = torch.rand(n, generator=g, device=dev) + 0.5
@@ -273,7 +313,11 @@ def main() -> int:
                       f"{want.abs().max().item():.3e})")
                 torch.testing.assert_close(got, want, **tol, msg=f"K2 {tag}")
                 if m == 4 and dtype == torch.float32 and s is not None:
-                    errs["k2"] = err
+                    errs[f"k2_{k}"] = err
+                again = [binary_matmul(x, wp, s) for _ in range(3)]
+                if not all(torch.equal(a, got) for a in again):
+                    raise AssertionError(f"K2 {tag}: two calls differ")
+    print("  every case bit-identical over 4 calls")
 
     # 5. K3, K4, K5 against their plain versions, exact
     def acts(shape, dtype=torch.float32):
@@ -285,13 +329,6 @@ def main() -> int:
 
     def words(shape):
         return random_words(shape, g, dev)
-
-    def exact(tag, got, want):
-        torch.cuda.synchronize()
-        bad = int((got != want).sum()) if got.shape == want.shape else -1
-        print(f"  {tag}: out {tuple(got.shape)} {str(got.dtype)[6:]}, mismatched {bad}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"{tag} differs from its plain version")
 
     print("== K3 sign_pack vs plain (exact; 0.0, -0.0, NaN planted)")
     for (m, k) in [(4, 2048), (4, 512), (5, 100), (7, 33), (1024, 96)]:
@@ -340,8 +377,8 @@ def main() -> int:
     serve_ms = {}
     for arch, mode, per_batch, packs in SERVES:
         print(f"== serve {arch} full width, --binarize {mode}, 4 slots, 64 requests")
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         res = serve_classifier(arch=arch, binarize=mode, slots=4, requests=64, seed=0,
                                device="cuda")
         got = launch_counts()
@@ -471,19 +508,48 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "device_ms": dev_ms})
 
-    wk = torch.randn(k, n, generator=g, device=dev)
-    wp = binarize_pack(wk, stochastic=False)
-    scale = wk.abs().mean(dim=0)
-    w_pm1 = unpack_bits(wp)                      # the library call's operand
-    w_pm1_bf16 = w_pm1.to(torch.bfloat16)
-    for m in (4, 256):
+    # the on-chip variant (no path runs it), beside the operand route it
+    # would replace: torch.randint words, then K1 on them
+    seed = 2024
+    ms = time_cold(lambda: binarize_pack(w, stochastic=True, seed=seed, on_chip_prng=True))
+    plain_ms = time_cold(lambda: binarize_pack_plain(w, None, stochastic=True, seed=seed,
+                                                     on_chip_prng=True))
+    dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(
+        w, stochastic=True, seed=seed, on_chip_prng=True)), "binarize_pack_kernel")
+    route_ms = time_cold(lambda: binarize_pack(w, random_words((k, n), g, dev),
+                                               stochastic=True))
+    nbytes = k * n * 4 + (k // 32) * n * 4
+    int_ops = (k // 4) * n * PHILOX_INT32_OPS        # one Philox call per 4 weights
+    bms, by = bound(nbytes, int_ops, PEAK_INT32_OPS_PER_S)
+    print(f"  K1 stoch on-chip Philox {k}x{n} f32: kernel_ms {ms:.4f}, device_ms "
+          f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms none, operand route "
+          f"(torch.randint + K1) {route_ms:.4f}, bound_ms {bms:.4f} ({by}; bytes "
+          f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms for {nbytes} B, Philox integer ops "
+          f"{int_ops / PEAK_INT32_OPS_PER_S * 1e3:.4f} ms for {int_ops})")
+    kernels.append({
+        "name": "binarize_pack (stoch, on-chip Philox; on no path)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/binarize_pack.cu",
+        "replaces": "src/repro/kernels/stoch_binarize.py:107",
+        "launches": total(launches["binarize_pack_on_chip"], [s[:2] for s in SERVES]),
+        "max_abs_err": errs["k1_onchip"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "device_ms": dev_ms, "operand_route_ms": route_ms})
+
+    # K2 at the serving shapes (mnist_fc's two hidden layers, VGG fc/1) and M=256
+    k2_serves = {2048: [s[:2] for s in SERVES if s[0] == "mnist_fc"],
+                 512: [s[:2] for s in SERVES if s[0] == "vgg16_cifar10"]}
+    for m, k, n in [(4, 2048, 2048), (4, 512, 512), (256, 2048, 2048)]:
+        wk = torch.randn(k, n, generator=g, device=dev)
+        wp = binarize_pack(wk, stochastic=False)
+        scale = wk.abs().mean(dim=0)
+        w_pm1 = unpack_bits(wp)                      # the library call's operand
         x32 = torch.randn(m, k, generator=g, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             ms = time_warm(lambda: binary_matmul(x, wp, scale))
             dev_ms = device_ms(lambda: binary_matmul(x, wp, scale), "binary_matmul_kernel")
             plain_ms = time_warm(lambda: binary_matmul_plain(x, wp, scale))
-            wl = w_pm1 if dtype == torch.float32 else w_pm1_bf16
+            wl = w_pm1.to(dtype)
             lib_ms = time_warm(lambda: (x @ wl).float() * scale)
             esize = 4 if dtype == torch.float32 else 2
             nbytes = m * k * esize + (k // 32) * n * 4 + n * 4 + m * n * 4
@@ -491,14 +557,15 @@ def main() -> int:
             bms, by = bound(nbytes, 2.0 * m * k * n, peak)
             print(f"  K2 scaled {m}x{k}x{n} {str(dtype)[6:]}: kernel_ms {ms:.4f}, "
                   f"device_ms {fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (torch.matmul on "
-                  f"unpacked +-1 times scale), bound_ms {bms:.4f} ({by})")
-            if m == 4 and dtype == torch.float32:   # the serving path's shape
+                  f"unpacked +-1 times scale), bound_ms {bms:.5f} ({by})")
+            if m == 4 and dtype == torch.float32:   # the serving path's shapes
                 kernels.append({
-                    "name": "binary_matmul (scaled, f32, M=4)", "route": "cuda",
+                    "name": ("binary_matmul (scaled, f32, M=4)" if k == 2048   # the name earlier runs used
+                             else f"binary_matmul (scaled, f32, {m}x{k}x{n})"), "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/binary_matmul.cu",
                     "replaces": "src/repro/kernels/binary_matmul.py:125",
-                    "launches": sum(launches["binary_matmul"].values()),
-                    "max_abs_err": errs["k2"],
+                    "launches": total(launches["binary_matmul"], k2_serves[k]),
+                    "max_abs_err": errs[f"k2_{k}"],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                     "library_ms": lib_ms, "device_ms": dev_ms})
 

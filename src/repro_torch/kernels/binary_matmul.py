@@ -19,7 +19,7 @@ from repro_torch.core.packing import PACK
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_M = 65535 * 32   # grid.y limit times the block's rows
+_MAX_M = 65535 * 4    # grid.y limit times the block's 4 rows
 
 
 def binary_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor,

@@ -2,13 +2,20 @@
 // int32 words; bit b of word [k32, n] is the sign of w[32*k32 + b, n].
 //
 // Replaces the TPU kernel binarize_pack_pallas
-// (src/repro/kernels/stoch_binarize.py: _det_kernel and _stoch_kernel, the
-// variant that takes its uniform words as an operand).
+// (src/repro/kernels/stoch_binarize.py): _det_kernel, _stoch_kernel (the
+// variant that takes its uniform words as an operand) and
+// _stoch_kernel_tpu_prng (the variant that draws them on chip), one
+// template instantiation each.
 //
 // Bound on this card: device-memory bytes. Each weight is read once (plus one
-// uint32 word for the stochastic rule) and one int32 is written per 32
-// weights; there is no arithmetic worth counting. At 2048 x 2048 f32 that is
-// 17.3 MB (det) or 34.1 MB (stoch).
+// uint32 word for the operand rule) and one int32 is written per 32 weights.
+// At 2048 x 2048 f32 that is 17.3 MB (det, on-chip) or 34.1 MB (operand).
+// The on-chip rule adds 8 Philox calls per thread, 10 rounds of about 8
+// 32-bit integer instructions each (four multiply halves, two three-way XORs,
+// two key bumps): at 2048 x 2048 that integer work takes about as long as the
+// bytes at the card's peak rates, and on the H100 the on-chip variant ran
+// 1.75x slower than det (PERF.md), so the Philox arithmetic does not hide
+// under the loads.
 //
 // Design: one thread owns one output word and walks its 32 rows, so the 32
 // threads of a warp read 32 neighbouring columns of one row at each step
@@ -20,17 +27,47 @@
 //   p = clip((w + 1) * 0.5, 0, 1),  bit = (float(u) < p * 2^32) | (p >= 1).
 // p >= 1 is forced to 1: words >= 2^32 - 128 round up to 2^32 in f32 and
 // would tie with the threshold.
+//
+// On-chip words: the TPU's hardware bits cannot be reproduced, so the kernel
+// draws from a stateless counter-based Philox4x32-10 written here (no
+// cuRAND). Word u[k, n] is lane k & 3 of philox((k >> 2, n, 0, 0),
+// (seed, 0)): it depends on (seed, k, n) only, never on the launch shape,
+// and the plain version (kernels/stoch_binarize.py: onchip_words) computes
+// the same words on any device.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+enum Mode : int { kDet = 0, kOperand = 1, kOnChip = 2 };
 
-template <typename T, bool kStoch>
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// Eq. 2-3 against one uniform uint32 word.
+__device__ __forceinline__ uint32_t stoch_bit(float v, uint32_t word) {
+  const float p = fminf(fmaxf(__fmul_rn(__fadd_rn(v, 1.0f), 0.5f), 0.0f), 1.0f);
+  const float thresh = __fmul_rn(p, 4294967296.0f);
+  const float u = __uint2float_rn(word);
+  return static_cast<uint32_t>((u < thresh) || (p >= 1.0f));
+}
+
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 binarize_pack_kernel(const T* __restrict__ w, const uint32_t* __restrict__ bits,
                      int32_t* __restrict__ out, int64_t K, int64_t N,
-                     int64_t n_words) {
+                     int64_t n_words, uint32_t seed) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= n_words) return;
   const int64_t k32 = idx / N;
@@ -39,53 +76,68 @@ binarize_pack_kernel(const T* __restrict__ w, const uint32_t* __restrict__ bits,
   const int64_t left = K - row0;
   const int rows = left < 32 ? static_cast<int>(left) : 32;
   uint32_t word = 0;
-#pragma unroll 8
-  for (int b = 0; b < rows; ++b) {
-    const int64_t off = (row0 + b) * N + n;
-    const float v = bnn_to_float(w[off]);
-    bool one;
-    if constexpr (kStoch) {
-      const float p =
-          fminf(fmaxf(__fmul_rn(__fadd_rn(v, 1.0f), 0.5f), 0.0f), 1.0f);
-      const float thresh = __fmul_rn(p, 4294967296.0f);
-      const float u = __uint2float_rn(bits[off]);
-      one = (u < thresh) || (p >= 1.0f);
-    } else {
-      one = v > 0.0f;
+  if constexpr (kMode == kOnChip) {
+    const uint2 key = make_uint2(seed, 0u);
+#pragma unroll 2
+    for (int j = 0; j < 8; ++j) {            // rows 4j..4j+3 share one Philox call
+      if (4 * j >= rows) break;
+      const uint4 r = philox4x32_10(
+          make_uint4(static_cast<uint32_t>(k32 * 8 + j), static_cast<uint32_t>(n), 0u, 0u),
+          key);
+      const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int b = 4 * j + l;
+        if (b < rows) word |= stoch_bit(bnn_to_float(w[(row0 + b) * N + n]), u[l]) << b;
+      }
     }
-    word |= static_cast<uint32_t>(one) << b;
+  } else {
+#pragma unroll 8
+    for (int b = 0; b < rows; ++b) {
+      const int64_t off = (row0 + b) * N + n;
+      const float v = bnn_to_float(w[off]);
+      const uint32_t one =
+          kMode == kOperand ? stoch_bit(v, bits[off]) : static_cast<uint32_t>(v > 0.0f);
+      word |= one << b;
+    }
   }
   out[idx] = static_cast<int32_t>(word);
 }
 
 template <typename T>
 void launch(const void* w, const void* bits, void* out, int64_t K, int64_t N,
-            int stochastic, cudaStream_t stream) {
+            int mode, uint32_t seed, cudaStream_t stream) {
   const int64_t n_words = ((K + 31) / 32) * N;
   const unsigned blocks = static_cast<unsigned>((n_words + kThreads - 1) / kThreads);
   const T* wp = static_cast<const T*>(w);
   const uint32_t* bp = static_cast<const uint32_t*>(bits);
   int32_t* op = static_cast<int32_t*>(out);
-  if (stochastic) {
-    binarize_pack_kernel<T, true><<<blocks, kThreads, 0, stream>>>(wp, bp, op, K, N, n_words);
+  if (mode == kOnChip) {
+    binarize_pack_kernel<T, kOnChip><<<blocks, kThreads, 0, stream>>>(
+        wp, bp, op, K, N, n_words, seed);
+  } else if (mode == kOperand) {
+    binarize_pack_kernel<T, kOperand><<<blocks, kThreads, 0, stream>>>(
+        wp, bp, op, K, N, n_words, seed);
   } else {
-    binarize_pack_kernel<T, false><<<blocks, kThreads, 0, stream>>>(wp, bp, op, K, N, n_words);
+    binarize_pack_kernel<T, kDet><<<blocks, kThreads, 0, stream>>>(
+        wp, bp, op, K, N, n_words, seed);
   }
 }
 
 }  // namespace
 
 // w: (K, N) f32 or bf16 (dtype: BnnDtype); bits: (K, N) uint32 words, read
-// only when stochastic != 0; out: (ceil(K/32), N) int32. All row-major and
-// contiguous. K >= 1, N >= 1.
+// only in mode 1 (operand); out: (ceil(K/32), N) int32. All row-major and
+// contiguous. mode: 0 det, 1 operand words, 2 on-chip Philox words under
+// seed. K >= 1, N >= 1; the on-chip counter takes K < 2^34 and N < 2^32.
 extern "C" int bnn_binarize_pack(const void* w, const void* bits, void* out,
-                                 int64_t K, int64_t N, int dtype, int stochastic,
-                                 void* stream) {
+                                 int64_t K, int64_t N, int dtype, int mode,
+                                 uint32_t seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == BNN_BF16) {
-    launch<__nv_bfloat16>(w, bits, out, K, N, stochastic, s);
+    launch<__nv_bfloat16>(w, bits, out, K, N, mode, seed, s);
   } else {
-    launch<float>(w, bits, out, K, N, stochastic, s);
+    launch<float>(w, bits, out, K, N, mode, seed, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,91 +4,99 @@
 // Replaces the TPU kernel binary_matmul_pallas
 // (src/repro/kernels/binary_matmul.py: _bmm_kernel and _bmm_scaled_kernel).
 //
-// Bound on this card: at the serving shapes the f32 operations on CUDA cores
-// (2*M*K*N at 67 TFLOP/s, the data sheet's non-tensor f32 rate); the packed
-// weights are only K*N/8 bytes, 1/32 of an f32 matrix, so bytes bound it only
-// when M is a handful of rows and K*N is huge.
+// Bound on this card: the f32 operations on CUDA cores (2*M*K*N at
+// 67 TFLOP/s, the data sheet's non-tensor f32 rate); the packed weights are
+// only K*N/8 bytes. At the serving shapes (M = 4, K = N = 2048 or 512) both
+// bounds are under a microsecond, so what limits the kernel is latency:
+// how many SMs it keeps busy and how many dependent steps each block takes.
 //
-// Design (simple and exact first; wgmma/TMA are later work): each 256-thread
-// block owns a 32 x 64 output tile, each thread a 2 x 4 micro-tile whose four
-// columns are strided by 16 so that word loads and output stores coalesce.
-// Per step the block stages a 32 x 64 activation tile (two packed word rows)
-// in shared memory, padded by one column so the row-wise reads of a warp hit
-// distinct banks, and the matching 2 x 64 packed words. Each thread expands a
-// bit to +-1.0f in registers (the sign bit is the inverted weight bit) and
-// accumulates with an FMA whose product is exact: the paper's sign-controlled
-// accumulation. Only the order of the f32 sum differs from the reference.
-// The scale is applied once at the flush. Ragged M, N and K are masked here:
-// out-of-range activations stage as 0 and out-of-range words as 0, and rows
-// or columns past the edge are not stored, so no caller pads.
+// Design, for the serving batch of 4 rows: a block of 8 warps owns 32
+// columns (one per lane) and 4 rows (every thread accumulates all four), and
+// a cluster of 8 blocks splits K into 8 slices, so N = 2048 runs 512 blocks
+// and N = 512 runs 128 where a 32-column block alone would give 64 and 16.
+// Each block walks its K slice in steps of 8 word rows, one per warp: a warp
+// loads its word row with one coalesced 128-byte load (issued before the
+// step's barrier, so it overlaps the staging), the block stages the 4 x 256
+// activations of the step in shared memory once, and every lane reads them
+// as warp-wide broadcasts. Each bit becomes +-1.0f in registers (the sign
+// bit is the inverted weight bit) and an FMA with an exact product adds it
+// to the f32 sum: the paper's sign-controlled accumulation, in full f32 (no
+// TF32). The partial sums are reduced in a fixed order, with no atomics, so
+// two calls give bit-identical output: the 8 warps through shared memory,
+// then the 8 blocks of the cluster through distributed shared memory, read
+// by rank 0 in rank order. The scale is applied once at that flush. Larger M
+// runs one 4-row group per grid.y; ragged M, N and K are masked here (rows
+// and activations past the edge stage as 0, words past N load as 0, and
+// nothing past the edge is stored), so no caller pads.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBM = 32;                  // output rows per block
-constexpr int kBN = 64;                  // output columns per block
-constexpr int kTM = 2;                   // rows per thread
-constexpr int kTN = 4;                   // columns per thread
-constexpr int kTX = kBN / kTN;           // 16 threads across N
-constexpr int kThreads = kTX * (kBM / kTM);  // 256
-constexpr int kKW = 2;                   // packed word rows per step
-constexpr int kBK = 32 * kKW;            // activations per step
+constexpr int kRows = 4;                // output rows per block: the serving batch
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;   // 256
+constexpr int kSplit = 8;               // blocks per cluster, each one K slice
+constexpr int kStage = 32 * kWarps;     // activations per row per step (a word row per warp)
+
+__device__ __forceinline__ float lane4(const float4& v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(1, 1, kSplit) __launch_bounds__(kThreads)
 binary_matmul_kernel(const T* __restrict__ x, const int32_t* __restrict__ w,
                      const float* __restrict__ scale, float* __restrict__ out,
                      int64_t M, int64_t K, int64_t N) {
-  __shared__ float xs[kBM][kBK + 1];
-  __shared__ uint32_t ws[kKW][kBN];
+  __shared__ __align__(16) float xs[kRows][kStage];
+  __shared__ float part[kWarps][kRows][32];
+  __shared__ float blk[kRows][32];       // this block's sum, read by rank 0
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned split = cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * 32 + lane;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kRows;
   const int64_t k32_total = (K + 31) / 32;
+  const int64_t per = (k32_total + kSplit - 1) / kSplit;
+  const int64_t kw_begin = split * per;
+  const int64_t kw_end = kw_begin + per < k32_total ? kw_begin + per : k32_total;
 
-  float acc[kTM][kTN];
+  float acc[kRows];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
 
-  for (int64_t kw0 = 0; kw0 < k32_total; kw0 += kKW) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK;
-      const int c = e % kBK;
+  for (int64_t kw0 = kw_begin; kw0 < kw_end; kw0 += kWarps) {
+    const int64_t kw = kw0 + warp;
+    const bool live = kw < kw_end;
+    const uint32_t inv = ~((live && n < N) ? static_cast<uint32_t>(w[kw * N + n]) : 0u);
+    const int64_t k_end = kw_end * 32 < K ? kw_end * 32 : K;   // this slice's last activation
+    for (int e = threadIdx.x; e < kRows * kStage; e += kThreads) {
+      const int r = e / kStage;
+      const int c = e % kStage;
       const int64_t m = m0 + r;
       const int64_t k = kw0 * 32 + c;
-      xs[r][c] = (m < M && k < K) ? bnn_to_float(x[m * K + k]) : 0.0f;
-    }
-    for (int e = tid; e < kKW * kBN; e += kThreads) {
-      const int r = e / kBN;
-      const int c = e % kBN;
-      const int64_t kw = kw0 + r;
-      const int64_t n = n0 + c;
-      ws[r][c] = (kw < k32_total && n < N) ? static_cast<uint32_t>(w[kw * N + n]) : 0u;
+      xs[r][c] = (m < M && k < k_end) ? bnn_to_float(x[m * K + k]) : 0.0f;
     }
     __syncthreads();
-
+    if (live) {
 #pragma unroll
-    for (int r = 0; r < kKW; ++r) {
-      uint32_t inv[kTN];
+      for (int b4 = 0; b4 < 8; ++b4) {
+        float4 xv[kRows];
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) inv[j] = ~ws[r][tx + kTX * j];
+        for (int r = 0; r < kRows; ++r)
+          xv[r] = reinterpret_cast<const float4*>(&xs[r][warp * 32])[b4];
 #pragma unroll
-      for (int b = 0; b < 32; ++b) {
-        float xv[kTM];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) xv[i] = xs[ty * kTM + i][r * 32 + b];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
+        for (int t = 0; t < 4; ++t) {
+          const int b = 4 * b4 + t;
           // bit b of the word -> +1.0f (bit 1) or -1.0f (bit 0)
-          const float pm =
-              __uint_as_float(0x3f800000u | ((inv[j] << (31 - b)) & 0x80000000u));
+          const float pm = __uint_as_float(0x3f800000u | ((inv << (31 - b)) & 0x80000000u));
 #pragma unroll
-          for (int i = 0; i < kTM; ++i) acc[i][j] = fmaf(xv[i], pm, acc[i][j]);
+          for (int r = 0; r < kRows; ++r) acc[r] = fmaf(lane4(xv[r], t), pm, acc[r]);
         }
       }
     }
@@ -96,28 +104,36 @@ binary_matmul_kernel(const T* __restrict__ x, const int32_t* __restrict__ w,
   }
 
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int64_t n = n0 + tx + kTX * j;
-    if (n >= N) continue;
-    const float s = scale != nullptr ? scale[n] : 1.0f;
+  for (int r = 0; r < kRows; ++r) part[warp][r][lane] = acc[r];
+  __syncthreads();
+  const int r = threadIdx.x >> 5;        // threads 0..127: one (row, column) each
+  if (threadIdx.x < kRows * 32) {
+    float s = part[0][r][lane];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int64_t m = m0 + ty * kTM + i;
-      if (m < M) out[m * N + n] = scale != nullptr ? acc[i][j] * s : acc[i][j];
-    }
+    for (int q = 1; q < kWarps; ++q) s += part[q][r][lane];
+    blk[r][lane] = s;
   }
+  cluster.sync();
+  if (split == 0 && threadIdx.x < kRows * 32) {
+    float s = *cluster.map_shared_rank(&blk[r][lane], 0);
+#pragma unroll
+    for (unsigned q = 1; q < kSplit; ++q) s += *cluster.map_shared_rank(&blk[r][lane], q);
+    const int64_t m = m0 + r;
+    if (m < M && n < N) out[m * N + n] = scale != nullptr ? s * scale[n] : s;
+  }
+  cluster.sync();                        // every blk stays alive until rank 0 has read it
 }
 
 }  // namespace
 
 // x: (M, K) f32 or bf16 (dtype: BnnDtype), the compute dtype; w: (ceil(K/32), N)
 // int32; scale: (N,) f32 or null; out: (M, N) f32. All row-major, contiguous.
-// M <= 65535 * 32, K >= 1, N >= 1.
+// M <= 65535 * 4, K >= 1, N >= 1.
 extern "C" int bnn_binary_matmul(const void* x, const void* w, const void* scale,
                                  void* out, int64_t M, int64_t K, int64_t N,
                                  int dtype, void* stream) {
-  const dim3 grid(static_cast<unsigned>((N + kBN - 1) / kBN),
-                  static_cast<unsigned>((M + kBM - 1) / kBM));
+  const dim3 grid(static_cast<unsigned>((N + 31) / 32),
+                  static_cast<unsigned>((M + kRows - 1) / kRows), kSplit);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* wp = static_cast<const int32_t*>(w);
   const float* sp = static_cast<const float*>(scale);

@@ -75,12 +75,71 @@ def test_k2_matches_plain(cuda, m, k, n, dtype, scaled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 2048), (784, 2048), (100, 300), (33, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_onchip_matches_plain(cuda, k, n, dtype):
+    """The in-kernel Philox words and the plain version's agree bit for bit
+    (the seed exceeds 2^32 at the large shapes, so both reduce it mod 2^32)."""
+    w, _ = _weights(k, n, k + n, cuda, dtype)
+    seed = (k * n) ** 2 + 1
+    got = binarize_pack(w, stochastic=True, seed=seed, on_chip_prng=True)
+    want = binarize_pack_plain(w, None, stochastic=True, seed=seed, on_chip_prng=True)
+    assert got.shape == ((k + 31) // 32, n)
+    assert torch.equal(got, want)
+
+
+def _k2_inputs(m, k, n, dtype, scaled, device):
+    rng = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(device, dtype)
+    wp = binarize_pack(_weights(k, n, m + k, device)[0], stochastic=False)
+    scale = (torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)).to(device)
+             if scaled else None)
+    return x, wp, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 8, 33, 256])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (512, 512), (784, 2048), (100, 300),
+                                 (32, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_k2_row_groups_and_k_splits_match_plain(cuda, m, k, n, dtype, scaled):
+    """Every M (whole and partial 4-row groups), the serving (K, N) and
+    ragged K/N (K slices with no words, partial words, partial columns)."""
+    x, wp, scale = _k2_inputs(m, k, n, dtype, scaled, cuda)
+    torch.testing.assert_close(binary_matmul(x, wp, scale), binary_matmul_plain(x, wp, scale),
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (4, 512, 512), (33, 784, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_is_bit_identical_run_to_run(cuda, m, k, n, dtype):
+    """The split-K partial sums are reduced in a fixed order, with no atomics."""
+    x, wp, scale = _k2_inputs(m, k, n, dtype, True, cuda)
+    first = binary_matmul(x, wp, scale)
+    assert all(torch.equal(binary_matmul(x, wp, scale), first) for _ in range(5))
+
+
+@pytest.mark.cuda
 def test_launch_counters_count_kernel_launches(cuda):
     w, bits = _weights(64, 128, 0, cuda)
     k1, k2 = binarize_pack.launches, binary_matmul.launches
     wp = ops.binarize_and_pack(w, bits, stochastic=True)
     ops.binary_matmul(torch.ones(2, 3, 64, device=cuda), wp)
     assert (binarize_pack.launches - k1, binary_matmul.launches - k2) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_k1_onchip_launches_are_counted_apart(cuda):
+    """launches counts every K1 mode; launches_on_chip only the on-chip one."""
+    w, bits = _weights(64, 128, 0, cuda)
+    total, on_chip = binarize_pack.launches, binarize_pack.launches_on_chip
+    binarize_pack(w, bits, stochastic=True)
+    binarize_pack(w, stochastic=False)
+    assert (binarize_pack.launches - total, binarize_pack.launches_on_chip - on_chip) == (2, 0)
+    binarize_pack(w, stochastic=True, seed=3, on_chip_prng=True)
+    assert (binarize_pack.launches - total, binarize_pack.launches_on_chip - on_chip) == (3, 1)
 
 
 @pytest.mark.cuda
