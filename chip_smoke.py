@@ -12,7 +12,10 @@ Phases, each on its own lines of output; any failure exits non-zero:
    K1's on-chip variant (in-kernel Philox words, ``on_chip_prng=True``)
    against its plain version, bit for bit, at 2048x2048, 512x512 and
    ragged shapes, with the Eq.-3 frequency within 4 sigma and the exact
-   endpoints on the card;
+   endpoints on the card; then the threefry twin (``core.prng``) that
+   draws every stochastic pack's words: its words on the card equal its
+   words on the CPU, and full-width mnist_fc and VGG-16 stochastic packs on
+   the card equal the same packs on the CPU at the same key;
 4. K2 packed-weight matmul against its plain version, f32 and bf16, with
    and without scale, at M in {4, 256} x 2048 x 2048, 4 x 512 x 512 and a
    ragged shape, within rtol 1e-4 / atol 1e-3 (f32: only the order of the
@@ -21,7 +24,11 @@ Phases, each on its own lines of output; any failure exits non-zero:
    plain versions, word for word and bit for bit, at every serving shape of
    the xnor paths and at ragged shapes (K % 32 != 0, M not a multiple of 8,
    allow_extra_words layouts, scaled and unscaled, stride 2, VALID, ragged
-   H/W, C % 32 != 0, 0.0 / -0.0 / NaN planted); and the dense f32 conv
+   H/W, C % 32 != 0, 0.0 / -0.0 / NaN planted); K4 with the conv border
+   correction and scale fused into its flush, through ``xnor_conv2d``,
+   against the plain conv route on the CPU at VGG's 11 conv geometries and a
+   layout sweep; and K2 at M = 65535 * 4 + 1 and K4 at N = 65535 * 64 + 1,
+   one past the grid limits earlier kernels had; and the dense f32 conv
    against an f64 conv (cuDNN's TF32 must stay off);
 6. the main path: serve full-width mnist_fc (784-2048x3-10) in det, stoch
    and xnor, and full-width VGG-16/CIFAR-10 in det, stoch and xnor, through
@@ -36,9 +43,11 @@ Phases, each on its own lines of output; any failure exits non-zero:
    count of sign activations that differ from it are printed;
 7. time each kernel at the path shapes with CUDA events, beside its plain
    version, a library call where one computes the same function, and the
-   least time the card could take (the on-chip K1 variant, which no path
-   runs, beside the operand route: torch.randint words + K1); and each
-   xnor conv layer as a whole against F.conv2d on +-1 f32.
+   least time the card could take (the stochastic pack route, twin words +
+   K1, beside K1 alone; the on-chip K1 variant, which no path runs, beside
+   that route; K4 at each VGG shape as the conv path calls it, fused); and
+   each xnor conv layer as a whole against F.conv2d on +-1 f32, with the
+   device kernels it launches counted by the profiler.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -114,20 +123,21 @@ def main() -> int:
     import repro_torch.kernels.ops as kops_mod
     import repro_torch.xnor.conv.ops as cops_mod
     import repro_torch.xnor.ops as xops_mod
+    from repro_torch.core import prng
     from repro_torch.core.packing import unpack_bits
     from repro_torch.core.policy import make_paper_policy
     from repro_torch.engine import compile_plan
     from repro_torch.engine.plan import tree_leaves_with_path, tree_map
     from repro_torch.kernels import _build
     from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
-    from repro_torch.kernels.ops import random_words
     from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
     from repro_torch.launch.serve import build_model, serve_classifier
     from repro_torch.models import mnist_fc, vgg
     from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
     from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
-    from repro_torch.xnor.conv.packing import pack_conv_kernel
-    from repro_torch.xnor.kernel import (sign_pack, sign_pack_plain, xnor_matmul,
+    from repro_torch.xnor.conv.ops import xnor_conv2d
+    from repro_torch.xnor.conv.packing import conv_geometry, pack_conv_kernel
+    from repro_torch.xnor.kernel import (ConvBorder, sign_pack, sign_pack_plain, xnor_matmul,
                                          xnor_matmul_plain)
     from repro_torch.xnor.packing import unpack_activations
 
@@ -150,7 +160,8 @@ def main() -> int:
         """Every call site of a kernel wrapper takes its plain version, on
         whatever device the tensors are; no kernel may launch meanwhile."""
         swaps = [(kops_mod, "binarize_pack",
-                  lambda w, bits, stochastic: binarize_pack_plain(w, bits, stochastic=stochastic)),
+                  lambda w, bits=None, *, stochastic: binarize_pack_plain(
+                      w, bits, stochastic=stochastic)),
                  (kops_mod, "_binary_matmul", binary_matmul_plain),
                  (xops_mod, "_sign_pack", sign_pack_plain),
                  (xops_mod, "_xnor_matmul", xnor_matmul_plain),
@@ -186,6 +197,19 @@ def main() -> int:
         """Device time per rep of each CUDA kernel ``fn`` launches, in ms, by
         kernel name, from torch.profiler; None if the profiler records no
         device activity on this machine."""
+        events = profile_events(fn, reps)
+        if events is None:
+            return None
+        return {k: t / reps / 1e3 for k, (t, _) in events.items()} or None
+
+    def kernels_per_rep(fn, reps: int = 20) -> float | None:
+        """Device kernels ``fn`` launches per rep, counted by torch.profiler."""
+        events = profile_events(fn, reps)
+        return None if not events else sum(c for _, c in events.values()) / reps
+
+    def profile_events(fn, reps: int) -> dict[str, tuple[float, int]] | None:
+        """(device us, launches) over ``reps`` reps of ``fn``, by CUDA kernel
+        name; None if the profiler could not start or stop."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -210,9 +234,8 @@ def main() -> int:
         except RuntimeError as e:
             print(f"  torch.profiler failed to stop ({e}); device times not measured")
             return None
-        kern = {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+        return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
-        return kern or None
 
     def device_ms(fn, kernel: str, reps: int = 20) -> float | None:
         """Device time of one launch of the named kernel inside ``fn``. The
@@ -246,6 +269,11 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(1234)
     errs: dict[str, float] = {}
 
+    def rand_words(shape):
+        """Uniform uint32 test words, as int32 bit patterns."""
+        return torch.randint(-(1 << 31), 1 << 31, tuple(shape), dtype=torch.int32,
+                             generator=g, device=dev)
+
     def exact(tag, got, want):
         torch.cuda.synchronize()
         bad = int((got != want).sum()) if got.shape == want.shape else -1
@@ -261,7 +289,7 @@ def main() -> int:
         w[0], w[1], w[2], w[3, :7] = 1.0, -1.0, -0.0, float("nan")   # endpoints
         w[4] = torch.rand(n, generator=g, device=dev) + 1.0           # all-positive column
         w = w.to(dtype)
-        bits = random_words((k, n), g, dev)
+        bits = rand_words((k, n))
         top = torch.arange(k * 3, device=dev, dtype=torch.int32).reshape(k, 3) % 128
         bits[:, :3] = -1 - top                   # uint32 words >= 2^32 - 128
         for stoch in (False, True):
@@ -293,6 +321,29 @@ def main() -> int:
         if abs(f - p) > 4 * (p * (1 - p) / (2048 * 512)) ** 0.5:
             raise AssertionError(f"on-chip K1: frequency {f} at p={p} is off by > 4 sigma")
     errs["k1_onchip"] = 0.0
+
+    print("== threefry twin (core.prng): words on the card vs the CPU, and stochastic "
+          "packs on the card vs the CPU at the same key (exact)")
+    tk = prng.split(prng.fold_in(prng.key(1), 2), 1)[0]
+    for shape in [(2048, 2048), (1024, 2048), (300, 500)]:
+        exact(f"twin bits {shape}", prng.bits(tk, shape, dev).cpu(), prng.bits(tk, shape))
+    exact("twin uniform (3, 3, 64, 64)", prng.uniform(tk, (3, 3, 64, 64), dev).cpu(),
+          prng.uniform(tk, (3, 3, 64, 64)))
+    for arch in ("mnist_fc", "vgg16_cifar10"):
+        tree, _, _, n_fc = build_model(arch, 0, device=dev)
+        plan = compile_plan(tree["params"], make_paper_policy(n_fc), "stoch")
+        on_card = plan.pack(tree["params"], key=prng.key(1))
+        on_cpu = plan.pack(tree_map(lambda t: t.cpu(), tree["params"]), key=prng.key(1))
+        n_leaves = 0
+        for (path, a), (_, b) in zip(tree_leaves_with_path(on_card),
+                                     tree_leaves_with_path(on_cpu)):
+            if hasattr(a, "packed"):
+                n_leaves += 1
+                if not torch.equal(a.packed.cpu(), b.packed):
+                    raise AssertionError(f"{arch} stoch {path}: card words differ from CPU")
+        print(f"  {arch} stoch, full width: {n_leaves} packed leaves on the card == the "
+              f"CPU pack at key(1)")
+    errs["twin"] = 0.0
 
     # 4. K2 against its plain version
     print("== K2 binary_matmul vs plain")
@@ -327,8 +378,7 @@ def main() -> int:
                                                     device=dev)[: flat.numel()]
         return x.to(dtype)
 
-    def words(shape):
-        return random_words(shape, g, dev)
+    words = rand_words
 
     print("== K3 sign_pack vs plain (exact; 0.0, -0.0, NaN planted)")
     for (m, k) in [(4, 2048), (4, 512), (5, 100), (7, 33), (1024, 96)]:
@@ -341,13 +391,51 @@ def main() -> int:
     k4_cases += [(b * h * w_, 9 * (c // 32), n, 9 * c, f"vgg conv {b}x{h}x{w_}x{c}->{n}")
                  for (b, h, w_, c), n in VGG_XNOR_CONVS]
     k4_cases += [(4, 16, 512, 512, "vgg fc/1"), (5, 4, 300, 100, "ragged K=100"),
-                 (33, 9 * 2, 65, 9 * 40, "extra words C=40"), (3, 1, 1, 7, "tiny")]
+                 (33, 9 * 2, 65, 9 * 40, "extra words C=40"), (3, 1, 1, 7, "tiny"),
+                 (65, 9 * 2, 65, 9 * 40, "extra words C=40, ragged 4-row group"),
+                 (4096, 72, 256, 2304, "large M")]
     for m, wds, n, k, what in k4_cases:
         a, w = words((m, wds)), words((wds, n))
         for s in (None, torch.rand(n, generator=g, device=dev) + 0.5):
             tag = f"K4 {what} {m}x{wds}w x{n} k={k} {'scaled' if s is not None else 'int'}"
             exact(tag, xnor_matmul(a, w, s, k_total=k), xnor_matmul_plain(a, w, s, k_total=k))
     errs["k3"] = errs["k4"] = 0.0
+
+    print("== K4 with the conv border correction and scale in its flush, through "
+          "xnor_conv2d, vs the plain conv route on the CPU (exact)")
+    fused_cases = [(shape, n, (3, 3), (1, 1), "SAME") for shape, n in VGG_XNOR_CONVS] + [
+        ((2, 8, 8, 32), 48, (3, 3), (2, 2), "SAME"), ((2, 9, 7, 40), 65, (3, 3), (2, 2), "SAME"),
+        ((1, 9, 7, 16), 32, (3, 3), (1, 1), "SAME"), ((2, 8, 8, 3), 16, (3, 3), (1, 1), "SAME"),
+        ((1, 7, 7, 8), 8, (3, 3), (2, 2), "VALID"), ((2, 6, 6, 32), 32, (1, 1), (1, 1), "VALID"),
+        ((1, 10, 6, 24), 40, (5, 3), (2, 1), "SAME"),
+        ((1, 5, 6, 40), 8, (3, 3), (1, 1), ((2, 0), (1, 1)))]
+    for shape, n, ks, st, pad in fused_cases:
+        x = acts(shape)
+        wk = torch.randn(*ks, shape[-1], n, generator=g, device=dev)
+        for scaled in (False, True):
+            leaf = XnorConv(pack_conv_kernel(wk), wk.abs().mean(dim=(0, 1, 2)) if scaled
+                            else None, ks, shape[-1])
+            kw = dict(ksize=ks, c_in=shape[-1], stride=st, padding=pad)
+            cpu = leaf.to("cpu")
+            exact(f"K4 fused conv {shape}->{n} k={ks} s={st} {pad} "
+                  f"{'scaled' if scaled else 'int'}",
+                  xnor_conv2d(x, leaf.packed, leaf.scale, tap_sums=leaf.tap_sums, **kw).cpu(),
+                  xnor_conv2d(x.cpu(), cpu.packed, cpu.scale, **kw))
+
+    print("== K2 and K4 one past the grid limits of earlier kernels")
+    m = 65535 * 4 + 1
+    x = torch.randn(m, 32, generator=g, device=dev)
+    wp = binarize_pack(torch.randn(32, 8, generator=g, device=dev), stochastic=False)
+    got = binary_matmul(x, wp)
+    torch.testing.assert_close(got, binary_matmul_plain(x, wp), **F32_TOL)
+    if not torch.equal(binary_matmul(x, wp), got):
+        raise AssertionError("K2 at M = 65535 * 4 + 1: two calls differ")
+    print(f"  K2 {m}x32x8 f32: within tolerance of plain, bit-identical over 2 calls")
+    n = 65535 * 64 + 1
+    for m in (4, 64):
+        a, w4 = words((m, 1)), words((1, n))
+        exact(f"K4 {m}x1w x{n}", xnor_matmul(a, w4, k_total=32),
+              xnor_matmul_plain(a, w4, k_total=32))
 
     print("== K5 patch_pack vs plain (exact)")
     k5_cases = [(shape, (3, 3), (1, 1), "SAME") for shape, _ in VGG_XNOR_CONVS]
@@ -394,11 +482,11 @@ def main() -> int:
             launches[name][(arch, mode)] = count
         serve_ms[(arch, mode)] = (res.ms_per_batch, res.img_per_s)
         # the served words against a plain pack of the same master weights
-        # and words (same seeds, drawn in the same order)
+        # and words (the serve packs at key(seed + 1))
         tree, apply_fn, _, n_fc = build_model(arch, 0, device=dev)
         plan = compile_plan(tree["params"], make_paper_policy(n_fc), mode)
         with plain_kernels():
-            plain = plan.pack(tree["params"], generator=torch.Generator(device=dev).manual_seed(1))
+            plain = plan.pack(tree["params"], key=prng.key(1))
         n_leaves = 0
         for (path, a), (_, b) in zip(tree_leaves_with_path(res.params),
                                      tree_leaves_with_path(plain)):
@@ -484,7 +572,13 @@ def main() -> int:
     kernels = []
     k, n = 2048, 2048
     w = torch.randn(k, n, generator=g, device=dev) * 0.7
-    bits = random_words((k, n), g, dev)
+    bits = rand_words((k, n))
+    # the stochastic pack route as plan.pack runs it: the twin's words over
+    # the reference's draw shape, then K1's operand mode
+    pack_key = prng.fold_in(prng.key(1), 3)
+    route_ms = time_cold(lambda: kops_mod.binarize_and_pack(w, pack_key, stochastic=True))
+    print(f"  stochastic pack route {k}x{n} f32 (twin words + K1 operand mode), cold: "
+          f"{route_ms:.4f} ms")
     k1_serves = {"det": [s[:2] for s in SERVES if s[1] != "stoch"],
                  "stoch": [s[:2] for s in SERVES if s[1] == "stoch"]}
     for mode in ("det", "stoch"):
@@ -506,24 +600,23 @@ def main() -> int:
             "launches": total(launches["binarize_pack"], k1_serves[mode]),
             "max_abs_err": errs[f"k1_{mode}"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "device_ms": dev_ms})
+            "library_ms": None, "device_ms": dev_ms,
+            **({"pack_route_ms": route_ms} if st else {})})
 
     # the on-chip variant (no path runs it), beside the operand route it
-    # would replace: torch.randint words, then K1 on them
+    # would replace: the twin's words, then K1 on them
     seed = 2024
     ms = time_cold(lambda: binarize_pack(w, stochastic=True, seed=seed, on_chip_prng=True))
     plain_ms = time_cold(lambda: binarize_pack_plain(w, None, stochastic=True, seed=seed,
                                                      on_chip_prng=True))
     dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(
         w, stochastic=True, seed=seed, on_chip_prng=True)), "binarize_pack_kernel")
-    route_ms = time_cold(lambda: binarize_pack(w, random_words((k, n), g, dev),
-                                               stochastic=True))
     nbytes = k * n * 4 + (k // 32) * n * 4
     int_ops = (k // 4) * n * PHILOX_INT32_OPS        # one Philox call per 4 weights
     bms, by = bound(nbytes, int_ops, PEAK_INT32_OPS_PER_S)
     print(f"  K1 stoch on-chip Philox {k}x{n} f32: kernel_ms {ms:.4f}, device_ms "
           f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms none, operand route "
-          f"(torch.randint + K1) {route_ms:.4f}, bound_ms {bms:.4f} ({by}; bytes "
+          f"(twin words + K1) {route_ms:.4f}, bound_ms {bms:.4f} ({by}; bytes "
           f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms for {nbytes} B, Philox integer ops "
           f"{int_ops / PEAK_INT32_OPS_PER_S * 1e3:.4f} ms for {int_ops})")
     kernels.append({
@@ -596,21 +689,35 @@ def main() -> int:
               f"{plain_ms:.4f}, library_ms none, bound_ms {t_b:.5f} (bytes, {nbytes} B)")
         return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms)
 
-    def k4_row(m, wds, n, kk, scaled):
+    def k4_row(m, wds, n, kk, scaled, conv=None):
+        """``conv``: the NHWC input of a 3x3 SAME conv whose patches the rows
+        of ``a`` are; K4 then runs as the conv path calls it, with the border
+        correction and the scale in its flush."""
         a, w4 = words((m, wds)), words((wds, n))
         s = torch.rand(n, generator=g, device=dev) + 0.5 if scaled else None
-        ms = time_warm(lambda: xnor_matmul(a, w4, s, k_total=kk))
-        dev_ms = device_ms(lambda: xnor_matmul(a, w4, s, k_total=kk), "xnor_matmul_kernel")
-        plain_ms = time_warm(lambda: xnor_matmul_plain(a, w4, s, k_total=kk), iters=20)
+        border = None
+        if conv is not None:
+            _, h, w_, c = conv
+            oh, ow, ((ph0, _), (pw0, _)) = conv_geometry(h, w_, (3, 3), (1, 1), "SAME")
+            tap_sums = torch.randint(-c, c + 1, (9, n), generator=g, device=dev,
+                                     dtype=torch.int32)
+            border = ConvBorder(tap_sums, h, w_, oh, ow, (3, 3), (1, 1), (ph0, pw0))
+        ms = time_warm(lambda: xnor_matmul(a, w4, s, k_total=kk, border=border))
+        dev_ms = device_ms(lambda: xnor_matmul(a, w4, s, k_total=kk, border=border), "xnor_")
+        plain_ms = time_warm(lambda: xnor_matmul_plain(a, w4, s, k_total=kk, border=border),
+                             iters=20)
         a_pm1 = unpack_activations(a)                    # the library call's operands
         w_pm1_ = unpack_bits(w4)
         if s is None:
             lib_ms = time_warm(lambda: a_pm1 @ w_pm1_)
         else:
             lib_ms = time_warm(lambda: (a_pm1 @ w_pm1_) * s)
-        nbytes = (m * wds + wds * n + m * n) * 4 + (n * 4 if scaled else 0)
+        nbytes = ((m * wds + wds * n + m * n) * 4 + (n * 4 if scaled else 0)
+                  + (9 * n * 4 if border is not None else 0))
         bms, by = bound(nbytes, m * n * wds, PEAK_POPC_WORDS_PER_S)
-        print(f"  K4 {m}x{wds}w x{n} k={kk} {'scaled' if scaled else 'int'}: kernel_ms "
+        what = (f"{'conv, fused border + ' if border is not None else ''}"
+                f"{'scaled' if scaled else 'int'}")
+        print(f"  K4 {m}x{wds}w x{n} k={kk} {what}: kernel_ms "
               f"{ms:.4f}, device_ms {fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms "
               f"{lib_ms:.4f} (f32 torch.matmul on unpacked +-1), bound_ms {bms:.5f} ({by})")
         return (ms, plain_ms, bms, nbytes / PEAK_BYTES_PER_S * 1e3,
@@ -639,19 +746,26 @@ def main() -> int:
     kernels.append(entry("xnor_matmul (mnist_fc xnor, 4x64w x2048 scaled, per layer)",
                          k4_src, k4_rep, launches["xnor_matmul"][mnist_x], errs["k4"],
                          [k4_row(4, 64, 2048, 2048, True)]))
-    vgg_k4 = [k4_row(b * h * w_, 9 * c // 32, n, 9 * c, False)
+    vgg_k4 = [k4_row(b * h * w_, 9 * c // 32, n, 9 * c, True, conv=(b, h, w_, c))
               for (b, h, w_, c), n in VGG_XNOR_CONVS] + [k4_row(4, 16, 512, 512, True)]
-    kernels.append(entry("xnor_matmul (vgg16 xnor, the 12 shapes of one batch, summed)",
-                         k4_src, k4_rep, launches["xnor_matmul"][vgg_x], errs["k4"], vgg_k4))
+    print("  K4 device_ms at VGG's 12 shapes (conv/2-12 fused, fc/1): "
+          + ", ".join(fmt(r[6]) for r in vgg_k4)
+          + (f"; sum {sum(r[6] for r in vgg_k4):.4f}" if None not in [r[6] for r in vgg_k4]
+             else ""))
+    kernels.append({**entry("xnor_matmul (vgg16 xnor, the 12 shapes of one batch, summed)",
+                            k4_src, k4_rep, launches["xnor_matmul"][vgg_x], errs["k4"], vgg_k4),
+                    "device_ms_per_shape": [r[6] for r in vgg_k4]})
     kernels.append(entry("patch_pack (vgg16 xnor, the 11 conv inputs of one batch, summed)",
                          "src/repro_torch/kernels/csrc/patch_pack.cu",
                          "src/repro/xnor/conv/kernel.py:76", launches["patch_pack"][vgg_x],
                          errs["k5"], [k5_row(shape) for shape, _ in VGG_XNOR_CONVS]))
 
-    print("== xnor conv layers as a whole (K5 + K4 + border correction + epilogue) "
-          "against F.conv2d on +-1 f32, TF32 off")
+    print("== xnor conv layers as a whole (K5, then K4 with the border correction and "
+          "epilogue in its flush) against F.conv2d on +-1 f32, TF32 off; device kernels "
+          "a layer launches, counted by torch.profiler")
     F = torch.nn.functional
     layer_ms = lib_ms = 0.0
+    per_layer = []
     for shape, n_out in VGG_XNOR_CONVS:
         c = shape[-1]
         xw = torch.randn(3, 3, c, n_out, generator=g, device=dev)
@@ -662,13 +776,17 @@ def main() -> int:
         ws = torch.where(xw > 0, 1.0, -1.0).permute(3, 2, 0, 1).contiguous()
         lms = time_warm(lambda: F.conv2d(xs, ws, padding=1))
         layer_dev = profiled(lambda: apply_conv2d(leaf, x), reps=20)
+        n_kernels = kernels_per_rep(lambda: apply_conv2d(leaf, x))
         lib_dev = profiled(lambda: F.conv2d(xs, ws, padding=1), reps=20)
         layer_ms, lib_ms = layer_ms + ms, lib_ms + lms
+        per_layer.append(n_kernels)
         print(f"  {shape} -> {n_out}: xnor layer_ms {ms:.4f} (device "
-              f"{fmt(layer_dev and sum(layer_dev.values()))} in "
-              f"{len(layer_dev or {})} kernels), F.conv2d library_ms {lms:.4f} (device "
+              f"{fmt(layer_dev and sum(layer_dev.values()))}, "
+              f"{'not measured' if n_kernels is None else f'{n_kernels:g}'} device kernels "
+              f"a layer), F.conv2d library_ms {lms:.4f} (device "
               f"{fmt(lib_dev and sum(lib_dev.values()))})")
-    print(f"  the 11 layers of one batch: xnor {layer_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms")
+    print(f"  the 11 layers of one batch: xnor {layer_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms; "
+          f"device kernels per xnor conv layer: {per_layer}")
 
     print("== serving summary (ms/batch median, img/s)")
     for (arch, mode), (ms, ips, *busy) in serve_ms.items():

@@ -4,8 +4,8 @@
 * Eq. (2)  stochastic binarization     P(w_b = +1) = sigma(w),
 * Eq. (3)  hard sigmoid                sigma(x) = clip((x + 1) / 2, 0, 1).
 
-Every random draw takes an explicit ``torch.Generator``. The
-straight-through estimator and the tree-level binarization arrive with the
+Every random draw takes an explicit key (``core.prng``), and draws the
+reference's numbers at the same key. The straight-through estimator and the tree-level binarization arrive with the
 training slice.
 """
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 import enum
 
 import torch
+
+from repro_torch.core import prng
 
 
 class BinarizeMode(enum.Enum):
@@ -49,8 +51,8 @@ def deterministic_binarize(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w > 0, 1.0, -1.0).to(w.dtype)
 
 
-def stochastic_binarize(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def stochastic_binarize(w: torch.Tensor, key: prng.Key) -> torch.Tensor:
     """Eq. (2): +1 with probability hard_sigmoid(w), else -1."""
     p = hard_sigmoid(w.to(torch.float32))
-    u = torch.rand(w.shape, generator=generator, device=w.device)
+    u = prng.uniform(key, w.shape, w.device)
     return torch.where(u < p, 1.0, -1.0).to(w.dtype)

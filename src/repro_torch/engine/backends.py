@@ -7,11 +7,13 @@ Priority order (highest wins among eligible), as in the reference:
     > binarized_dense (10) > dense (0)
 
 * ``packed`` binarizes a (K, N) projection (Eq. 1, or Eq. 2 with words from
-  the pack generator) and bitpacks it with K1, then serves it with K2.
+  the pack key, ``core.prng``) and bitpacks it with K1, then serves it with K2.
 * ``xnor`` packs the same way (Eq. 1) and serves with K3 (sign + pack the
   activations) and K4 (XNOR-popcount matmul).
-* ``xnor_conv`` packs a conv kernel in the per-tap layout with K1 and serves
-  with K5 (patch packing) and K4, plus the border correction in plain torch.
+* ``xnor_conv`` packs a conv kernel in the per-tap layout with K1 (its
+  ``XnorConv`` leaf keeps the per-tap weight sums the border correction
+  reads) and serves with K5 (patch packing) and K4, whose flush adds the
+  correction and applies the scale.
 * ``packed_conv`` (stoch only) packs a conv kernel along the flat kh*kw*C
   axis with K1 and, at apply time, unpacks in plain torch and runs the dense
   conv, as the reference unpacks with jnp outside any kernel.
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import binarize as B
+from repro_torch.core import prng
 from repro_torch.core.binarize import BinarizeMode
 from repro_torch.core.packing import PACK, unpack_bits
 from repro_torch.engine.registry import (BackendSpec, LeafContext, PackContext,
@@ -106,17 +109,24 @@ def _pack_dense(lc: LeafContext, leaf, pc: PackContext):
     return leaf
 
 
-def _stochastic(lc: LeafContext, pc: PackContext) -> bool:
-    """Whether the leaf binarizes by Eq. 2; then the generator is required."""
+def _missing_key_error(lc: LeafContext) -> ValueError:
+    """The reference's 'no PRNG key' error, naming the leaf that failed."""
+    return ValueError(
+        f"stochastic packing requires a PRNG key, but none was supplied "
+        f"for leaf {lc.path!r} (leaf index {lc.index}): pass "
+        f"key=repro_torch.core.prng.key(seed) to plan.pack(...), "
+        f"or compile the plan with mode='det' for keyless deterministic "
+        f"binarization")
+
+
+def _leaf_key(lc: LeafContext, pc: PackContext) -> prng.Key | None:
+    """The key the leaf's Eq.-2 words come from (the pack key folded with
+    the leaf index), or None when the leaf binarizes by Eq. 1."""
     if pc.weight_mode is not BinarizeMode.STOCHASTIC:
-        return False
-    if pc.generator is None:
-        raise ValueError(
-            f"stochastic packing requires a generator, but none was supplied for "
-            f"leaf {lc.path!r} (leaf index {lc.index}): pass "
-            f"generator=torch.Generator(device).manual_seed(seed) to plan.pack(...), "
-            f"or compile the plan with mode='det'")
-    return True
+        return None
+    if pc.key is None:
+        raise _missing_key_error(lc)
+    return prng.fold_in(pc.key, lc.index)
 
 
 def _conv_scale(leaf: torch.Tensor) -> torch.Tensor:
@@ -128,31 +138,36 @@ def _pack_binarized_dense(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
     """Binarized values (+-1 * scale) kept dense: the Alg.-1 inference
     network for conv layers with no bitpacked lowering."""
     scale = _conv_scale(leaf)
-    if _stochastic(lc, pc):
-        wb = B.stochastic_binarize(leaf, pc.generator)
-    else:
-        wb = B.deterministic_binarize(leaf)
+    key = _leaf_key(lc, pc)
+    wb = B.deterministic_binarize(leaf) if key is None else B.stochastic_binarize(leaf, key)
     return (wb.to(torch.float32) * scale).to(leaf.dtype)
 
 
 def _pack_linear(cls, lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
     """Binarize + bitpack a (K, N) projection into ``cls`` through K1; the
-    scale is the mean |w| over K (per output channel)."""
+    scale is the mean |w| over K (per output channel). Eq.-2 words come from
+    ``split(fold_in(key, index), 1)[0]``, the reference's key for a 2-D leaf
+    (it splits once per stacked layer)."""
     if leaf.ndim != 2:
         raise NotImplementedError(
             f"{lc.path!r}: stacked {tuple(leaf.shape)} leaves pack with the LM slice")
-    stochastic = _stochastic(lc, pc)
-    packed = ops.binarize_and_pack(leaf, generator=pc.generator, stochastic=stochastic)
+    key = _leaf_key(lc, pc)
+    if key is None:
+        packed = ops.binarize_and_pack(leaf)
+    else:
+        packed = ops.binarize_and_pack(leaf, prng.split(key, 1)[0], stochastic=True)
     return cls(packed, leaf.to(torch.float32).abs().mean(dim=0), leaf.shape[0])
 
 
 def _pack_packed_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
     """Stochastic binarize + bitpack a (kh, kw, C, N) kernel along the flat
-    kh*kw*C axis through K1 (stoch mode only, so the generator is required)."""
+    kh*kw*C axis through K1 (stoch mode only, so the key is required); the
+    words come from ``fold_in(key, index)``, with no split."""
     kh, kw, c_in, n = leaf.shape
-    _stochastic(lc, pc)
+    if pc.key is None:
+        raise _missing_key_error(lc)
     packed = ops.binarize_and_pack(leaf.reshape(kh * kw * c_in, n),
-                                   generator=pc.generator, stochastic=True)
+                                   prng.fold_in(pc.key, lc.index), stochastic=True)
     return PackedConv(packed, _conv_scale(leaf), (kh, kw), c_in)
 
 
@@ -192,7 +207,8 @@ def _apply_packed_conv(w: PackedConv, x: torch.Tensor, *, stride=(1, 1), padding
 
 def _apply_xnor_conv(w: XnorConv, x: torch.Tensor, *, stride=(1, 1), padding="SAME"):
     out = cops.xnor_conv2d(x, w.packed, w.scale, ksize=w.ksize, c_in=w.c_in,
-                           stride=stride, padding=padding, out_dtype=torch.float32)
+                           stride=stride, padding=padding, out_dtype=torch.float32,
+                           tap_sums=w.tap_sums)
     return out.to(x.dtype)
 
 

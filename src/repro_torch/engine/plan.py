@@ -76,20 +76,21 @@ class ExecutionPlan:
     def assignments(self, backend: str | None = None) -> list[LayerAssignment]:
         return [a for a in self.layers if backend is None or a.backend == backend]
 
-    def pack(self, params: Any, generator=None) -> Any:
+    def pack(self, params: Any, key=None) -> Any:
         """Applies each row's backend ``pack`` transform to its leaf.
 
-        ``generator`` (a ``torch.Generator`` on the leaves' device) feeds the
-        stochastic words, drawn leaf by leaf in tree order; ``xnor`` plans
-        binarize deterministically (Eq. 1). The tree must match the plan leaf
-        for leaf (path and shape)."""
+        ``key`` (``core.prng.key(seed)``) feeds the stochastic words: each
+        leaf draws from ``key`` folded with its index, as the reference does,
+        so the words equal the reference's at ``jax.random.key(seed)``;
+        ``xnor`` plans binarize deterministically (Eq. 1). The tree must
+        match the plan leaf for leaf (path and shape)."""
         leaves = list(tree_leaves_with_path(params))
         if len(leaves) != len(self.layers):
             raise ValueError(f"plan/params mismatch: plan has {len(self.layers)} "
                              f"leaves, params has {len(leaves)}")
         weight_mode = (BinarizeMode.STOCHASTIC if self.mode == "stoch"
                        else BinarizeMode.DETERMINISTIC)
-        pc = registry.PackContext(weight_mode=weight_mode, generator=generator)
+        pc = registry.PackContext(weight_mode=weight_mode, key=key)
         out = []
         for a, (path, leaf) in zip(self.layers, leaves):
             if path != a.path:

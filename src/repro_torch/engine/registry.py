@@ -42,10 +42,10 @@ class LeafContext:
 @dataclasses.dataclass(frozen=True)
 class PackContext:
     """Per-``pack`` arguments shared by all leaves: the weight mode and the
-    generator stochastic binarization draws from."""
+    key stochastic binarization draws from."""
 
     weight_mode: Any          # BinarizeMode for the weight values
-    generator: Any = None     # torch.Generator on the leaves' device
+    key: Any = None           # core.prng.Key; each leaf folds in its index
 
 
 @dataclasses.dataclass(frozen=True)

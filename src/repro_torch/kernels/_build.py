@@ -102,7 +102,7 @@ def library() -> ctypes.CDLL:
     lib.bnn_binary_matmul.restype = i32
     lib.bnn_sign_pack.argtypes = [vp, vp, i64, i64, i32, vp]
     lib.bnn_sign_pack.restype = i32
-    lib.bnn_xnor_matmul.argtypes = [vp, vp, vp, vp, i64, i64, i64, i32, vp]
+    lib.bnn_xnor_matmul.argtypes = [vp] * 5 + [i64] * 3 + [i32, vp, vp]
     lib.bnn_xnor_matmul.restype = i32
     lib.bnn_patch_pack.argtypes = [vp, vp] + [i64] * 6 + [i32] * 7 + [vp]
     lib.bnn_patch_pack.restype = i32
@@ -127,6 +127,14 @@ def kernel_device(name: str, tensors) -> str:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
     return "cuda"
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device with an index, as a tensor's is). The private call is the one
+    Triton's launcher uses: ``torch.cuda.current_stream(device).cuda_stream``
+    builds a Stream object and costs microseconds a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, what: str) -> None:

@@ -19,7 +19,6 @@ from repro_torch.core.packing import PACK
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_M = 65535 * 4    # grid.y limit times the block's 4 rows
 
 
 def binary_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor,
@@ -49,8 +48,6 @@ def binary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     tensors = [x, w_packed] + ([] if scale is None else [scale])
     if _build.kernel_device("binary_matmul", tensors) == "cpu":
         return binary_matmul_plain(x, w_packed, scale)
-    if m > _MAX_M:
-        raise ValueError(f"M={m} exceeds the kernel's grid limit {_MAX_M}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
@@ -58,7 +55,7 @@ def binary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     code = lib.bnn_binary_matmul(
         x.data_ptr(), w_packed.data_ptr(),
         None if scale is None else scale.data_ptr(), out.data_ptr(),
-        m, k, n, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        m, k, n, _DTYPES[x.dtype], _build.stream(x.device))
     _build.check(code, "binary_matmul")
     binary_matmul.launches += 1
     return out

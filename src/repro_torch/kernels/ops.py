@@ -1,5 +1,6 @@
 """Public wrappers around the kernels: leading-dim flattening, the
-compute-dtype rule and the random words for stochastic packing.
+compute-dtype rule and the random words for stochastic packing (drawn from
+the threefry twin, ``core.prng``, over the reference's padded shape).
 
 Unlike the reference's ops, nothing here pads to blocks or cuts tiny shapes
 over to the plain version: the CUDA kernels mask ragged edges themselves,
@@ -9,8 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
+from repro_torch.core.packing import PACK
 from repro_torch.kernels.binary_matmul import binary_matmul as _binary_matmul
 from repro_torch.kernels.stoch_binarize import binarize_pack
+
+_BLOCK = 256    # the reference's block_k = block_n, which sets its draw's shape
 
 
 def binary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
@@ -26,20 +31,29 @@ def binary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     return out.reshape(*lead, w_packed.shape[-1])
 
 
-def random_words(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Uniform uint32 words as int32 bit patterns, drawn from ``generator``."""
-    return torch.randint(-(1 << 31), 1 << 31, tuple(shape), dtype=torch.int32,
-                         generator=generator, device=device)
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
-def binarize_and_pack(w: torch.Tensor, bits: torch.Tensor | None = None,
-                      generator: torch.Generator | None = None, *,
+def binarize_and_pack(w: torch.Tensor, key: prng.Key | None = None, *,
                       stochastic: bool = False) -> torch.Tensor:
     """Fused binarize (Eq. 1 or 2) + bitpack of a (K, N) master weight to
-    (ceil(K/32), N) int32. The stochastic rule uses ``bits`` when given,
-    else words drawn from ``generator`` on w's device."""
-    if stochastic and bits is None:
-        if generator is None:
-            raise ValueError("stochastic binarization requires bits or a generator")
-        bits = random_words(w.shape, generator, w.device)
-    return binarize_pack(w.contiguous(), bits, stochastic=stochastic)
+    (ceil(K/32), N) int32.
+
+    The stochastic rule draws its words from ``key`` (``core.prng``) over the
+    shape the reference draws them over, so the words equal the reference's
+    at the same key: the 32-padded (Kp, N) where the reference cuts a tiny
+    shape over to its plain version (256-block padding would more than
+    quadruple it), else the 256x256 block-padded (kp, np_). Only the draw
+    needs that shape: the words are sliced back to (K, N), and K1 packs the
+    ragged pad rows as -1 (bit 0) whatever their words."""
+    if not stochastic:
+        return binarize_pack(w.contiguous(), stochastic=False)
+    if key is None:
+        raise ValueError("stochastic binarization requires a key")
+    k, n = w.shape
+    kp32 = _ceil_to(k, PACK)
+    kp, np_ = _ceil_to(kp32, _BLOCK), _ceil_to(n, _BLOCK)
+    shape = (kp32, n) if kp * np_ > 4 * max(k, 1) * max(n, 1) else (kp, np_)
+    bits = prng.bits(key, shape, w.device)[:k, :n].contiguous()
+    return binarize_pack(w.contiguous(), bits, stochastic=True)

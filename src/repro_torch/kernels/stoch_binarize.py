@@ -123,7 +123,7 @@ def binarize_pack(w: torch.Tensor, bits: torch.Tensor | None = None, *,
     code = lib.bnn_binarize_pack(
         w.data_ptr(), bits.data_ptr() if operand else None, out.data_ptr(),
         k, n, _DTYPES[w.dtype], mode, int(seed or 0) & _MASK32,
-        torch.cuda.current_stream(w.device).cuda_stream)
+        _build.stream(w.device))
     _build.check(code, "binarize_pack")
     binarize_pack.launches += 1
     if mode == _ON_CHIP:

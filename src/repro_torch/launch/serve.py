@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs import mnist_fc as C
 from repro_torch.configs import vgg16_cifar10 as VC
+from repro_torch.core import prng
 from repro_torch.core.policy import make_paper_policy
 from repro_torch.data import synthetic as syn
 from repro_torch.engine import compile_plan
@@ -119,7 +120,7 @@ def serve_classifier(*, arch: str = "mnist_fc", binarize: str = "det",
     tree, apply_fn, kind, n_fc = build_model(arch, seed, device=dev, smoke=smoke)
     params, state = tree["params"], tree["state"]
     plan = compile_plan(params, make_paper_policy(n_fc), binarize)
-    params = plan.pack(params, generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    params = plan.pack(params, key=prng.key(seed + 1))
     binary_act = plan.mode == "xnor"
     dense_b, packed_b = packed_param_bytes(params)
     print(f"packed weights ({plan.mode}): {dense_b / 1e6:.1f}MB (bf16 dense) -> "

@@ -88,7 +88,26 @@ class XnorConv(_ConvLeaf):
     """Fully-binary 2-D convolution: the kernel is bitpacked along kh*kw*C in
     the per-tap word layout, (kh*kw*ceil(c_in/32), N) int32
     (``repro_torch.xnor.conv``); at apply time the input is packed into
-    im2col patches on the fly."""
+    im2col patches on the fly.
+
+    ``tap_sums`` (kh*kw, N) int32 holds sum_c sign(w)[tap, c, n], read off the
+    words once, when the leaf is made (pack time, interop or ``.to``): the
+    border correction of every later call reads it. It is derived from
+    ``packed``, so ``nbytes`` counts the words and scale only, as the
+    reference's leaf stores them."""
+
+    tap_sums: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.tap_sums is None:
+            from repro_torch.xnor.conv.packing import kernel_tap_sums
+
+            self.tap_sums = kernel_tap_sums(self.packed, self.ksize, self.c_in)
+
+    def to(self, device):
+        return XnorConv(self.packed.to(device),
+                        None if self.scale is None else self.scale.to(device),
+                        self.ksize, self.c_in, self.tap_sums.to(device))
 
 
 @dataclasses.dataclass

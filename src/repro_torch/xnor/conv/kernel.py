@@ -42,7 +42,7 @@ def patch_pack(x: torch.Tensor, *, ksize, stride=(1, 1), padding="SAME") -> torc
     code = _build.library().bnn_patch_pack(
         x.data_ptr(), out.data_ptr(), b, h, w, c, oh, ow, ksize[0], ksize[1],
         stride[0], stride[1], ph0, pw0, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream(x.device))
     _build.check(code, "patch_pack")
     patch_pack.launches += 1
     return out

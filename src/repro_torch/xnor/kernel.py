@@ -3,16 +3,23 @@ XNOR-popcount matmul over packed operands.
 
 * ``sign_pack(x)``: (M, K) f32/bf16 -> (M, ceil(K/32)) int32, bit = x > 0
   (``csrc/sign_pack.cu``).
-* ``xnor_matmul(a, w, scale, k_total=k)``: a (M, W) int32 x w (W, N) int32
-  -> ``k - 2 * popcount(a XOR w)`` as int32, or f32(dot) * scale
-  (``csrc/xnor_matmul.cu``). W is taken as given: surplus words that are 0
-  on both sides cancel.
+* ``xnor_matmul(a, w, scale, k_total=k, border=None)``: a (M, W) int32 x
+  w (W, N) int32 -> ``k - 2 * popcount(a XOR w)`` as int32, or
+  f32(dot) * scale (``csrc/xnor_matmul.cu``). W is taken as given: surplus
+  words that are 0 on both sides cancel. With a :class:`ConvBorder` the rows
+  of ``a`` are a convolution's im2col patches, and the kernel's flush adds
+  the zero-padding border correction before the scale, so the conv path
+  needs no further op.
 
 A CPU tensor runs the plain version in ``xnor.ref``; a CUDA tensor launches
 the kernel or raises. ``sign_pack.launches`` and ``xnor_matmul.launches``
 count kernel launches.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,7 +28,47 @@ from repro_torch.kernels import _build
 from repro_torch.xnor import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_N = 65535 * 64   # grid.y limit times the block's columns
+
+
+class ConvBorder(NamedTuple):
+    """Where a convolution's zero-padded taps fall, for K4's fused border
+    correction. Row m of the patch matrix is output pixel
+    ((m // ow) % oh, m % ow); each of its taps (dy, dx) that reads outside
+    the (h, w) input adds ``tap_sums[dy * kw + dx]``."""
+
+    tap_sums: torch.Tensor           # (kh*kw, N) int32: sum_c sign(w)[tap, c, n]
+    h: int                           # input height and width
+    w: int
+    oh: int                          # output height and width
+    ow: int
+    ksize: tuple[int, int]
+    stride: tuple[int, int]
+    pad0: tuple[int, int]            # leading padding (ph0, pw0)
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(geo: tuple[int, ...]) -> ctypes.Array:
+    """K4's conv geometry (h, w, oh, ow, kh, kw, sh, sw, ph0, pw0) as the
+    int32 array its C entry reads, made once per geometry."""
+    return (ctypes.c_int * 10)(*geo)
+
+
+def border_correction_plain(border: ConvBorder, m: int) -> torch.Tensor:
+    """(M, N) int32: the correction K4's flush adds, tap by tap, as the
+    kernel computes it."""
+    kh, kw = border.ksize
+    (sh, sw), (ph0, pw0) = border.stride, border.pad0
+    rows = torch.arange(m, device=border.tap_sums.device)
+    oh, ow = (rows // border.ow) % border.oh, rows % border.ow
+    corr = torch.zeros((m, border.tap_sums.shape[1]), dtype=torch.int32,
+                       device=border.tap_sums.device)
+    for dy in range(kh):
+        ih = oh * sh + dy - ph0
+        for dx in range(kw):
+            iw = ow * sw + dx - pw0
+            padded = (ih < 0) | (ih >= border.h) | (iw < 0) | (iw >= border.w)
+            corr += padded.to(torch.int32)[:, None] * border.tap_sums[dy * kw + dx][None]
+    return corr
 
 
 def sign_pack_plain(x: torch.Tensor) -> torch.Tensor:
@@ -43,7 +90,7 @@ def sign_pack(x: torch.Tensor) -> torch.Tensor:
         return out
     code = _build.library().bnn_sign_pack(
         x.data_ptr(), out.data_ptr(), m, k, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream(x.device))
     _build.check(code, "sign_pack")
     sign_pack.launches += 1
     return out
@@ -53,14 +100,21 @@ sign_pack.launches = 0
 
 
 def xnor_matmul_plain(a_packed: torch.Tensor, w_packed: torch.Tensor,
-                      scale: torch.Tensor | None = None, *, k_total: int) -> torch.Tensor:
+                      scale: torch.Tensor | None = None, *, k_total: int,
+                      border: ConvBorder | None = None) -> torch.Tensor:
     """The plain torch version of :func:`xnor_matmul`, on any device."""
-    return ref.xnor_matmul_ref(a_packed, w_packed, k_total, scale)
+    if border is None:
+        return ref.xnor_matmul_ref(a_packed, w_packed, k_total, scale)
+    dot = (ref.xnor_matmul_ref(a_packed, w_packed, k_total)
+           + border_correction_plain(border, a_packed.shape[0]))
+    return dot if scale is None else dot.to(torch.float32) * scale
 
 
 def xnor_matmul(a_packed: torch.Tensor, w_packed: torch.Tensor,
-                scale: torch.Tensor | None = None, *, k_total: int) -> torch.Tensor:
-    """(M, W) int32 x (W, N) int32 [* (N,) f32] -> (M, N) int32 (f32 if scaled)."""
+                scale: torch.Tensor | None = None, *, k_total: int,
+                border: ConvBorder | None = None) -> torch.Tensor:
+    """(M, W) int32 x (W, N) int32 [+ border correction] [* (N,) f32]
+    -> (M, N) int32 (f32 if scaled)."""
     if a_packed.ndim != 2 or w_packed.ndim != 2:
         raise ValueError(f"a_packed must be (M, W) and w_packed (W, N), got "
                          f"{tuple(a_packed.shape)} and {tuple(w_packed.shape)}")
@@ -77,19 +131,30 @@ def xnor_matmul(a_packed: torch.Tensor, w_packed: torch.Tensor,
     if scale is not None and (scale.shape != (n,) or scale.dtype != torch.float32):
         raise ValueError(f"scale must be float32 of shape ({n},), got "
                          f"{scale.dtype} {tuple(scale.shape)}")
-    tensors = [a_packed, w_packed] + ([] if scale is None else [scale])
+    if border is not None:
+        kh, kw = border.ksize
+        if border.tap_sums.shape != (kh * kw, n) or border.tap_sums.dtype != torch.int32:
+            raise ValueError(f"tap_sums must be int32 of shape ({kh * kw}, {n}), got "
+                             f"{border.tap_sums.dtype} {tuple(border.tap_sums.shape)}")
+        if m % (border.oh * border.ow) != 0:
+            raise ValueError(f"M={m} is not a whole number of {border.oh}x{border.ow} "
+                             f"output images")
+    tensors = ([a_packed, w_packed] + ([] if scale is None else [scale])
+               + ([] if border is None else [border.tap_sums]))
     if _build.kernel_device("xnor_matmul", tensors) == "cpu":
-        return xnor_matmul_plain(a_packed, w_packed, scale, k_total=k_total)
-    if n > _MAX_N:
-        raise ValueError(f"N={n} exceeds the kernel's grid limit {_MAX_N}")
+        return xnor_matmul_plain(a_packed, w_packed, scale, k_total=k_total, border=border)
     out = torch.empty((m, n), dtype=torch.int32 if scale is None else torch.float32,
                       device=a_packed.device)
     if m == 0:
         return out
     code = _build.library().bnn_xnor_matmul(
         a_packed.data_ptr(), w_packed.data_ptr(),
-        None if scale is None else scale.data_ptr(), out.data_ptr(), m, words, n,
-        k_total, torch.cuda.current_stream(a_packed.device).cuda_stream)
+        None if scale is None else scale.data_ptr(),
+        None if border is None else border.tap_sums.data_ptr(), out.data_ptr(), m, words,
+        n, k_total, None if border is None else _geometry(
+            (border.h, border.w, border.oh, border.ow, *border.ksize, *border.stride,
+             *border.pad0)),
+        _build.stream(a_packed.device))
     _build.check(code, "xnor_matmul")
     xnor_matmul.launches += 1
     return out

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packing import PACK
+from repro_torch.xnor.kernel import ConvBorder
 from repro_torch.xnor.kernel import sign_pack as _sign_pack
 from repro_torch.xnor.kernel import xnor_matmul as _xnor_matmul
 
@@ -23,14 +24,16 @@ def sign_and_pack(x: torch.Tensor) -> torch.Tensor:
 
 def xnor_matmul_packed(a_packed: torch.Tensor, w_packed: torch.Tensor,
                        scale: torch.Tensor | None = None, *, k: int, out_dtype=None,
-                       allow_extra_words: bool = False) -> torch.Tensor:
+                       allow_extra_words: bool = False,
+                       border: ConvBorder | None = None) -> torch.Tensor:
     """Popcount matmul over packed operands: a (..., K32), w (K32, N).
 
     ``k`` is the true contraction length. ``allow_extra_words`` permits
     K32 > ceil(k/32), for layouts whose surplus positions are 0 bits on both
     sides (the conv engine's per-tap channel padding); without it a
-    word-count mismatch is a caller bug. ``out_dtype`` defaults to int32,
-    or f32 when a scale is applied."""
+    word-count mismatch is a caller bug. ``border`` (the conv path's) has K4
+    add the zero-padding border correction before the scale. ``out_dtype``
+    defaults to int32, or f32 when a scale is applied."""
     *lead, k32 = a_packed.shape
     k32w, n = w_packed.shape
     if k32 != k32w:
@@ -40,7 +43,7 @@ def xnor_matmul_packed(a_packed: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"k={k} inconsistent with {k32} packed words")
     out = _xnor_matmul(a_packed.reshape(-1, k32).contiguous(), w_packed.contiguous(),
                        None if scale is None else scale.to(torch.float32).contiguous(),
-                       k_total=k)
+                       k_total=k, border=border)
     if out_dtype is not None:
         out = out.to(out_dtype)
     return out.reshape(*lead, n)

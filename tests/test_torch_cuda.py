@@ -12,13 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
 from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 from repro_torch.launch import serve
-from repro_torch.models.layers import conv2d_nhwc
+from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
 from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
-from repro_torch.xnor.kernel import (sign_pack, sign_pack_plain, xnor_matmul,
+from repro_torch.xnor.conv.ops import xnor_conv2d
+from repro_torch.xnor.conv.packing import pack_conv_kernel
+from repro_torch.xnor.kernel import (ConvBorder, sign_pack, sign_pack_plain, xnor_matmul,
                                      xnor_matmul_plain)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)   # only the order of the f32 sum differs
@@ -123,9 +126,9 @@ def test_k2_is_bit_identical_run_to_run(cuda, m, k, n, dtype):
 
 @pytest.mark.cuda
 def test_launch_counters_count_kernel_launches(cuda):
-    w, bits = _weights(64, 128, 0, cuda)
+    w, _ = _weights(64, 128, 0, cuda)
     k1, k2 = binarize_pack.launches, binary_matmul.launches
-    wp = ops.binarize_and_pack(w, bits, stochastic=True)
+    wp = ops.binarize_and_pack(w, prng.key(0), stochastic=True)
     ops.binary_matmul(torch.ones(2, 3, 64, device=cuda), wp)
     assert (binarize_pack.launches - k1, binary_matmul.launches - k2) == (1, 1)
 
@@ -231,10 +234,13 @@ def test_k3_matches_plain(cuda, m, k, dtype):
 
 
 # (M, words, N, k): mnist_fc's hidden layers, VGG conv/2..12 and fc/1 at batch
-# 4, ragged M/N, K % 32 != 0, and surplus words (allow_extra_words layouts)
+# 4, ragged M/N, K % 32 != 0, and surplus words (allow_extra_words layouts);
+# M < 64 runs one row a thread, M >= 64 four (a large M, and a ragged last
+# row group of each tiling)
 K4_SHAPES = [(4, 64, 2048, 2048), (1024, 18, 128, 576), (256, 72, 256, 2304),
              (16, 144, 512, 4608), (4, 16, 512, 512), (5, 4, 300, 100),
-             (33, 9, 65, 9 * 8), (3, 1, 1, 7)]
+             (33, 9, 65, 9 * 8), (3, 1, 1, 7), (4096, 72, 256, 2304), (65, 5, 33, 150),
+             (63, 33, 40, 1050)]
 
 
 @pytest.mark.cuda
@@ -343,3 +349,132 @@ def test_vgg_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "vgg16_cifar10", "--binarize", "xnor", "--smoke",
                     "--requests", "1"])
+
+
+# VGG-16's 11 xnor conv layers at batch 4 ((B, H, W, C), N, ksize, stride,
+# padding), then the layout sweep: stride 2, C % 32 != 0 (surplus words in
+# the per-tap layout), ragged H/W, C=3, VALID, 1x1, a 5x3 kernel with stride
+# (2, 1), explicit asymmetric padding and a ragged N
+FUSED_CONVS = [(shape, n, (3, 3), (1, 1), "SAME") for shape, n in [
+    ((4, 16, 16, 64), 128), ((4, 16, 16, 128), 128), ((4, 8, 8, 128), 256),
+    ((4, 8, 8, 256), 256), ((4, 8, 8, 256), 256), ((4, 4, 4, 256), 512),
+    ((4, 4, 4, 512), 512), ((4, 4, 4, 512), 512), ((4, 2, 2, 512), 512),
+    ((4, 2, 2, 512), 512), ((4, 2, 2, 512), 512)]] + [
+    ((2, 8, 8, 32), 48, (3, 3), (2, 2), "SAME"), ((2, 9, 7, 40), 65, (3, 3), (2, 2), "SAME"),
+    ((1, 9, 7, 16), 32, (3, 3), (1, 1), "SAME"), ((2, 8, 8, 3), 16, (3, 3), (1, 1), "SAME"),
+    ((1, 7, 7, 8), 8, (3, 3), (2, 2), "VALID"), ((2, 6, 6, 32), 32, (1, 1), (1, 1), "VALID"),
+    ((1, 10, 6, 24), 40, (5, 3), (2, 1), "SAME"),
+    ((1, 5, 6, 40), 8, (3, 3), (1, 1), ((2, 0), (1, 1)))]
+
+
+def _xnor_conv_leaf(c, n, ksize, scaled, device="cpu"):
+    rng = np.random.default_rng(c * n + ksize[0])
+    wk = torch.from_numpy(rng.normal(size=(*ksize, c, n)).astype(np.float32))
+    leaf = XnorConv(pack_conv_kernel(wk), wk.abs().mean(dim=(0, 1, 2)) if scaled else None,
+                    ksize, c)
+    return leaf.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n,ksize,stride,pad", FUSED_CONVS)
+@pytest.mark.parametrize("scaled", [False, True])
+def test_fused_k4_conv_matches_plain_route(cuda, shape, n, ksize, stride, pad, scaled):
+    """On CUDA the conv is K5 then K4 with the border correction and the
+    scale in its flush; it equals the CPU route (raw dot, correction table,
+    epilogue) bit for bit, int32 and scaled f32 alike."""
+    x = _acts(shape, sum(shape) + n, "cpu")
+    leaf = _xnor_conv_leaf(shape[-1], n, ksize, scaled)
+    kw = dict(ksize=ksize, c_in=shape[-1], stride=stride, padding=pad)
+    want = xnor_conv2d(x, leaf.packed, leaf.scale, **kw)
+    gl = leaf.to(cuda)
+    counts = (patch_pack.launches, xnor_matmul.launches)
+    got = xnor_conv2d(x.to(cuda), gl.packed, gl.scale, tap_sums=gl.tap_sums, **kw)
+    assert (patch_pack.launches, xnor_matmul.launches) == (counts[0] + 1, counts[1] + 1)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((4, 16, 16, 64), 128), ((4, 2, 2, 512), 512)])
+def test_xnor_conv_layer_on_cuda_matches_cpu(cuda, shape, n):
+    """The serving seam (apply_conv2d on an XnorConv leaf, f32 out) on the
+    card equals the same leaf on the CPU, and launches one K5 and one K4."""
+    x = _acts(shape, n, "cpu")
+    leaf = _xnor_conv_leaf(shape[-1], n, (3, 3), True)
+    want = apply_conv2d(leaf, x)
+    counts = (patch_pack.launches, xnor_matmul.launches)
+    got = apply_conv2d(leaf.to(cuda), x.to(cuda))
+    assert (patch_pack.launches, xnor_matmul.launches) == (counts[0] + 1, counts[1] + 1)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,words,n", [(4, 64, 2048), (64, 18, 128)])
+def test_k4_launches_are_counted_once_per_call(cuda, m, words, n):
+    a, w = _words((m, words), m, cuda), _words((words, n), n, cuda)
+    before = xnor_matmul.launches
+    xnor_matmul(a, w, k_total=words * 32)
+    ts = torch.zeros(9, n, dtype=torch.int32, device=cuda)
+    xnor_matmul(a, w, torch.ones(n, device=cuda), k_total=words * 32,
+                border=ConvBorder(ts, 2, m // 4, 2, m // 4, (3, 3), (1, 1), (1, 1)))
+    assert xnor_matmul.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_k2_takes_m_past_the_old_grid_limit(cuda):
+    """M = 65535 * 4 + 1, one past the old grid.y limit: the row groups are
+    walked with a grid stride, and two calls stay bit-identical."""
+    m = 65535 * 4 + 1
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(m, 32))
+                         .astype(np.float32)).to(cuda)
+    wp = binarize_pack(_weights(32, 8, 1, cuda)[0], stochastic=False)
+    got = binary_matmul(x, wp)
+    torch.testing.assert_close(got, binary_matmul_plain(x, wp), **F32_TOL)
+    assert torch.equal(binary_matmul(x, wp), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 64])
+def test_k4_takes_n_past_the_old_grid_limit(cuda, m):
+    """N = 65535 * 64 + 1, one past the old grid.y limit, with W = 1, at one
+    and at four rows a thread (the blocks are numbered along grid.x)."""
+    n = 65535 * 64 + 1
+    a, w = _words((m, 1), m, cuda), _words((1, n), 7, cuda)
+    got = xnor_matmul(a, w, k_total=32)
+    assert torch.equal(got, xnor_matmul_plain(a, w, k_total=32))
+    assert torch.equal(xnor_matmul(a, w, k_total=32), got)
+
+
+@pytest.mark.cuda
+def test_twin_words_on_cuda_equal_cpu(cuda):
+    """The threefry twin's words do not depend on the device: a 2048 x 2048
+    draw (the 256-block-padded shape of a 2048 x 2048 leaf) and its uniform
+    floats are equal on the card and on the CPU."""
+    k = prng.split(prng.fold_in(prng.key(1), 2), 1)[0]
+    assert torch.equal(prng.bits(k, (2048, 2048), cuda).cpu(), prng.bits(k, (2048, 2048)))
+    assert torch.equal(prng.uniform(k, (300, 500), cuda).cpu(), prng.uniform(k, (300, 500)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 2048), (784, 2048), (64, 64), (300, 100)])
+def test_stoch_pack_on_cuda_equals_cpu(cuda, k, n):
+    """Twin words on the card, then K1's operand mode, equal the CPU pack at
+    the same key (both of the reference's draw shapes)."""
+    w, _ = _weights(k, n, k + n, "cpu")
+    key = prng.key(k + n)
+    got = ops.binarize_and_pack(w.to(cuda), key, stochastic=True)
+    assert torch.equal(got.cpu(), ops.binarize_and_pack(w, key, stochastic=True))
+
+
+@pytest.mark.parametrize("border,err", [
+    (ConvBorder(torch.zeros(8, 8, dtype=torch.int32), 2, 2, 2, 2, (3, 3), (1, 1), (1, 1)),
+     "tap_sums must be"),
+    (ConvBorder(torch.zeros(9, 8, dtype=torch.int64), 2, 2, 2, 2, (3, 3), (1, 1), (1, 1)),
+     "tap_sums must be"),
+    (ConvBorder(torch.zeros(9, 8, dtype=torch.int32), 3, 3, 3, 3, (3, 3), (1, 1), (1, 1)),
+     "output images"),
+])
+def test_k4_checks_its_border(border, err):
+    a, w = _words((8, 2), 1, "cpu"), _words((2, 8), 2, "cpu")
+    with pytest.raises(ValueError, match=err):
+        xnor_matmul(a, w, k_total=64, border=border)

@@ -16,6 +16,7 @@ from repro.kernels import ref as jref
 from repro.kernels.binary_matmul import binary_matmul_pallas
 from repro.kernels.stoch_binarize import binarize_pack_pallas
 from repro_torch.core import packing as P
+from repro_torch.core import prng
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.binary_matmul import binary_matmul
 from repro_torch.kernels.stoch_binarize import binarize_pack
@@ -87,17 +88,17 @@ def test_binarize_and_pack_det_matches_reference_ops(k, n):
 
 @pytest.mark.parametrize("p", [0.1, 0.25, 0.5, 0.75, 0.9])
 def test_eq3_frequency_of_generator_path(p):
-    """Eq. 2-3 through ops.binarize_and_pack with words from a torch.Generator:
-    the fraction of +1 bits is hard_sigmoid(w) within 4 sigma."""
+    """Eq. 2-3 through ops.binarize_and_pack with words drawn from a key
+    (the threefry twin): the fraction of +1 bits is hard_sigmoid(w) within
+    4 sigma."""
     w = torch.full((512, 512), 2.0 * p - 1.0)
-    packed = ops.binarize_and_pack(w, generator=torch.Generator().manual_seed(3),
-                                   stochastic=True)
+    packed = ops.binarize_and_pack(w, prng.key(3), stochastic=True)
     frac = float((P.unpack_bits(packed) > 0).float().mean())
     assert abs(frac - p) <= 4 * np.sqrt(p * (1 - p) / w.numel())
 
 
 def test_stochastic_pack_needs_words_or_generator():
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(ValueError, match="requires a key"):
         ops.binarize_and_pack(torch.zeros(64, 8), stochastic=True)
 
 

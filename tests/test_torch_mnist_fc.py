@@ -15,6 +15,7 @@ from repro.engine import compile_plan as j_compile_plan
 from repro.launch.train import make_paper_policy as j_make_paper_policy
 from repro.models import mnist_fc as jfc
 from repro.serve.engine import packed_param_bytes as j_packed_param_bytes
+from repro_torch.core import prng
 from repro_torch.core.policy import make_paper_policy
 from repro_torch.data import synthetic as syn
 from repro_torch.engine import compile_plan
@@ -131,12 +132,12 @@ def test_stochastic_pack_draws_from_the_generator():
     plan = compile_plan(tree["params"], make_paper_policy(3), "stoch")
 
     def words(seed):
-        p = plan.pack(tree["params"], generator=torch.Generator().manual_seed(seed))
+        p = plan.pack(tree["params"], key=prng.key(seed))
         return p["layers"][1]["kernel"].packed
 
     assert torch.equal(words(1), words(1))
     assert not torch.equal(words(1), words(2))
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(ValueError, match="requires a PRNG key.*layers/1/kernel"):
         plan.pack(tree["params"])
 
 

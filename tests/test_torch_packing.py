@@ -16,6 +16,7 @@ from repro.launch.train import make_paper_policy as j_make_paper_policy
 from repro_torch.core import binarize as B
 from repro_torch.core import packing as P
 from repro_torch.core import policy as pol
+from repro_torch.core import prng
 from repro_torch.kernels.stoch_binarize import binarize_pack_plain
 
 
@@ -123,8 +124,7 @@ def test_hard_sigmoid_and_clip_match_reference():
                                     (-1.0, 0.0), (1.0, 1.0)])
 def test_stochastic_binarize_frequency(wval, p):
     """Eq. 2-3: P(+1) = hard_sigmoid(w); 4-sigma band over 256x256 draws."""
-    g = torch.Generator().manual_seed(int(wval * 100) + 7)
-    out = B.stochastic_binarize(torch.full((256, 256), wval), g)
+    out = B.stochastic_binarize(torch.full((256, 256), wval), prng.key(int(wval * 100) + 7))
     frac = float((out > 0).float().mean())
     assert abs(frac - p) <= 4 * np.sqrt(p * (1 - p) / out.numel()) + 1e-9
 

@@ -21,6 +21,7 @@ from repro_torch.models.layers import XnorConv, apply_conv2d
 from repro_torch.xnor.conv import ops, ref
 from repro_torch.xnor.conv import packing as P
 from repro_torch.xnor.conv.kernel import patch_pack
+from repro_torch.xnor.kernel import ConvBorder, border_correction_plain, xnor_matmul
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 
@@ -114,6 +115,64 @@ def test_xnor_conv2d_three_way_exact(b, h, w, c, n, kh, kw, sh, sw, pad):
                                   want)
     dense = ref.sign_conv_ref(torch.from_numpy(x), torch.from_numpy(wk), (sh, sw), pad)
     np.testing.assert_array_equal(got.numpy(), dense.numpy().astype(np.int32))
+
+
+def _fused_inputs(b, h, w, c, n, kh, kw, sh, sw, pad, scaled):
+    """The packed patches, weights and scale of one conv case, and the
+    ConvBorder the CUDA route hands K4 (the leaf's tap sums and geometry)."""
+    x, wk = _operands(b, h, w, c, n, kh, kw)
+    wp = P.pack_conv_kernel(torch.from_numpy(wk))
+    oh, ow, ((ph0, _), (pw0, _)) = P.conv_geometry(h, w, (kh, kw), (sh, sw), pad)
+    a = ops.sign_and_pack_patches(torch.from_numpy(x), ksize=(kh, kw), stride=(sh, sw),
+                                  padding=pad).reshape(b * oh * ow, -1)
+    s = np.abs(wk).mean(axis=(0, 1, 2)).astype(np.float32) if scaled else None
+    border = ConvBorder(XnorConv(wp, None, (kh, kw), c).tap_sums, h, w, oh, ow, (kh, kw),
+                        (sh, sw), (ph0, pw0))
+    return x, wp, a, s, border, (oh, ow)
+
+
+@pytest.mark.parametrize("b,h,w,c,n,kh,kw,sh,sw,pad", CONV_CASES)
+@pytest.mark.parametrize("scaled", [False, True])
+def test_fused_k4_plain_matches_reference_conv(b, h, w, c, n, kh, kw, sh, sw, pad, scaled):
+    """K4 with the border correction and the scale in its flush (the plain
+    version its CUDA kernel is held against) equals the reference's
+    xnor_conv2d: raw dot + correction table + epilogue, bit for bit."""
+    x, wp, a, s, border, (oh, ow) = _fused_inputs(b, h, w, c, n, kh, kw, sh, sw, pad,
+                                                 scaled)
+    got = xnor_matmul(a, wp, None if s is None else torch.from_numpy(s),
+                      k_total=kh * kw * c, border=border)
+    assert got.dtype == (torch.float32 if scaled else torch.int32)
+    want = np.asarray(jcops.xnor_conv2d(
+        jnp.asarray(x), jnp.asarray(wp.numpy()), None if s is None else jnp.asarray(s),
+        ksize=(kh, kw), c_in=c, stride=(sh, sw), padding=pad))
+    np.testing.assert_array_equal(got.reshape(b, oh, ow, n).numpy(), want)
+
+
+@pytest.mark.parametrize("b,h,w,c,n,kh,kw,sh,sw,pad", CONV_CASES)
+def test_fused_border_rows_equal_the_correction_table(b, h, w, c, n, kh, kw, sh, sw, pad):
+    """The flush's tap-by-tap correction, row by row, equals the
+    reference's (OH*OW, N) table repeated over the batch."""
+    x, wp, a, _, border, (oh, ow) = _fused_inputs(b, h, w, c, n, kh, kw, sh, sw, pad, False)
+    table = jcp.border_correction(jnp.asarray(wp.numpy()), h, w, (kh, kw), (sh, sw), pad, c)
+    want = (np.zeros((oh * ow, n), np.int32) if table is None else np.asarray(table))
+    np.testing.assert_array_equal(border_correction_plain(border, b * oh * ow).numpy(),
+                                  np.tile(want, (b, 1)))
+
+
+@pytest.mark.parametrize("c", [3, 40, 64])
+def test_xnor_conv_leaf_holds_its_tap_sums(c):
+    """The leaf computes the reference's kernel_tap_sums once, when made, and
+    keeps them through .to(); a given table is kept as it is."""
+    _, wk = _operands(1, 4, 4, c, 24, 3, 3, seed=c)
+    wp = P.pack_conv_kernel(torch.from_numpy(wk))
+    leaf = XnorConv(wp, None, (3, 3), c)
+    want = np.asarray(jcp.kernel_tap_sums(jnp.asarray(wp.numpy()), (3, 3), c))
+    assert leaf.tap_sums.dtype == torch.int32 and leaf.tap_sums.shape == (9, 24)
+    np.testing.assert_array_equal(leaf.tap_sums.numpy(), want)
+    moved = leaf.to("cpu")
+    assert type(moved) is XnorConv and torch.equal(moved.tap_sums, leaf.tap_sums)
+    given = torch.zeros(9, 24, dtype=torch.int32)
+    assert XnorConv(wp, None, (3, 3), c, given).tap_sums is given
 
 
 def test_border_correction_is_load_bearing():
