@@ -24,10 +24,16 @@ Phases, each on its own lines of output; any failure exits non-zero:
    plain versions, word for word and bit for bit, at every serving shape of
    the xnor paths and at ragged shapes (K % 32 != 0, M not a multiple of 8,
    allow_extra_words layouts, scaled and unscaled, stride 2, VALID, ragged
-   H/W, C % 32 != 0, 0.0 / -0.0 / NaN planted); K4 with the conv border
-   correction and scale fused into its flush, through ``xnor_conv2d``,
-   against the plain conv route on the CPU at VGG's 11 conv geometries and a
-   layout sweep; and K2 at M = 65535 * 4 + 1 and K4 at N = 65535 * 64 + 1,
+   H/W, C % 32 != 0, 0.0 / -0.0 / NaN planted); K5 also at the edges of its
+   tiling (a row wider than a column tile, a channel row and a kernel window
+   wider than a block's shared memory, H = W = 1, a batch past grid.z's
+   65,535, an input off 16-byte alignment, three inputs past 2^31
+   elements and an output past 2^31 words, these cases from
+   ``xnor.conv.cases``);
+   K4 with the conv border correction and scale fused into its flush,
+   through ``xnor_conv2d``, against the plain conv route on the CPU at
+   VGG's 11 conv geometries and a layout sweep; and K2 at
+   M = 65535 * 4 + 1 and K4 at N = 65535 * 64 + 1,
    one past the grid limits earlier kernels had; and the dense f32 conv
    against an f64 conv (cuDNN's TF32 must stay off);
 6. the main path: serve full-width mnist_fc (784-2048x3-10) in det, stoch
@@ -45,7 +51,8 @@ Phases, each on its own lines of output; any failure exits non-zero:
    version, a library call where one computes the same function, and the
    least time the card could take (the stochastic pack route, twin words +
    K1, beside K1 alone; the on-chip K1 variant, which no path runs, beside
-   that route; K4 at each VGG shape as the conv path calls it, fused); and
+   that route; K4 at each VGG shape as the conv path calls it, fused; K5
+   at each VGG conv input); and
    each xnor conv layer as a whole against F.conv2d on +-1 f32, with the
    device kernels it launches counted by the profiler.
 
@@ -134,7 +141,8 @@ def main() -> int:
     from repro_torch.launch.serve import build_model, serve_classifier
     from repro_torch.models import mnist_fc, vgg
     from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
-    from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
+    from repro_torch.xnor.conv import cases as k5_cases
+    from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain, patch_pack_tiles
     from repro_torch.xnor.conv.ops import xnor_conv2d
     from repro_torch.xnor.conv.packing import conv_geometry, pack_conv_kernel
     from repro_torch.xnor.kernel import (ConvBorder, sign_pack, sign_pack_plain, xnor_matmul,
@@ -437,16 +445,63 @@ def main() -> int:
         exact(f"K4 {m}x1w x{n}", xnor_matmul(a, w4, k_total=32),
               xnor_matmul_plain(a, w4, k_total=32))
 
-    print("== K5 patch_pack vs plain (exact)")
-    k5_cases = [(shape, (3, 3), (1, 1), "SAME") for shape, _ in VGG_XNOR_CONVS]
-    k5_cases += [((2, 9, 7, 40), (3, 3), (2, 2), "SAME"), ((1, 7, 7, 8), (3, 3), (2, 2), "VALID"),
-                 ((2, 10, 6, 24), (5, 3), (2, 1), ((2, 0), (1, 1)))]
-    for shape, ks, st, pad in k5_cases:
+    def acts_planted(shape, dtype):
+        return k5_cases.planted_acts(shape, sum(shape), dtype, dev)
+
+    print("== K5 patch_pack vs plain (exact; the tile each case launches with)")
+    k5_cases_run = [(shape, (3, 3), (1, 1), "SAME", acts) for shape, _ in VGG_XNOR_CONVS]
+    k5_cases_run += [((2, 9, 7, 40), (3, 3), (2, 2), "SAME", acts),
+                     ((1, 7, 7, 8), (3, 3), (2, 2), "VALID", acts),
+                     ((2, 10, 6, 24), (5, 3), (2, 1), ((2, 0), (1, 1)), acts)]
+    # the edges of the tiling, a batch past grid.z's 65,535, and VGG's conv
+    # inputs with 0.0 / -0.0 / NaN planted throughout
+    k5_cases_run += [(*case, acts_planted)
+                     for case in k5_cases.TILE_EDGES + [k5_cases.BATCH_PAST_GRID]]
+    k5_cases_run += [(shape, (3, 3), (1, 1), "SAME", acts_planted)
+                     for shape in dict.fromkeys(shape for shape, _ in VGG_XNOR_CONVS)]
+    for shape, ks, st, pad, make in k5_cases_run:
+        oh, ow, _ = conv_geometry(shape[1], shape[2], ks, st, pad)
+        tiles = tuple(patch_pack_tiles(oh, ow, shape[3], ks, st))
         for dtype in (torch.float32, torch.bfloat16):
-            x = acts(shape, dtype)
+            x = make(shape, dtype)
             kw = dict(ksize=ks, stride=st, padding=pad)
-            exact(f"K5 {shape} k={ks} s={st} {pad} {str(dtype)[6:]}",
+            exact(f"K5 {shape} k={ks} s={st} {pad} {str(dtype)[6:]}"
+                  f"{' planted' if make is acts_planted else ''} tile {tiles}",
                   patch_pack(x, **kw), patch_pack_plain(x, **kw))
+    for shape in [(2, 9, 11, 40), (4, 8, 8, 128)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = acts_planted(shape, dtype)
+            xu = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(shape)
+            xu.copy_(x)
+            exact(f"K5 {shape} {str(dtype)[6:]} input one element past a 16-byte boundary",
+                  patch_pack(xu, ksize=(3, 3)), patch_pack_plain(x, ksize=(3, 3)))
+    # 64-bit indexing: inputs past 2^31 elements, whose output pixel (1, 1)
+    # reads a pixel past offset 2^31, and an output past 2^31 words
+    for shape, dtype, st in k5_cases.PAST_2_31_INPUTS:
+        x = torch.randn(shape, generator=g, dtype=dtype, device=dev)
+        k5_cases.corner_planted(x, st)
+        kw = dict(ksize=(1, 1), stride=st, padding="VALID")
+        got = patch_pack(x, **kw)
+        if (got[..., 0] & 1).flatten().tolist() != [1, 0, 0, 1]:
+            raise AssertionError(f"K5 {shape}: planted corner bits wrong")
+        exact(f"K5 {shape} {str(dtype)[6:]} ({x.numel()} elements) k=(1, 1) s={st}",
+              got, patch_pack_plain(x, **kw))
+        del x, got
+        torch.cuda.empty_cache()
+    shape, ks, st, pad = k5_cases.PAST_2_31_OUTPUT
+    x = torch.randn(shape, generator=g, device=dev)
+    x[torch.rand(shape, generator=g, device=dev) < 0.05] = float("nan")
+    x[::7, 1, 2], x[::11, 2, 1] = 0.0, -0.0
+    kw = dict(ksize=ks, stride=st, padding=pad)
+    got = patch_pack(x, **kw)
+    step = k5_cases.PAST_2_31_OUTPUT_CHUNK
+    for b0 in range(0, shape[0], step):
+        if not torch.equal(got[b0:b0 + step], patch_pack_plain(x[b0:b0 + step], **kw)):
+            raise AssertionError(f"K5 {shape} output past 2^31 words: images {b0}.. differ")
+    print(f"  K5 {shape} f32 k={ks} {pad} ({got.numel()} output words): exact "
+          f"against plain in chunks of {step} images")
+    del x, got
+    torch.cuda.empty_cache()
     errs["k5"] = 0.0
 
     print("== dense conv (conv/1 shape) against f64: cuDNN TF32 must stay off")
@@ -755,10 +810,15 @@ def main() -> int:
     kernels.append({**entry("xnor_matmul (vgg16 xnor, the 12 shapes of one batch, summed)",
                             k4_src, k4_rep, launches["xnor_matmul"][vgg_x], errs["k4"], vgg_k4),
                     "device_ms_per_shape": [r[6] for r in vgg_k4]})
-    kernels.append(entry("patch_pack (vgg16 xnor, the 11 conv inputs of one batch, summed)",
-                         "src/repro_torch/kernels/csrc/patch_pack.cu",
-                         "src/repro/xnor/conv/kernel.py:76", launches["patch_pack"][vgg_x],
-                         errs["k5"], [k5_row(shape) for shape, _ in VGG_XNOR_CONVS]))
+    vgg_k5 = [k5_row(shape) for shape, _ in VGG_XNOR_CONVS]
+    print("  K5 device_ms at VGG's 11 conv inputs: " + ", ".join(fmt(r[6]) for r in vgg_k5)
+          + (f"; sum {sum(r[6] for r in vgg_k5):.4f}" if None not in [r[6] for r in vgg_k5]
+             else ""))
+    kernels.append({**entry("patch_pack (vgg16 xnor, the 11 conv inputs of one batch, summed)",
+                            "src/repro_torch/kernels/csrc/patch_pack.cu",
+                            "src/repro/xnor/conv/kernel.py:76", launches["patch_pack"][vgg_x],
+                            errs["k5"], vgg_k5),
+                    "device_ms_per_shape": [r[6] for r in vgg_k5]})
 
     print("== xnor conv layers as a whole (K5, then K4 with the border correction and "
           "epilogue in its flush) against F.conv2d on +-1 f32, TF32 off; device kernels "

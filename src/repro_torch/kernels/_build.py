@@ -104,7 +104,7 @@ def library() -> ctypes.CDLL:
     lib.bnn_sign_pack.restype = i32
     lib.bnn_xnor_matmul.argtypes = [vp] * 5 + [i64] * 3 + [i32, vp, vp]
     lib.bnn_xnor_matmul.restype = i32
-    lib.bnn_patch_pack.argtypes = [vp, vp] + [i64] * 6 + [i32] * 7 + [vp]
+    lib.bnn_patch_pack.argtypes = [vp, vp] + [i64] * 6 + [i32] * 12 + [vp]
     lib.bnn_patch_pack.restype = i32
     lib.bnn_error_string.argtypes = [i32]
     lib.bnn_error_string.restype = ctypes.c_char_p

@@ -18,6 +18,7 @@ from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
 from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 from repro_torch.launch import serve
 from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
+from repro_torch.xnor.conv import cases as k5_cases
 from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
 from repro_torch.xnor.conv.ops import xnor_conv2d
 from repro_torch.xnor.conv.packing import pack_conv_kernel
@@ -255,17 +256,78 @@ def test_k4_matches_plain(cuda, m, words, n, k, scaled):
     assert torch.equal(got, xnor_matmul_plain(a, w, scale, k_total=k))
 
 
+# K5's cases: VGG's first and last conv inputs and the earlier ragged cases,
+# then the edges of the tiled kernel (``cases.TILE_EDGES``), a batch past
+# grid.z's 65,535 and a VGG input, with 0.0 / -0.0 / NaN planted throughout.
+K5_CASES = [
+    ((4, 16, 16, 64), (3, 3), (1, 1), "SAME", False),
+    ((4, 2, 2, 512), (3, 3), (1, 1), "SAME", False),
+    ((2, 9, 7, 40), (3, 3), (2, 2), "SAME", False),
+    ((1, 7, 7, 8), (3, 3), (2, 2), "VALID", False),
+    ((2, 10, 6, 24), (5, 3), (2, 1), ((2, 0), (1, 1)), False),
+] + [(*case, True) for case in k5_cases.TILE_EDGES + [k5_cases.BATCH_PAST_GRID]] + [
+    ((4, 8, 8, 256), (3, 3), (1, 1), "SAME", True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,ksize,stride,pad", [
-    ((4, 16, 16, 64), (3, 3), (1, 1), "SAME"), ((4, 2, 2, 512), (3, 3), (1, 1), "SAME"),
-    ((2, 9, 7, 40), (3, 3), (2, 2), "SAME"), ((1, 7, 7, 8), (3, 3), (2, 2), "VALID"),
-    ((2, 10, 6, 24), (5, 3), (2, 1), ((2, 0), (1, 1))),
-])
+@pytest.mark.parametrize("shape,ksize,stride,pad,planted", K5_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k5_matches_plain(cuda, shape, ksize, stride, pad, dtype):
-    x = _acts(shape, sum(shape), cuda, dtype)
+def test_k5_matches_plain(cuda, shape, ksize, stride, pad, planted, dtype):
+    if planted:
+        x = k5_cases.planted_acts(shape, sum(shape), dtype, cuda)
+    else:
+        x = _acts(shape, sum(shape), cuda, dtype)
     k = dict(ksize=ksize, stride=stride, padding=pad)
     assert torch.equal(patch_pack(x, **k), patch_pack_plain(x, **k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 9, 11, 40), (4, 8, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_matches_plain_on_an_unaligned_input(cuda, shape, dtype):
+    """An input that starts one element past a 16-byte boundary."""
+    x = k5_cases.planted_acts(shape, 7, dtype, cuda)
+    xu = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    assert torch.equal(patch_pack(xu, ksize=(3, 3)), patch_pack_plain(x, ksize=(3, 3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,stride", k5_cases.PAST_2_31_INPUTS)
+def test_k5_takes_an_input_past_2_31_elements(cuda, shape, dtype, stride):
+    """An input of more than 2^31 elements takes the kernel's 64-bit
+    indexing: output pixel (1, 1) reads a pixel past offset 2^31."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, dtype=dtype, device=cuda)
+    assert x.numel() > 2**31
+    assert (stride[0] * shape[2] + stride[1]) * shape[3] > 2**31
+    k5_cases.corner_planted(x, stride)
+    k = dict(ksize=(1, 1), stride=stride, padding="VALID")
+    got = patch_pack(x, **k)
+    assert (got[..., 0] & 1).flatten().tolist() == [1, 0, 0, 1]
+    assert torch.equal(got, patch_pack_plain(x, **k))
+
+
+@pytest.mark.cuda
+def test_k5_takes_an_output_past_2_31_words(cuda):
+    """An output of more than 2^31 words from an input of fewer than 2^31
+    elements also takes the 64-bit indexing; held to the plain version in
+    batch chunks (the images are independent)."""
+    shape, ksize, stride, pad = k5_cases.PAST_2_31_OUTPUT
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda)
+    x[torch.rand(shape, generator=g, device=cuda) < 0.05] = float("nan")
+    x[::7, 1, 2] = 0.0
+    x[::11, 2, 1] = -0.0
+    assert x.numel() < 2**31
+    k = dict(ksize=ksize, stride=stride, padding=pad)
+    got = patch_pack(x, **k)
+    assert got.numel() > 2**31
+    step = k5_cases.PAST_2_31_OUTPUT_CHUNK
+    for b0 in range(0, shape[0], step):
+        assert torch.equal(got[b0:b0 + step], patch_pack_plain(x[b0:b0 + step], **k)), b0
 
 
 @pytest.mark.cuda
