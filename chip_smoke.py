@@ -11,7 +11,8 @@ Phases, each on its own lines of output; any failure exits non-zero:
    same words, at 2048x2048 and ragged shapes: the words must be equal; and
    K1's on-chip variant (in-kernel Philox words, ``on_chip_prng=True``)
    against its plain version, bit for bit, at 2048x2048, 512x512 and
-   ragged shapes, with the Eq.-3 frequency within 4 sigma and the exact
+   ragged shapes (K < 32, K % 32 != 0, N % 32 != 0, word rows past grid.y's
+   65,535), with the Eq.-3 frequency within 4 sigma and the exact
    endpoints on the card; then the threefry twin (``core.prng``) that
    draws every stochastic pack's words: its words on the card equal its
    words on the CPU, and full-width mnist_fc and VGG-16 stochastic packs on
@@ -29,7 +30,12 @@ Phases, each on its own lines of output; any failure exits non-zero:
    wider than a block's shared memory, H = W = 1, a batch past grid.z's
    65,535, an input off 16-byte alignment, three inputs past 2^31
    elements and an output past 2^31 words, these cases from
-   ``xnor.conv.cases``);
+   ``xnor.conv.cases``); K3 with its producer prologue (bias, eval batch
+   norm, Eq.-1 sign: ``bn_sign_pack``) against the unfused chain, exact, at
+   the serving shapes, ragged K and M past the grid, with BN outputs planted
+   at 0.0, -0.0, NaN, +-2^-149 and exactly 0 or one step either side of it
+   (``xnor.cases``), and the prologue's rsqrt against ``torch.rsqrt`` over
+   every positive finite f32;
    K4 with the conv border correction and scale fused into its flush,
    through ``xnor_conv2d``, against the plain conv route on the CPU at
    VGG's 11 conv geometries and a layout sweep; and K2 at
@@ -46,13 +52,18 @@ Phases, each on its own lines of output; any failure exits non-zero:
    against the same forward with the plain kernel versions on the same
    card (so the dense ops are identical and any difference is the
    kernels'); the difference from the plain forward on the CPU and the
-   count of sign activations that differ from it are printed;
+   count of sign activations that differ from it (at the fused K3 sites,
+   the bits read back from its words) are printed, with the device kernel
+   launches per batch; in xnor the forward with every sign site on the
+   unfused chain must give the same logits bit for bit, and its device time
+   and launches per batch are printed beside the fused forward's;
 7. time each kernel at the path shapes with CUDA events, beside its plain
    version, a library call where one computes the same function, and the
    least time the card could take (the stochastic pack route, twin words +
    K1, beside K1 alone; the on-chip K1 variant, which no path runs, beside
-   that route; K4 at each VGG shape as the conv path calls it, fused; K5
-   at each VGG conv input); and
+   that route; K3 with its prologue beside the unfused chain's device time
+   and launches, and K3 without it; K4 at each VGG shape as the conv path
+   calls it, fused; K5 at each VGG conv input); and
    each xnor conv layer as a whole against F.conv2d on +-1 f32, with the
    device kernels it launches counted by the profiler.
 
@@ -92,15 +103,17 @@ L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2, to time pack-time calls cold
 BATCHES = 17                   # 64 requests / 4 slots + 1 warm-up
 
 # Kernel launches per batch and per pack on each served path (PERF.md's
-# table): K2 binary_matmul, K3 sign_pack, K4 xnor_matmul, K5 patch_pack per
-# batch; K1 binarize_pack once per packed leaf.
+# table): K2 binary_matmul, K3 sign_pack (every one with the batch-norm
+# prologue: sign_pack_fused), K4 xnor_matmul, K5 patch_pack per batch; K1
+# binarize_pack once per packed leaf.
 SERVES = [
     ("mnist_fc", "det", {"binary_matmul": 2}, 2),
     ("mnist_fc", "stoch", {"binary_matmul": 2}, 2),
-    ("mnist_fc", "xnor", {"sign_pack": 2, "xnor_matmul": 2}, 2),
+    ("mnist_fc", "xnor", {"sign_pack": 2, "sign_pack_fused": 2, "xnor_matmul": 2}, 2),
     ("vgg16_cifar10", "det", {"binary_matmul": 1}, 1),
     ("vgg16_cifar10", "stoch", {"binary_matmul": 1}, 13),
-    ("vgg16_cifar10", "xnor", {"sign_pack": 1, "xnor_matmul": 12, "patch_pack": 11}, 12),
+    ("vgg16_cifar10", "xnor", {"sign_pack": 1, "sign_pack_fused": 1, "xnor_matmul": 12,
+                               "patch_pack": 11}, 12),
 ]
 
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
@@ -118,6 +131,10 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 def fmt(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def fmt_count(n: float | None) -> str:
+    return "not measured" if n is None else f"{n:g}"
 
 
 def main() -> int:
@@ -141,11 +158,15 @@ def main() -> int:
     from repro_torch.launch.serve import build_model, serve_classifier
     from repro_torch.models import mnist_fc, vgg
     from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
+    from repro_torch.core.binarize import deterministic_binarize
+    from repro_torch.models.layers import batch_norm
+    from repro_torch.xnor import cases as k3_cases
     from repro_torch.xnor.conv import cases as k5_cases
     from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain, patch_pack_tiles
     from repro_torch.xnor.conv.ops import xnor_conv2d
     from repro_torch.xnor.conv.packing import conv_geometry, pack_conv_kernel
-    from repro_torch.xnor.kernel import (ConvBorder, sign_pack, sign_pack_plain, xnor_matmul,
+    from repro_torch.xnor.kernel import (ConvBorder, bn_sign_pack, bn_sign_pack_plain,
+                                         sign_pack, sign_pack_plain, xnor_matmul,
                                          xnor_matmul_plain)
     from repro_torch.xnor.packing import unpack_activations
 
@@ -153,12 +174,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     # name -> (wrapper, its counter attribute); binarize_pack counts its
-    # on-chip-PRNG launches apart as well
+    # on-chip-PRNG launches apart as well, and sign_pack those with the
+    # batch-norm prologue (bn_sign_pack's)
     counters = {"binarize_pack": (binarize_pack, "launches"),
                 "binarize_pack_on_chip": (binarize_pack, "launches_on_chip"),
                 "binary_matmul": (binary_matmul, "launches"),
-                "sign_pack": (sign_pack, "launches"), "xnor_matmul": (xnor_matmul, "launches"),
-                "patch_pack": (patch_pack, "launches")}
+                "sign_pack": (sign_pack, "launches"),
+                "sign_pack_fused": (sign_pack, "launches_fused"),
+                "xnor_matmul": (xnor_matmul, "launches"), "patch_pack": (patch_pack, "launches")}
 
     def launch_counts() -> dict[str, int]:
         return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
@@ -172,6 +195,7 @@ def main() -> int:
                       w, bits, stochastic=stochastic)),
                  (kops_mod, "_binary_matmul", binary_matmul_plain),
                  (xops_mod, "_sign_pack", sign_pack_plain),
+                 (xops_mod, "_bn_sign_pack", bn_sign_pack_plain),
                  (xops_mod, "_xnor_matmul", xnor_matmul_plain),
                  (cops_mod, "patch_pack", patch_pack_plain)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -188,18 +212,36 @@ def main() -> int:
 
     @contextlib.contextmanager
     def record_signs(module, into: list):
-        """Records the inputs of the model's sign activations (> 0)."""
-        orig = module.deterministic_binarize
+        """Records the model's sign activations (> 0): the inputs of its
+        unfused sign sites, and the bits its fused K3 sites pack."""
+        orig, orig_fused = module.deterministic_binarize, module.bn_sign_words
 
         def rec(x):
             into.append((x > 0).cpu())
             return orig(x)
 
-        module.deterministic_binarize = rec
+        def rec_fused(x, *vecs):
+            sw = orig_fused(x, *vecs)
+            into.append((unpack_activations(sw.words)[..., : sw.k] > 0).cpu())
+            return sw
+
+        module.deterministic_binarize, module.bn_sign_words = rec, rec_fused
         try:
             yield
         finally:
-            module.deterministic_binarize = orig
+            module.deterministic_binarize, module.bn_sign_words = orig, orig_fused
+
+    @contextlib.contextmanager
+    def unfused(module):
+        """The model's forward with every sign site on the unfused chain (bias
+        add, eval batch norm and sign as eager ops, then K3): the forward
+        before K3 took its producer prologue."""
+        orig = module.takes_sign_words
+        module.takes_sign_words = lambda w: False
+        try:
+            yield
+        finally:
+            module.takes_sign_words = orig
 
     def profiled(fn, reps: int) -> dict[str, float] | None:
         """Device time per rep of each CUDA kernel ``fn`` launches, in ms, by
@@ -308,9 +350,11 @@ def main() -> int:
             errs[f"k1_{mode}"] = 0.0
 
     print("== K1 binarize_pack on-chip Philox variant vs plain (exact)")
+    # K < 32, K % 32 != 0, N % 32 != 0, and word rows past grid.y's 65,535
     for (k, n), dtype in [((2048, 2048), torch.float32), ((2048, 2048), torch.bfloat16),
                           ((512, 512), torch.float32), ((100, 300), torch.float32),
-                          ((33, 1), torch.bfloat16)]:
+                          ((33, 1), torch.bfloat16), ((31, 5), torch.float32),
+                          ((65, 33), torch.bfloat16), ((65535 * 32 + 100, 3), torch.float32)]:
         w = (torch.randn(k, n, generator=g, device=dev) * 0.7).to(dtype)
         seed = k * 7919 + n
         exact(f"K1 on-chip {k}x{n} {str(dtype)[6:]}",
@@ -393,6 +437,22 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             x = acts((m, k), dtype)
             exact(f"K3 {m}x{k} {str(dtype)[6:]}", sign_pack(x), sign_pack_plain(x))
+
+    print("== K3 with the producer prologue (bias, eval batch norm, Eq.-1 sign) vs its "
+          "plain chain (exact; BN outputs 0.0, -0.0, NaN, 0 * inf, +-2^-149 planted, and "
+          "exactly 0 or one step either side of it through the chain's own rounding)")
+    for i, (m, k) in enumerate(k3_cases.FUSED_SHAPES + [k3_cases.PAST_GRID_SHAPE]):
+        case = k3_cases.plant_near_zero(k3_cases.bn_inputs(m, k, 100 + i, dev))
+        got = bn_sign_pack(*case)
+        exact(f"K3 fused {m}x{k} f32 ({m * ((k + 31) // 32)} words)", got,
+              bn_sign_pack_plain(*case))
+    t0 = time.perf_counter()
+    n_swept = k3_cases.rsqrt_sweep(dev)
+    torch.cuda.synchronize()
+    print(f"  rsqrt sweep: the prologue's rsqrtf equals torch.rsqrt on all {n_swept} "
+          f"positive finite f32 values ({time.perf_counter() - t0:.1f}s; control: a 1-ulp "
+          f"difference sets every bit)")
+    errs["k3_fused"] = 0.0
 
     print("== K4 xnor_matmul vs plain (exact)")
     k4_cases = [(4, 64, 2048, 2048, "mnist_fc layers/1-2")]
@@ -535,7 +595,7 @@ def main() -> int:
             raise AssertionError(f"{arch} {mode}: expected launches {want}")
         for name, count in got.items():
             launches[name][(arch, mode)] = count
-        serve_ms[(arch, mode)] = (res.ms_per_batch, res.img_per_s)
+        serve_ms[(arch, mode)] = {"ms": res.ms_per_batch, "ips": res.img_per_s}
         # the served words against a plain pack of the same master weights
         # and words (the serve packs at key(seed + 1))
         tree, apply_fn, _, n_fc = build_model(arch, 0, device=dev)
@@ -572,19 +632,44 @@ def main() -> int:
         print(f"  {n_leaves} served packed leaves == plain pack; logits vs plain kernels on "
               f"the card: max_abs_err {err_gpu:.3e}; vs plain CPU forward: {err_cpu:.3e}, "
               f"sign activations differing {flips} of {sum(s.numel() for s in signs_cpu)}")
+        def forward():
+            return apply_fn(res.params, res.state, res.last_x, binary_act=binary_act)
+
         with torch.inference_mode():
-            kern = profiled(lambda: apply_fn(res.params, res.state, res.last_x,
-                                             binary_act=binary_act), reps=5)
+            kern = profiled(forward, reps=5)
+            per_batch_kernels = kernels_per_rep(forward, reps=5)
+        serve_ms[(arch, mode)]["launches"] = per_batch_kernels
         if kern is None:
             print("  device time per batch: not measured (no device activity profiled)")
         else:
             busy = sum(kern.values())
             top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
-            serve_ms[(arch, mode)] += (busy,)
+            serve_ms[(arch, mode)]["busy"] = busy
             print(f"  device time per batch (torch.profiler, 5 batches): {busy:.4f} ms in "
-                  f"{len(kern)} kernels, {100 * busy / res.ms_per_batch:.1f}% of the "
+                  f"{len(kern)} distinct kernels, {fmt_count(per_batch_kernels)} device kernel "
+                  f"launches, {100 * busy / res.ms_per_batch:.1f}% of the "
                   f"{res.ms_per_batch:.4f} ms median; top: "
                   + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
+        if binary_act:
+            # the same forward with every sign site on the unfused chain, as
+            # before K3 took its producer prologue: equal logits, more launches
+            with torch.inference_mode(), unfused(model):
+                chain_logits = forward()
+                chain_kern = profiled(forward, reps=5)
+                chain_kernels = kernels_per_rep(forward, reps=5)
+            if not torch.equal(chain_logits, again):
+                raise AssertionError(f"{arch} xnor: the fused route's logits differ from "
+                                     f"the unfused chain's")
+            sites = per_batch["sign_pack_fused"]
+            print(f"  unfused chain at the {sites} fused site(s): logits equal bit for bit; "
+                  f"device ms/batch {fmt(chain_kern and sum(chain_kern.values()))}, "
+                  f"{fmt_count(chain_kernels)} device kernel launches per batch (fused: "
+                  f"{fmt_count(per_batch_kernels)})")
+            serve_ms[(arch, mode)]["chain_launches"] = chain_kernels
+            if None not in (chain_kernels, per_batch_kernels):
+                if chain_kernels - per_batch_kernels < 7 * sites:
+                    raise AssertionError(f"{arch} xnor: fusing removed only "
+                                         f"{chain_kernels - per_batch_kernels:g} launches")
         torch.testing.assert_close(again, logits, **F32_TOL)
         torch.testing.assert_close(again, plain_gpu, **F32_TOL)
         if arch == "mnist_fc" and not binary_act:
@@ -665,7 +750,7 @@ def main() -> int:
     plain_ms = time_cold(lambda: binarize_pack_plain(w, None, stochastic=True, seed=seed,
                                                      on_chip_prng=True))
     dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(
-        w, stochastic=True, seed=seed, on_chip_prng=True)), "binarize_pack_kernel")
+        w, stochastic=True, seed=seed, on_chip_prng=True)), "binarize_pack_onchip_kernel")
     nbytes = k * n * 4 + (k // 32) * n * 4
     int_ops = (k // 4) * n * PHILOX_INT32_OPS        # one Philox call per 4 weights
     bms, by = bound(nbytes, int_ops, PEAK_INT32_OPS_PER_S)
@@ -744,6 +829,35 @@ def main() -> int:
               f"{plain_ms:.4f}, library_ms none, bound_ms {t_b:.5f} (bytes, {nbytes} B)")
         return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms)
 
+    def k3_fused_row(m, kk):
+        """K3 with the producer prologue, beside the unfused chain it
+        replaces at a fused site (eager bias add, batch norm and sign, then
+        plain K3): the chain's device time and device kernel launches."""
+        case = k3_cases.bn_inputs(m, kk, m + kk, dev)
+        h, bias, scale, shift, mean, var = case
+        ms = time_warm(lambda: bn_sign_pack(*case))
+        dev_ms = device_ms(lambda: bn_sign_pack(*case), "sign_pack_kernel")
+        plain_ms = time_warm(lambda: bn_sign_pack_plain(*case))
+
+        def chain():
+            return sign_pack(deterministic_binarize(
+                batch_norm(h + bias, scale, shift, mean, var)))
+
+        if not torch.equal(chain(), bn_sign_pack(*case)):
+            raise AssertionError(f"K3 fused {m}x{kk}: differs from the unfused chain")
+        chain_ms = time_warm(chain)
+        chain_kern = profiled(chain, reps=20)
+        chain_dev = chain_kern and sum(chain_kern.values())
+        chain_n = kernels_per_rep(chain)
+        nbytes = (m * kk + 5 * kk) * 4 + m * ((kk + 31) // 32) * 4
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"  K3 fused (bias + eval BN + sign) {m}x{kk} f32: kernel_ms {ms:.4f}, device_ms "
+              f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms none, bound_ms {t_b:.7f} "
+              f"(bytes, {nbytes} B); unfused chain + K3: wall {chain_ms:.4f} ms, device "
+              f"{fmt(chain_dev)} ms in {fmt_count(chain_n)} device kernel launches")
+        return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms), {
+            "chain_ms": chain_ms, "chain_device_ms": chain_dev, "chain_launches": chain_n}
+
     def k4_row(m, wds, n, kk, scaled, conv=None):
         """``conv``: the NHWC input of a 3x3 SAME conv whose patches the rows
         of ``a`` are; K4 then runs as the conv path calls it, with the border
@@ -794,10 +908,20 @@ def main() -> int:
     k3_src, k3_rep = "src/repro_torch/kernels/csrc/sign_pack.cu", "src/repro/xnor/kernel.py:164"
     k4_src, k4_rep = "src/repro_torch/kernels/csrc/xnor_matmul.cu", "src/repro/xnor/kernel.py:125"
     mnist_x, vgg_x = ("mnist_fc", "xnor"), ("vgg16_cifar10", "xnor")
-    kernels.append(entry("sign_pack (mnist_fc xnor, 4x2048 f32, per layer)", k3_src, k3_rep,
-                         launches["sign_pack"][mnist_x], errs["k3"], [k3_row(4, 2048)]))
-    kernels.append(entry("sign_pack (vgg16 xnor fc/1, 4x512 f32)", k3_src, k3_rep,
-                         launches["sign_pack"][vgg_x], errs["k3"], [k3_row(4, 512)]))
+    for (arch_mode, kk, what) in [(mnist_x, 2048, "mnist_fc xnor layers/0-1 and 1-2, 4x2048 "
+                                   "f32, per site"),
+                                  (vgg_x, 512, "vgg16 xnor fc/0-1, 4x512 f32")]:
+        row, chain = k3_fused_row(4, kk)
+        kernels.append({**entry(f"sign_pack, prologue fused: bias + eval batch norm + Eq.-1 "
+                                f"sign ({what})", k3_src, k3_rep,
+                                launches["sign_pack_fused"][arch_mode], errs["k3_fused"],
+                                [row]), **chain})
+    for (arch_mode, kk) in [(mnist_x, 2048), (vgg_x, 512)]:
+        kernels.append(entry(f"sign_pack, no prologue (xnor_matmul on a float input; on no "
+                             f"path), 4x{kk} f32", k3_src, k3_rep,
+                             launches["sign_pack"][arch_mode]
+                             - launches["sign_pack_fused"][arch_mode],
+                             errs["k3"], [k3_row(4, kk)]))
     kernels.append(entry("xnor_matmul (mnist_fc xnor, 4x64w x2048 scaled, per layer)",
                          k4_src, k4_rep, launches["xnor_matmul"][mnist_x], errs["k4"],
                          [k4_row(4, 64, 2048, 2048, True)]))
@@ -849,9 +973,13 @@ def main() -> int:
           f"device kernels per xnor conv layer: {per_layer}")
 
     print("== serving summary (ms/batch median, img/s)")
-    for (arch, mode), (ms, ips, *busy) in serve_ms.items():
-        dev = f", device busy {busy[0]:.4f} ms ({100 * busy[0] / ms:.1f}%)" if busy else ""
-        print(f"  {arch} {mode}: {ms:.4f} ms/batch, {ips:.1f} img/s{dev}")
+    for (arch, mode), r in serve_ms.items():
+        busy = r.get("busy")
+        dev = f", device busy {busy:.4f} ms ({100 * busy / r['ms']:.1f}%)" if busy else ""
+        launches = "" if r["launches"] is None else f", {r['launches']:g} device launches"
+        if "chain_launches" in r:
+            launches += f" (unfused chain: {fmt_count(r['chain_launches'])})"
+        print(f"  {arch} {mode}: {r['ms']:.4f} ms/batch, {r['ips']:.1f} img/s{dev}{launches}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ Priority order (highest wins among eligible), as in the reference:
 * ``packed`` binarizes a (K, N) projection (Eq. 1, or Eq. 2 with words from
   the pack key, ``core.prng``) and bitpacks it with K1, then serves it with K2.
 * ``xnor`` packs the same way (Eq. 1) and serves with K3 (sign + pack the
-  activations) and K4 (XNOR-popcount matmul).
+  activations) and K4 (XNOR-popcount matmul). It takes ``SignWords`` too:
+  the model then runs the producer's bias, batch norm and sign inside K3.
 * ``xnor_conv`` packs a conv kernel in the per-tap layout with K1 (its
   ``XnorConv`` leaf keeps the per-tap weight sums the border correction
   reads) and serves with K5 (patch packing) and K4, whose flush adds the
@@ -32,8 +33,8 @@ from repro_torch.core.packing import PACK, unpack_bits
 from repro_torch.engine.registry import (BackendSpec, LeafContext, PackContext,
                                          register_backend)
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (PackedConv, PackedLinear, XnorConv, XnorLinear,
-                                       conv2d_nhwc)
+from repro_torch.models.layers import (PackedConv, PackedLinear, SignWords, XnorConv,
+                                       XnorLinear, conv2d_nhwc)
 from repro_torch.xnor import ops as xops
 from repro_torch.xnor.conv import ops as cops
 from repro_torch.xnor.conv.packing import conv_geometry, pack_conv_kernel
@@ -192,7 +193,12 @@ def _apply_packed(w: PackedLinear, x: torch.Tensor) -> torch.Tensor:
     return ops.binary_matmul(x, w.packed, w.scale).to(x.dtype)
 
 
-def _apply_xnor(w: XnorLinear, x: torch.Tensor) -> torch.Tensor:
+def _apply_xnor(w: XnorLinear, x: torch.Tensor | SignWords) -> torch.Tensor:
+    if isinstance(x, SignWords):     # signs packed by the producer's fused K3
+        if x.k != w.k:
+            raise ValueError(f"sign words cover k={x.k}, the leaf k={w.k}")
+        return xops.xnor_matmul_packed(x.words, w.packed, w.scale, k=w.k,
+                                       out_dtype=torch.float32)
     return xops.xnor_matmul(x, w.packed, w.scale, k=w.k,
                             out_dtype=torch.float32).to(x.dtype)
 
@@ -244,9 +250,9 @@ XNOR = register_backend(BackendSpec(
     name="xnor", kinds=("linear",), priority=30, leaf_type=XnorLinear,
     eligible=_xnor_eligible,
     pack=lambda lc, leaf, pc: _pack_linear(XnorLinear, lc, leaf, pc),
-    apply=_apply_xnor,
-    doc="Fully-binary FC: binary weights and sign-packed activations (K3), "
-        "XNOR-popcount dot (K4)."))
+    apply=_apply_xnor, takes_sign_words=True,
+    doc="Fully-binary FC: binary weights and sign-packed activations (K3, or "
+        "SignWords from the producer's fused K3), XNOR-popcount dot (K4)."))
 
 XNOR_CONV = register_backend(BackendSpec(
     name="xnor_conv", kinds=("conv",), priority=40, leaf_type=XnorConv,

@@ -58,6 +58,9 @@ class BackendSpec:
     pack: Callable[[LeafContext, Any, PackContext], Any]
     apply: Callable[..., Any]
     doc: str = ""
+    # apply reads models.layers.SignWords (the activation's packed Eq.-1
+    # signs), so the model may fuse the sign into the producer's K3
+    takes_sign_words: bool = False
 
 
 _REGISTRY: dict[str, BackendSpec] = {}

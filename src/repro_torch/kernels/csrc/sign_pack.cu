@@ -1,21 +1,39 @@
 // K3: fused sign-binarize + bitpack of activations along the last axis,
 // (M, K) f32 or bf16 -> (M, ceil(K/32)) int32; bit b of word [m, j] is
-// x[m, 32*j + b] > 0 (Eq. 1: 0, -0.0 and NaN give bit 0).
+// y[m, 32*j + b] > 0 (Eq. 1: 0, -0.0 and NaN give bit 0), where y is x, or,
+// with the producer prologue, the eval-mode batch norm of x plus a bias:
+//
+//   y = (((x + bias[n]) - mean[n]) * rsqrt(var[n] + eps)) * scale[n] + shift[n]
 //
 // Replaces the TPU kernel sign_pack_pallas (src/repro/xnor/kernel.py:
-// _sign_pack_kernel).
+// _sign_pack_kernel), and with the prologue also the chain before it
+// (src/repro/models/mnist_fc.py: apply_linear's bias add, batch_norm and
+// binarize(h, "det")), which the reference runs as separate XLA ops.
 //
-// Bound on this card: device-memory bytes. Each activation is read once and
-// one int32 is written per 32 of them; the compare is free beside the load.
-// At the serving shapes (4 x 2048 f32) that is 33 KB, so in practice a launch
-// is bound by its latency.
+// Bound on this card: device-memory bytes. Each activation is read once
+// (with the prologue also five f32 vectors of K) and one int32 is written
+// per 32 of them; the compare is free beside the load. At the serving
+// shapes (4 x 2048 f32) that is 33 KB (75 KB with the prologue), so in
+// practice a launch is bound by its latency. The prologue removes the
+// elementwise launches the unfused chain takes before it (11 a site on the
+// H100, PERF.md).
 //
 // Design: one warp per output word. Lane l reads x[m, 32*j + l] (a 128-byte
-// coalesced load for f32) and __ballot_sync of (x > 0) is the word itself:
-// lane b sets bit b, which is the xnor/packing.py layout. Lanes past K vote 0,
-// the same as padding with zeros, so no caller pads. A bf16 value converts to
-// f32 exactly, so comparing the converted value is comparing in bf16. Warps
-// walk the words with a grid stride, so any M fits the grid.
+// coalesced load for f32), and with the prologue the five vectors at the
+// same column (128-byte loads each, cached across the M rows);
+// __ballot_sync of (y > 0) is the word itself: lane b sets bit b, which is
+// the xnor/packing.py layout. Lanes past K vote 0, the same as padding with
+// zeros, so no caller pads. A bf16 value converts to f32 exactly, so
+// comparing the converted value is comparing in bf16. Warps walk the words
+// with a grid stride, so any M fits the grid.
+//
+// The prologue must give the bits the unfused torch chain gives on the
+// card, so every step is one correctly rounded f32 operation in the chain's
+// order: __fadd_rn / __fsub_rn / __fmul_rn keep nvcc from contracting a
+// multiply and an add into one FMA, and rsqrtf is held equal to torch.rsqrt
+// over every positive finite f32 (xnor/cases.py: rsqrt_sweep). The
+// prologue takes f32 activations only: in bf16 the chain rounds twice more,
+// and the wrapper refuses bf16.
 #include "common.cuh"
 
 namespace {
@@ -23,10 +41,26 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T>
+// Per-column vectors of the prologue, each (K,) f32.
+struct Prologue {
+  const float* bias;
+  const float* scale;
+  const float* shift;
+  const float* mean;
+  const float* var;
+  float eps;
+};
+
+__device__ __forceinline__ float bn_eval(float v, const Prologue& p, int64_t n) {
+  const float inv_std = rsqrtf(__fadd_rn(p.var[n], p.eps));
+  const float y = __fmul_rn(__fsub_rn(__fadd_rn(v, p.bias[n]), p.mean[n]), inv_std);
+  return __fadd_rn(__fmul_rn(y, p.scale[n]), p.shift[n]);
+}
+
+template <typename T, bool kBN>
 __global__ void __launch_bounds__(kThreads)
-sign_pack_kernel(const T* __restrict__ x, int32_t* __restrict__ out, int64_t M,
-                 int64_t K, int64_t k32) {
+sign_pack_kernel(const T* __restrict__ x, const Prologue bn, int32_t* __restrict__ out,
+                 int64_t M, int64_t K, int64_t k32) {
   const int lane = threadIdx.x & 31;
   const int64_t n_words = M * k32;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
@@ -34,29 +68,48 @@ sign_pack_kernel(const T* __restrict__ x, int32_t* __restrict__ out, int64_t M,
        word < n_words; word += stride) {
     const int64_t m = word / k32;
     const int64_t col = (word - m * k32) * 32 + lane;
-    const bool one = col < K && bnn_to_float(x[m * K + col]) > 0.0f;
+    bool one = false;
+    if (col < K) {
+      float v = bnn_to_float(x[m * K + col]);
+      if constexpr (kBN) v = bn_eval(v, bn, col);
+      one = v > 0.0f;
+    }
     const uint32_t bits = __ballot_sync(0xffffffffu, one);
     if (lane == 0) out[word] = static_cast<int32_t>(bits);
   }
 }
 
-}  // namespace
-
-// x: (M, K) f32 or bf16 (dtype: BnnDtype), row-major and contiguous;
-// out: (M, ceil(K/32)) int32. M >= 1, K >= 1.
-extern "C" int bnn_sign_pack(const void* x, void* out, int64_t M, int64_t K,
-                             int dtype, void* stream) {
+template <typename T, bool kBN>
+void launch(const void* x, const Prologue& bn, int32_t* out, int64_t M, int64_t K,
+            cudaStream_t s) {
   const int64_t k32 = (K + 31) / 32;
   const int64_t blocks = (M * k32 + kWarps - 1) / kWarps;
   const unsigned grid = static_cast<unsigned>(blocks < 65535 ? blocks : 65535);
+  sign_pack_kernel<T, kBN><<<grid, kThreads, 0, s>>>(static_cast<const T*>(x), bn, out,
+                                                     M, K, k32);
+}
+
+}  // namespace
+
+// x: (M, K) f32 or bf16 (dtype: BnnDtype), row-major and contiguous;
+// out: (M, ceil(K/32)) int32. M >= 1, K >= 1. bias, scale, shift, mean and
+// var: all null (plain K3), or all (K,) f32 (the prologue, f32 x only).
+extern "C" int bnn_sign_pack(const void* x, const void* bias, const void* scale,
+                             const void* shift, const void* mean, const void* var,
+                             float eps, void* out, int64_t M, int64_t K, int dtype,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* op = static_cast<int32_t*>(out);
-  if (dtype == BNN_BF16) {
-    sign_pack_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), op, M, K, k32);
+  const Prologue bn{static_cast<const float*>(bias), static_cast<const float*>(scale),
+                    static_cast<const float*>(shift), static_cast<const float*>(mean),
+                    static_cast<const float*>(var), eps};
+  if (bias != nullptr) {
+    if (dtype != BNN_F32 || !scale || !shift || !mean || !var) return cudaErrorInvalidValue;
+    launch<float, true>(x, bn, op, M, K, s);
+  } else if (dtype == BNN_BF16) {
+    launch<__nv_bfloat16, false>(x, bn, op, M, K, s);
   } else {
-    sign_pack_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), op, M, K, k32);
+    launch<float, false>(x, bn, op, M, K, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

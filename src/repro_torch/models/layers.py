@@ -15,6 +15,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+BN_EPS = 1e-5     # batch norm's variance epsilon, as the reference's
+
 
 def _nbytes(packed: torch.Tensor, scale: torch.Tensor | None) -> int:
     """Bytes stored by a serving leaf: the packed words plus the scale."""
@@ -118,8 +120,37 @@ class PackedConv(_ConvLeaf):
     for the ordinary dense conv at apply time."""
 
 
-def apply_linear(w, x: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-    """x @ w (+ bias); the leaf type of ``w`` selects its backend."""
+@dataclasses.dataclass(frozen=True)
+class SignWords:
+    """An activation (..., k) given as its Eq.-1 signs, bitpacked along the
+    last axis (``xnor.packing`` layout): what a backend whose spec has
+    ``takes_sign_words`` reads in place of the real values."""
+
+    words: torch.Tensor              # (..., ceil(k / 32)) int32
+    k: int
+
+
+def takes_sign_words(w) -> bool:
+    """Whether the backend serving the linear leaf ``w`` reads
+    :class:`SignWords`."""
+    from repro_torch.engine import registry
+
+    return registry.backend_for_leaf(w, "linear").takes_sign_words
+
+
+def bn_sign_words(x: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
+                  shift: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> SignWords:
+    """The Eq.-1 signs of ``batch_norm(x + bias, scale, shift, mean, var)``
+    as :class:`SignWords`: K3 computes the bias, the batch norm and the sign
+    in its load, and gives the bits the unfused chain gives."""
+    from repro_torch.xnor import ops as xops
+
+    return SignWords(xops.bn_sign_and_pack(x, bias, scale, shift, mean, var), x.shape[-1])
+
+
+def apply_linear(w, x, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w (+ bias); the leaf type of ``w`` selects its backend. ``x`` is a
+    tensor, or :class:`SignWords` where ``takes_sign_words(w)`` holds."""
     from repro_torch.engine import registry
 
     out = registry.apply_linear(w, x)
@@ -175,7 +206,7 @@ def he_normal(generator: torch.Generator, shape, *, device,
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               mean: torch.Tensor, var: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+               mean: torch.Tensor, var: torch.Tensor, *, eps: float = BN_EPS) -> torch.Tensor:
     """Eval-mode batch norm over the last axis with running stats, in f32."""
     x32 = x.to(torch.float32)
     y = (x32 - mean) * torch.rsqrt(var + eps)

@@ -15,7 +15,8 @@ from typing import Any
 import torch
 
 from repro_torch.core.binarize import deterministic_binarize
-from repro_torch.models.layers import apply_linear, batch_norm, he_normal
+from repro_torch.models.layers import (apply_linear, batch_norm, bn_sign_words, he_normal,
+                                       takes_sign_words)
 
 DEFAULT_HIDDEN = (2048, 2048, 2048)
 N_CLASSES = 10
@@ -49,10 +50,16 @@ def apply(params: dict, state: dict, x: torch.Tensor, *,
 
     With ``binary_act`` every hidden activation is the Eq.-1 sign (+-1), so
     hidden layers packed as ``XnorLinear`` compute exact XNOR-popcount dot
-    products; the first layer still sees the real-valued input."""
+    products; the first layer still sees the real-valued input. Where the
+    next layer reads sign words, the bias, batch norm and sign run inside
+    its K3 (``bn_sign_words``)."""
     h = x
     n = len(params["layers"])
     for i, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
+        if binary_act and i < n - 1 and takes_sign_words(params["layers"][i + 1]["kernel"]):
+            h = bn_sign_words(apply_linear(lp["kernel"], h), lp["bias"], lp["bn_scale"],
+                              lp["bn_bias"], ls["mean"], ls["var"])
+            continue
         h = apply_linear(lp["kernel"], h, lp["bias"])
         h = batch_norm(h, lp["bn_scale"], lp["bn_bias"], ls["mean"], ls["var"])
         if i < n - 1:

@@ -14,8 +14,8 @@ from typing import Any
 import torch
 
 from repro_torch.core.binarize import deterministic_binarize
-from repro_torch.models.layers import (apply_conv2d, apply_linear, batch_norm, he_normal,
-                                       max_pool2x2)
+from repro_torch.models.layers import (apply_conv2d, apply_linear, batch_norm, bn_sign_words,
+                                       he_normal, max_pool2x2, takes_sign_words)
 
 # VGG-16: numbers are output channels, "M" is a max-pool.
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -67,7 +67,8 @@ def apply(params: dict, state: dict, x: torch.Tensor, *,
     on exactly the activations that feed binary-activation layers: conv
     outputs 1..11 (the inputs of the XnorConv blocks 2-5) and the head's
     hidden layers. conv/0 -> conv/1 and conv/12 -> fc/0 keep ReLU, matching
-    ``core.policy.XNOR_POLICY``."""
+    ``core.policy.XNOR_POLICY``. Where the next head layer reads sign words,
+    the bias, batch norm and sign run inside its K3 (``bn_sign_words``)."""
     ci, n_conv = 0, len(params["conv"])
     for v in VGG16_CFG:
         if v == "M":
@@ -82,6 +83,10 @@ def apply(params: dict, state: dict, x: torch.Tensor, *,
     x = x.reshape(x.shape[0], -1)
     n = len(params["fc"])
     for i, (lp, ls) in enumerate(zip(params["fc"], state["fc"])):
+        if binary_act and i < n - 1 and takes_sign_words(params["fc"][i + 1]["kernel"]):
+            x = bn_sign_words(apply_linear(lp["kernel"], x), lp["bias"], lp["bn_scale"],
+                              lp["bn_bias"], ls["mean"], ls["var"])
+            continue
         x = apply_linear(lp["kernel"], x, lp["bias"])
         x = batch_norm(x, lp["bn_scale"], lp["bn_bias"], ls["mean"], ls["var"])
         if i < n - 1:

@@ -3,6 +3,10 @@ XNOR-popcount matmul over packed operands.
 
 * ``sign_pack(x)``: (M, K) f32/bf16 -> (M, ceil(K/32)) int32, bit = x > 0
   (``csrc/sign_pack.cu``).
+* ``bn_sign_pack(h, bias, bn_scale, bn_bias, mean, var)``: the same words
+  for y = eval batch_norm(h + bias), with the bias, the batch norm and the
+  sign computed in K3's load (its producer prologue), f32 only: the bits
+  equal the unfused chain's (``bn_sign_pack_plain``).
 * ``xnor_matmul(a, w, scale, k_total=k, border=None)``: a (M, W) int32 x
   w (W, N) int32 -> ``k - 2 * popcount(a XOR w)`` as int32, or
   f32(dot) * scale (``csrc/xnor_matmul.cu``). W is taken as given: surplus
@@ -13,7 +17,8 @@ XNOR-popcount matmul over packed operands.
 
 A CPU tensor runs the plain version in ``xnor.ref``; a CUDA tensor launches
 the kernel or raises. ``sign_pack.launches`` and ``xnor_matmul.launches``
-count kernel launches.
+count kernel launches; ``sign_pack.launches`` counts K3 with and without
+its prologue, and ``sign_pack.launches_fused`` those with it among them.
 """
 from __future__ import annotations
 
@@ -23,8 +28,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.binarize import deterministic_binarize
 from repro_torch.core.packing import PACK
 from repro_torch.kernels import _build
+from repro_torch.models.layers import BN_EPS, batch_norm
 from repro_torch.xnor import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,14 +96,57 @@ def sign_pack(x: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     code = _build.library().bnn_sign_pack(
-        x.data_ptr(), out.data_ptr(), m, k, _DTYPES[x.dtype],
-        _build.stream(x.device))
+        x.data_ptr(), None, None, None, None, None, 0.0, out.data_ptr(), m, k,
+        _DTYPES[x.dtype], _build.stream(x.device))
     _build.check(code, "sign_pack")
     sign_pack.launches += 1
     return out
 
 
 sign_pack.launches = 0
+sign_pack.launches_fused = 0   # the launches with the producer prologue among them
+
+
+def bn_sign_pack_plain(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
+                       bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
+                       eps: float = BN_EPS) -> torch.Tensor:
+    """The plain torch version of :func:`bn_sign_pack`, on any device: the
+    unfused chain the models run (bias add, eval batch norm, Eq.-1 sign),
+    then :func:`sign_pack_plain`."""
+    y = batch_norm(h + bias.to(h.dtype), bn_scale, bn_bias, mean, var, eps=eps)
+    return sign_pack_plain(deterministic_binarize(y))
+
+
+def bn_sign_pack(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
+                 bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
+                 eps: float = BN_EPS) -> torch.Tensor:
+    """(M, K) f32 -> (M, ceil(K/32)) int32: the Eq.-1 signs of
+    ``batch_norm(h + bias, bn_scale, bn_bias, mean, var)``, packed along the
+    last axis; the five vectors are (K,) f32. bf16 raises ``TypeError``: the
+    unfused chain rounds the bias add and the batch norm's output to bf16,
+    and the kernel's prologue does not."""
+    if h.ndim != 2 or h.shape[1] == 0:
+        raise ValueError(f"h must be an (M, K) matrix with K >= 1, got {tuple(h.shape)}")
+    if h.dtype != torch.float32:
+        raise TypeError(f"bn_sign_pack takes float32 activations, got {h.dtype}")
+    m, k = h.shape
+    vecs = (bias, bn_scale, bn_bias, mean, var)
+    for v in vecs:
+        if v.shape != (k,) or v.dtype != torch.float32:
+            raise ValueError(f"bias, bn_scale, bn_bias, mean and var must be float32 of "
+                             f"shape ({k},), got {v.dtype} {tuple(v.shape)}")
+    if _build.kernel_device("sign_pack", [h, *vecs]) == "cpu":
+        return bn_sign_pack_plain(h, *vecs, eps=eps)
+    out = torch.empty((m, (k + PACK - 1) // PACK), dtype=torch.int32, device=h.device)
+    if m == 0:
+        return out
+    code = _build.library().bnn_sign_pack(
+        h.data_ptr(), *(v.data_ptr() for v in vecs), eps, out.data_ptr(), m, k,
+        _DTYPES[h.dtype], _build.stream(h.device))
+    _build.check(code, "bn_sign_pack")
+    sign_pack.launches += 1
+    sign_pack.launches_fused += 1
+    return out
 
 
 def xnor_matmul_plain(a_packed: torch.Tensor, w_packed: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Public wrappers around K3 and K4: leading-dim flattening and the
-word-count checks of the reference's ``xnor/ops.py``.
+"""Public wrappers around K3 (with and without its batch-norm prologue)
+and K4: leading-dim flattening and the word-count checks of the
+reference's ``xnor/ops.py``.
 
 Unlike the reference, nothing here pads to blocks or cuts tiny shapes over
 to the plain version: the kernels mask ragged edges, and the wrappers take
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.core.packing import PACK
 from repro_torch.xnor.kernel import ConvBorder
+from repro_torch.xnor.kernel import bn_sign_pack as _bn_sign_pack
 from repro_torch.xnor.kernel import sign_pack as _sign_pack
 from repro_torch.xnor.kernel import xnor_matmul as _xnor_matmul
 
@@ -19,6 +21,17 @@ def sign_and_pack(x: torch.Tensor) -> torch.Tensor:
     """Fused sign-binarize (Eq. 1) + bitpack: ``(..., K) -> (..., ceil(K/32))``."""
     *lead, k = x.shape
     out = _sign_pack(x.reshape(-1, k).contiguous())
+    return out.reshape(*lead, out.shape[-1])
+
+
+def bn_sign_and_pack(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
+                     bn_bias: torch.Tensor, mean: torch.Tensor,
+                     var: torch.Tensor) -> torch.Tensor:
+    """Eq.-1 sign of eval ``batch_norm(h + bias, ...)`` + bitpack, in one K3
+    launch: ``(..., K) -> (..., ceil(K/32))``; the vectors are (K,)."""
+    *lead, k = h.shape
+    out = _bn_sign_pack(h.reshape(-1, k).contiguous(),
+                        *(v.contiguous() for v in (bias, bn_scale, bn_bias, mean, var)))
     return out.reshape(*lead, out.shape[-1])
 
 

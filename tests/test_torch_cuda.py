@@ -18,12 +18,13 @@ from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
 from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 from repro_torch.launch import serve
 from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
+from repro_torch.xnor import cases as k3_cases
 from repro_torch.xnor.conv import cases as k5_cases
 from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
 from repro_torch.xnor.conv.ops import xnor_conv2d
 from repro_torch.xnor.conv.packing import pack_conv_kernel
-from repro_torch.xnor.kernel import (ConvBorder, sign_pack, sign_pack_plain, xnor_matmul,
-                                     xnor_matmul_plain)
+from repro_torch.xnor.kernel import (ConvBorder, bn_sign_pack, bn_sign_pack_plain, sign_pack,
+                                     sign_pack_plain, xnor_matmul, xnor_matmul_plain)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)   # only the order of the f32 sum differs
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -79,11 +80,14 @@ def test_k2_matches_plain(cuda, m, k, n, dtype, scaled):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,n", [(2048, 2048), (784, 2048), (100, 300), (33, 1)])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (784, 2048), (100, 300), (33, 1), (31, 5),
+                                 (65, 33), (65535 * 32 + 100, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_onchip_matches_plain(cuda, k, n, dtype):
     """The in-kernel Philox words and the plain version's agree bit for bit
-    (the seed exceeds 2^32 at the large shapes, so both reduce it mod 2^32)."""
+    (the seed exceeds 2^32 at the large shapes, so both reduce it mod 2^32),
+    at the edges of the block of 8 warps x 32 columns of one word row: K < 32,
+    K % 32 != 0, N % 32 != 0, and word rows past grid.y's 65,535."""
     w, _ = _weights(k, n, k + n, cuda, dtype)
     seed = (k * n) ** 2 + 1
     got = binarize_pack(w, stochastic=True, seed=seed, on_chip_prng=True)
@@ -232,6 +236,34 @@ def test_k3_matches_plain(cuda, m, k, dtype):
     got = sign_pack(x)
     assert got.shape == (m, (k + 31) // 32)
     assert torch.equal(got, sign_pack_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", k3_cases.FUSED_SHAPES + [k3_cases.PAST_GRID_SHAPE])
+def test_k3_with_prologue_matches_its_plain_chain(cuda, m, k):
+    """Bias, eval batch norm and sign in K3's load give the unfused chain's
+    bits on the card, planted BN outputs (0.0, -0.0, NaN, 0 * inf,
+    +-2^-149, exactly 0 and one step either side) included; one launch,
+    counted under sign_pack and as fused."""
+    case = k3_cases.plant_near_zero(k3_cases.bn_inputs(m, k, m * k, cuda))
+    before = (sign_pack.launches, sign_pack.launches_fused)
+    got = bn_sign_pack(*case)
+    assert (sign_pack.launches, sign_pack.launches_fused) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (m, (k + 31) // 32)
+    assert torch.equal(got, bn_sign_pack_plain(*case))
+
+
+@pytest.mark.cuda
+def test_k3_prologue_rsqrt_equals_torch_rsqrt(cuda):
+    """The prologue's rsqrt equals torch.rsqrt on every positive finite f32."""
+    assert k3_cases.rsqrt_sweep(cuda) == 0x7F800000 - 1
+
+
+@pytest.mark.cuda
+def test_k3_prologue_refuses_bf16_on_the_card(cuda):
+    h, *vecs = k3_cases.bn_inputs(4, 64, 0, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bn_sign_pack(h.to(torch.bfloat16), *vecs)
 
 
 # (M, words, N, k): mnist_fc's hidden layers, VGG conv/2..12 and fc/1 at batch

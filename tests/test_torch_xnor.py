@@ -276,9 +276,11 @@ def _jax_mnist(seed, hidden):
 
 
 def record_signs(monkeypatch, jax_module, port_module):
-    """Records the inputs of the sign activations on both sides; returns a
-    function counting the positions whose sign differs."""
+    """Records the inputs of the sign activations on both sides (on the
+    port's side also the signs its fused K3 sites pack, read back from the
+    words); returns a function counting the positions whose sign differs."""
     from repro_torch.core.binarize import deterministic_binarize
+    from repro_torch.models.layers import bn_sign_words
 
     seen = {"jax": [], "port": []}
     j_binarize = jax_module.binarize
@@ -291,8 +293,14 @@ def record_signs(monkeypatch, jax_module, port_module):
         seen["port"].append((x > 0).numpy())
         return deterministic_binarize(x)
 
+    def p_rec_fused(x, *vecs):
+        sw = bn_sign_words(x, *vecs)
+        seen["port"].append((P.unpack_activations(sw.words)[..., : sw.k] > 0).numpy())
+        return sw
+
     monkeypatch.setattr(jax_module, "binarize", j_rec)
     monkeypatch.setattr(port_module, "deterministic_binarize", p_rec)
+    monkeypatch.setattr(port_module, "bn_sign_words", p_rec_fused)
 
     def flips():
         assert len(seen["jax"]) == len(seen["port"]) > 0
