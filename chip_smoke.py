@@ -35,7 +35,11 @@ Phases, each on its own lines of output; any failure exits non-zero:
    the serving shapes, ragged K and M past the grid, with BN outputs planted
    at 0.0, -0.0, NaN, +-2^-149 and exactly 0 or one step either side of it
    (``xnor.cases``), and the prologue's rsqrt against ``torch.rsqrt`` over
-   every positive finite f32;
+   every positive finite f32; then the Eq.-1 threshold: values either side
+   of 2^-126 (subnormals of both signs, 2^-126 and the next value, -2^-126,
+   +-0, NaN; ``xnor.cases.sign_plants``) through K1 det, plain K3, fused K3
+   (planted as BN outputs) and K5, f32 and bf16, exact against the plain
+   versions, with the planted bits +1 only at 2^-126 and above;
    K4 with the conv border correction and scale fused into its flush,
    through ``xnor_conv2d``, against the plain conv route on the CPU at
    VGG's 11 conv geometries and a layout sweep; and K2 at
@@ -57,6 +61,23 @@ Phases, each on its own lines of output; any failure exits non-zero:
    launches per batch; in xnor the forward with every sign site on the
    unfused chain must give the same logits bit for bit, and its device time
    and launches per batch are printed beside the fused forward's;
+6b. the plan manifests, for each of the six (net, mode) pairs at full
+   width: the compiled plan equals ``benchmarks/golden_plans`` as a dict and,
+   saved, as file text; the saved plan loaded and packed on the card gives
+   every leaf equal to the compiled plan's pack; a serve from the golden
+   manifest (``plan_from``) gives the compiled serve's launch counts and
+   logits bit for bit. Then VGG-16 xnor with ``conv/3=binarized_dense``
+   overridden (one K4 and one K5 launch fewer a batch, one K1 fewer at
+   pack time) and mnist_fc det and xnor packed without scales, each held
+   against the plain-kernel forward;
+6c. the stochastic ensemble: mnist_fc and VGG-16 stoch at full width, K = 8
+   replicas, 4 slots, 64 requests, through ``serve_classifier(ensemble=8)``;
+   counters exact (K1's operand mode 8 x the stochastic leaves at pack time,
+   K2 8 x its single-sample count a batch); a K = 1 ensemble gives the
+   single-sample serve's logits bit for bit; every replica's words on the
+   card equal a CPU pack at the same key; each replica's logits match its
+   plain-kernel forward; ms/batch, device ms and launches a batch, vote
+   agreement and the replicas' bytes are printed;
 7. time each kernel at the path shapes with CUDA events, beside its plain
    version, a library call where one computes the same function, and the
    least time the card could take (the stochastic pack route, twin words +
@@ -116,6 +137,12 @@ SERVES = [
                                "patch_pack": 11}, 12),
 ]
 
+# The ensemble serves: (net, K2 launches a batch of one replica, stochastic
+# leaves K1 packs once a replica).
+ENSEMBLE_K = 8
+ENSEMBLES = [("mnist_fc", {"binary_matmul": 2}, 2),
+             ("vgg16_cifar10", {"binary_matmul": 1}, 13)]
+
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
 VGG_XNOR_CONVS = [((4, 16, 16, 64), 128), ((4, 16, 16, 128), 128),
                   ((4, 8, 8, 128), 256), ((4, 8, 8, 256), 256), ((4, 8, 8, 256), 256),
@@ -150,7 +177,8 @@ def main() -> int:
     from repro_torch.core import prng
     from repro_torch.core.packing import unpack_bits
     from repro_torch.core.policy import make_paper_policy
-    from repro_torch.engine import compile_plan
+    from repro_torch.core.binarize import sign_bit
+    from repro_torch.engine import ExecutionPlan, compile_plan
     from repro_torch.engine.plan import tree_leaves_with_path, tree_map
     from repro_torch.kernels import _build
     from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
@@ -160,6 +188,7 @@ def main() -> int:
     from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
     from repro_torch.core.binarize import deterministic_binarize
     from repro_torch.models.layers import batch_norm
+    from repro_torch.stoch import ensemble_forward, ensemble_stats, sample_replicas
     from repro_torch.xnor import cases as k3_cases
     from repro_torch.xnor.conv import cases as k5_cases
     from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain, patch_pack_tiles
@@ -217,7 +246,7 @@ def main() -> int:
         orig, orig_fused = module.deterministic_binarize, module.bn_sign_words
 
         def rec(x):
-            into.append((x > 0).cpu())
+            into.append(sign_bit(x).cpu())
             return orig(x)
 
         def rec_fused(x, *vecs):
@@ -454,6 +483,45 @@ def main() -> int:
           f"difference sets every bit)")
     errs["k3_fused"] = 0.0
 
+    print("== the Eq.-1 threshold 2^-126: subnormals of both signs, 2^-126 and the next "
+          "value, -2^-126, +-0 and NaN planted through K1 det, plain K3, fused K3 and K5 "
+          "(exact against plain; planted bits +1 only at 2^-126 and above)")
+
+    def planted(tag, bits, want):
+        """``bits``: 0/1 with the planted dim last; ``want``: -1 where unplanted."""
+        bits, m = bits.cpu().long(), want >= 0
+        if not torch.equal(bits[..., m], want[m].expand_as(bits[..., m])):
+            raise AssertionError(f"{tag}: a planted value signs against Eq. 1")
+        print(f"  {tag}: {int(m.sum())} planted positions a row sign as Eq. 1 says")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        w = torch.randn(100, 40, generator=g, device=dev).to(dtype)
+        want = k3_cases.plant_signs(w, 0)
+        got = binarize_pack(w, stochastic=False)
+        exact(f"K1 det 100x40 {name} planted", got, binarize_pack_plain(w, None, stochastic=False))
+        planted(f"K1 det {name}", (unpack_bits(got)[:100] > 0).T, want)
+        x = torch.randn(5, 100, generator=g, device=dev).to(dtype)
+        want = k3_cases.plant_signs(x, 1)
+        got = sign_pack(x)
+        exact(f"K3 5x100 {name} planted", got, sign_pack_plain(x))
+        planted(f"K3 {name}", unpack_activations(got)[:, :100] > 0, want)
+        x = torch.randn(2, 5, 6, 40, generator=g, device=dev).to(dtype)
+        want = k3_cases.plant_signs(x, 3)
+        for ks, pad in (((1, 1), "VALID"), ((3, 3), "SAME")):
+            got = patch_pack(x, ksize=ks, padding=pad)
+            exact(f"K5 (2, 5, 6, 40) k={ks} {pad} {name} planted", got,
+                  patch_pack_plain(x, ksize=ks, padding=pad))
+        planted(f"K5 {name} (1x1 taps)", unpack_activations(
+            patch_pack(x, ksize=(1, 1), padding="VALID"))[..., :40] > 0, want)
+    for m, kk in [(4, 2048), (4, 512), (7, 100)]:
+        case, want = k3_cases.plant_bn_signs(k3_cases.bn_inputs(m, kk, 300 + kk, "cpu"))
+        case = tuple(t.to(dev) for t in case)
+        got = bn_sign_pack(*case)
+        exact(f"K3 fused {m}x{kk} f32, planted BN outputs", got, bn_sign_pack_plain(*case))
+        planted(f"K3 fused {m}x{kk}", unpack_activations(got)[:, :kk] > 0, want)
+    errs["eq1"] = 0.0
+
     print("== K4 xnor_matmul vs plain (exact)")
     k4_cases = [(4, 64, 2048, 2048, "mnist_fc layers/1-2")]
     k4_cases += [(b * h * w_, 9 * (c // 32), n, 9 * c, f"vgg conv {b}x{h}x{w_}x{c}->{n}")
@@ -577,13 +645,16 @@ def main() -> int:
 
     # 6. the main path: serve both nets in every mode
     launches = {name: {} for name in counters}
+    run_mode = {}        # (net, run) -> the plan mode it served
     serve_ms = {}
-    for arch, mode, per_batch, packs in SERVES:
-        print(f"== serve {arch} full width, --binarize {mode}, 4 slots, 64 requests")
+
+    def counted_serve(arch, run, per_batch, packs, **kw):
+        """One serve with every launch counter set to 0 just before it and
+        read just after; the counts must be ``per_batch`` x 17 batches and
+        ``packs`` K1 launches at pack time."""
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
-        res = serve_classifier(arch=arch, binarize=mode, slots=4, requests=64, seed=0,
-                               device="cuda")
+        res = serve_classifier(arch=arch, slots=4, requests=64, seed=0, device="cuda", **kw)
         got = launch_counts()
         n_batches = len(res.batch_seconds) + res.warmup
         want = {name: per_batch.get(name, 0) * n_batches for name in counters}
@@ -592,9 +663,17 @@ def main() -> int:
               f"{res.img_per_s:.1f} img/s, {res.ms_per_batch:.4f} ms/batch median, "
               f"packed {res.packed_bytes} B vs {res.dense_bytes} B bf16 dense")
         if n_batches != BATCHES or got != want:
-            raise AssertionError(f"{arch} {mode}: expected launches {want}")
+            raise AssertionError(f"{arch} {run}: expected launches {want}")
         for name, count in got.items():
-            launches[name][(arch, mode)] = count
+            launches[name][(arch, run)] = count
+        run_mode[(arch, run)] = res.plan.mode
+        return res
+
+    served = {}
+    for arch, mode, per_batch, packs in SERVES:
+        print(f"== serve {arch} full width, --binarize {mode}, 4 slots, 64 requests")
+        res = served[(arch, mode)] = counted_serve(arch, mode, per_batch, packs,
+                                                   binarize=mode)
         serve_ms[(arch, mode)] = {"ms": res.ms_per_batch, "ips": res.img_per_s}
         # the served words against a plain pack of the same master weights
         # and words (the serve packs at key(seed + 1))
@@ -675,6 +754,126 @@ def main() -> int:
         if arch == "mnist_fc" and not binary_act:
             torch.testing.assert_close(again.cpu(), plain_cpu, **F32_TOL)
 
+    def plain_forward_close(tag, res, binary_act):
+        """The serve's last logits against the same forward with the plain
+        kernel versions on this card."""
+        apply_fn = mnist_fc.apply if res.last_x.ndim == 2 else vgg.apply
+        with torch.inference_mode(), plain_kernels():
+            plain = apply_fn(res.params, res.state, res.last_x, binary_act=binary_act)
+        err = (res.last_logits - plain).abs().max().item()
+        print(f"  {tag}: logits vs the plain kernels on the card, max_abs_err {err:.3e}")
+        torch.testing.assert_close(res.last_logits, plain, **F32_TOL)
+
+    # 6b. the plan manifests
+    golden_dir = Path(__file__).resolve().parent / "benchmarks" / "golden_plans"
+    plan_dir = Path(__file__).resolve().parent / "build" / "plans"
+    plan_dir.mkdir(parents=True, exist_ok=True)
+    print("== plan manifests: compile == golden (dict and saved text), save -> load -> pack "
+          "on the card == the compiled pack, and a serve from the golden manifest == the "
+          "compiled serve (launches, logits bit for bit)")
+    for arch, mode, per_batch, packs in SERVES:
+        tree, _, _, n_fc = build_model(arch, 0, device=dev)
+        plan = compile_plan(tree["params"], make_paper_policy(n_fc), mode)
+        golden = golden_dir / f"{arch}_{mode}.json"
+        saved = Path(plan.save(plan_dir / golden.name))
+        if plan.to_json() != json.loads(golden.read_text()):
+            raise AssertionError(f"{arch} {mode}: the compiled plan differs from {golden.name}")
+        if saved.read_text() != golden.read_text():
+            raise AssertionError(f"{arch} {mode}: the saved manifest's text differs from "
+                                 f"{golden.name}")
+        loaded = ExecutionPlan.load(saved)
+        n_leaves = 0
+        for (path, a), (_, b) in zip(
+                tree_leaves_with_path(plan.pack(tree["params"], key=prng.key(1))),
+                tree_leaves_with_path(loaded.pack(tree["params"], key=prng.key(1)))):
+            if type(a) is not type(b):
+                raise AssertionError(f"{arch} {mode} {path}: loaded plan packs "
+                                     f"{type(b).__name__}, compiled {type(a).__name__}")
+            for t_a, t_b in ([(a, b)] if isinstance(a, torch.Tensor) else
+                             [(a.packed, b.packed), (a.scale, b.scale)]):
+                if not torch.equal(t_a, t_b):
+                    raise AssertionError(f"{arch} {mode} {path}: loaded pack differs")
+            n_leaves += 1
+        print(f"== serve {arch} {mode} from {golden.name}: {len(plan.layers)} rows equal "
+              f"as a dict and as text; {n_leaves} leaves of the loaded plan's pack equal "
+              f"the compiled pack on the card")
+        res = counted_serve(arch, f"{mode} from golden", per_batch, packs, binarize=mode,
+                            plan_from=str(golden))
+        if not torch.equal(res.last_logits, served[(arch, mode)].last_logits):
+            raise AssertionError(f"{arch} {mode}: logits served from the golden differ "
+                                 f"from the compiled plan's")
+        print("  logits equal the compiled plan's serve bit for bit")
+
+    print("== serve vgg16_cifar10 xnor with --override conv/3=binarized_dense: one K4 and "
+          "one K5 fewer a batch, one K1 fewer at pack time")
+    res = counted_serve("vgg16_cifar10", "xnor, conv/3 binarized_dense",
+                        {"sign_pack": 1, "sign_pack_fused": 1, "xnor_matmul": 11,
+                         "patch_pack": 10}, 11, binarize="xnor",
+                        override=["conv/3=binarized_dense"])
+    if (res.plan["conv/3/kernel"].backend != "binarized_dense"
+            or not isinstance(res.params["conv"][3]["kernel"], torch.Tensor)):
+        raise AssertionError("the override did not put conv/3 on binarized_dense")
+    plain_forward_close("override", res, True)
+    for mode, per_batch in (("det", {"binary_matmul": 2}),
+                            ("xnor", {"sign_pack": 2, "sign_pack_fused": 2, "xnor_matmul": 2})):
+        print(f"== serve mnist_fc {mode} packed without scales (with_scale=False)")
+        res = counted_serve("mnist_fc", f"{mode}, no scale", per_batch, 2, binarize=mode,
+                            with_scale=False)
+        if any(getattr(leaf, "scale", None) is not None
+               for _, leaf in tree_leaves_with_path(res.params)):
+            raise AssertionError(f"mnist_fc {mode}: a leaf packed with_scale=False has a scale")
+        plain_forward_close("no scale", res, mode == "xnor")
+
+    # 6c. the stochastic ensemble
+    for arch, per_batch, packs in ENSEMBLES:
+        k = ENSEMBLE_K
+        print(f"== serve {arch} stoch full width as a K={k} ensemble, 4 slots, 64 requests")
+        res = counted_serve(arch, f"stoch ensemble K={k}",
+                            {n: c * k for n, c in per_batch.items()}, packs * k,
+                            binarize="stoch", ensemble=k, abstain_threshold=0.6)
+        rs, single = res.replicas, served[(arch, "stoch")]
+        tree, apply_fn, _, _ = build_model(arch, 0, device=dev)
+
+        def fn(t, x=res.last_x):
+            return apply_fn(t, res.state, x)
+
+        with torch.inference_mode():
+            one = sample_replicas(tree["params"], res.plan, prng.key(1), 1)
+            if not torch.equal(ensemble_forward(one, lambda t: fn(t, single.last_x)).mean_logits,
+                               single.last_logits):
+                raise AssertionError(f"{arch}: a K = 1 ensemble differs from the "
+                                     f"single-sample serve")
+            on_cpu = sample_replicas(tree_map(lambda t: t.cpu(), tree["params"]), res.plan,
+                                     prng.key(1), k)
+            for path in rs.paths:
+                if not torch.equal(rs.stacked[path].packed.cpu(), on_cpu.stacked[path].packed):
+                    raise AssertionError(f"{arch} ensemble {path}: replica words on the card "
+                                         f"differ from the CPU's")
+            rep_logits = ensemble_forward(rs, fn, stats=False)
+            with plain_kernels():
+                rep_plain = ensemble_forward(rs, fn, stats=False)
+            if not torch.equal(ensemble_stats(rep_logits).mean_logits, res.last_logits):
+                raise AssertionError(f"{arch} ensemble: the mean logits differ from the serve's")
+            err = (rep_logits - rep_plain).abs().max().item()
+            torch.testing.assert_close(rep_logits, rep_plain, **F32_TOL)
+            kern = profiled(lambda: ensemble_forward(rs, fn), reps=5)
+            n_kern = kernels_per_rep(lambda: ensemble_forward(rs, fn), reps=5)
+        busy = kern and sum(kern.values())
+        serve_ms[(arch, f"stoch ensemble K={k}")] = {
+            "ms": res.ms_per_batch, "ips": res.img_per_s, "launches": n_kern,
+            **({"busy": busy} if busy else {})}
+        print(f"  K = 1 == the single-sample serve bit for bit; {len(rs.paths)} stochastic "
+              f"leaves x {k} replicas on the card == the CPU's at key(1); replica logits vs "
+              f"plain kernels max_abs_err {err:.3e}")
+        print(f"  ensemble: {res.ms_per_batch:.4f} ms/batch median, device "
+              f"{fmt(busy)} ms/batch, {fmt_count(n_kern)} device kernel launches a batch "
+              f"(single sample: {single.ms_per_batch:.4f} ms, "
+              f"{fmt(serve_ms[(arch, 'stoch')].get('busy'))} device ms, "
+              f"{fmt_count(serve_ms[(arch, 'stoch')]['launches'])} launches); vote agreement "
+              f"mean {res.mean_agreement:.4f} min {res.min_agreement:.4f}, abstained "
+              f"{res.abstained}/{res.requests} at 0.6; {k} replicas {res.packed_bytes} B "
+              f"(shared leaves once) vs {res.dense_bytes} B bf16 dense, one copy")
+
     # 7. timing at the path shapes
     print("== timing (kernel_ms: CUDA events around 200 back-to-back wrapper calls, K1 "
           "cold with L2 flushed before each call, as at pack time; device_ms: the "
@@ -719,8 +918,8 @@ def main() -> int:
     route_ms = time_cold(lambda: kops_mod.binarize_and_pack(w, pack_key, stochastic=True))
     print(f"  stochastic pack route {k}x{n} f32 (twin words + K1 operand mode), cold: "
           f"{route_ms:.4f} ms")
-    k1_serves = {"det": [s[:2] for s in SERVES if s[1] != "stoch"],
-                 "stoch": [s[:2] for s in SERVES if s[1] == "stoch"]}
+    k1_serves = {"det": [r for r, m in run_mode.items() if m != "stoch"],
+                 "stoch": [r for r, m in run_mode.items() if m == "stoch"]}
     for mode in ("det", "stoch"):
         st = mode == "stoch"
         b_ = bits if st else None
@@ -763,14 +962,15 @@ def main() -> int:
         "name": "binarize_pack (stoch, on-chip Philox; on no path)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/binarize_pack.cu",
         "replaces": "src/repro/kernels/stoch_binarize.py:107",
-        "launches": total(launches["binarize_pack_on_chip"], [s[:2] for s in SERVES]),
+        "launches": total(launches["binarize_pack_on_chip"], run_mode),
         "max_abs_err": errs["k1_onchip"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "device_ms": dev_ms, "operand_route_ms": route_ms})
 
     # K2 at the serving shapes (mnist_fc's two hidden layers, VGG fc/1) and M=256
-    k2_serves = {2048: [s[:2] for s in SERVES if s[0] == "mnist_fc"],
-                 512: [s[:2] for s in SERVES if s[0] == "vgg16_cifar10"]}
+    runs_of = {arch: [r for r in run_mode if r[0] == arch]
+               for arch in ("mnist_fc", "vgg16_cifar10")}
+    k2_serves = {2048: runs_of["mnist_fc"], 512: runs_of["vgg16_cifar10"]}
     for m, k, n in [(4, 2048, 2048), (4, 512, 512), (256, 2048, 2048)]:
         wk = torch.randn(k, n, generator=g, device=dev)
         wp = binarize_pack(wk, stochastic=False)
@@ -907,23 +1107,24 @@ def main() -> int:
 
     k3_src, k3_rep = "src/repro_torch/kernels/csrc/sign_pack.cu", "src/repro/xnor/kernel.py:164"
     k4_src, k4_rep = "src/repro_torch/kernels/csrc/xnor_matmul.cu", "src/repro/xnor/kernel.py:125"
-    mnist_x, vgg_x = ("mnist_fc", "xnor"), ("vgg16_cifar10", "xnor")
+    mnist_x, vgg_x = runs_of["mnist_fc"], runs_of["vgg16_cifar10"]
     for (arch_mode, kk, what) in [(mnist_x, 2048, "mnist_fc xnor layers/0-1 and 1-2, 4x2048 "
                                    "f32, per site"),
                                   (vgg_x, 512, "vgg16 xnor fc/0-1, 4x512 f32")]:
         row, chain = k3_fused_row(4, kk)
         kernels.append({**entry(f"sign_pack, prologue fused: bias + eval batch norm + Eq.-1 "
                                 f"sign ({what})", k3_src, k3_rep,
-                                launches["sign_pack_fused"][arch_mode], errs["k3_fused"],
+                                total(launches["sign_pack_fused"], arch_mode),
+                                errs["k3_fused"],
                                 [row]), **chain})
     for (arch_mode, kk) in [(mnist_x, 2048), (vgg_x, 512)]:
         kernels.append(entry(f"sign_pack, no prologue (xnor_matmul on a float input; on no "
                              f"path), 4x{kk} f32", k3_src, k3_rep,
-                             launches["sign_pack"][arch_mode]
-                             - launches["sign_pack_fused"][arch_mode],
+                             total(launches["sign_pack"], arch_mode)
+                             - total(launches["sign_pack_fused"], arch_mode),
                              errs["k3"], [k3_row(4, kk)]))
     kernels.append(entry("xnor_matmul (mnist_fc xnor, 4x64w x2048 scaled, per layer)",
-                         k4_src, k4_rep, launches["xnor_matmul"][mnist_x], errs["k4"],
+                         k4_src, k4_rep, total(launches["xnor_matmul"], mnist_x), errs["k4"],
                          [k4_row(4, 64, 2048, 2048, True)]))
     vgg_k4 = [k4_row(b * h * w_, 9 * c // 32, n, 9 * c, True, conv=(b, h, w_, c))
               for (b, h, w_, c), n in VGG_XNOR_CONVS] + [k4_row(4, 16, 512, 512, True)]
@@ -932,7 +1133,8 @@ def main() -> int:
           + (f"; sum {sum(r[6] for r in vgg_k4):.4f}" if None not in [r[6] for r in vgg_k4]
              else ""))
     kernels.append({**entry("xnor_matmul (vgg16 xnor, the 12 shapes of one batch, summed)",
-                            k4_src, k4_rep, launches["xnor_matmul"][vgg_x], errs["k4"], vgg_k4),
+                            k4_src, k4_rep, total(launches["xnor_matmul"], vgg_x), errs["k4"],
+                            vgg_k4),
                     "device_ms_per_shape": [r[6] for r in vgg_k4]})
     vgg_k5 = [k5_row(shape) for shape, _ in VGG_XNOR_CONVS]
     print("  K5 device_ms at VGG's 11 conv inputs: " + ", ".join(fmt(r[6]) for r in vgg_k5)
@@ -940,7 +1142,8 @@ def main() -> int:
              else ""))
     kernels.append({**entry("patch_pack (vgg16 xnor, the 11 conv inputs of one batch, summed)",
                             "src/repro_torch/kernels/csrc/patch_pack.cu",
-                            "src/repro/xnor/conv/kernel.py:76", launches["patch_pack"][vgg_x],
+                            "src/repro/xnor/conv/kernel.py:76",
+                            total(launches["patch_pack"], vgg_x),
                             errs["k5"], vgg_k5),
                     "device_ms_per_shape": [r[6] for r in vgg_k5]})
 

@@ -24,12 +24,15 @@ Priority order (highest wins among eligible), as in the reference:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.core import prng
 from repro_torch.core.binarize import BinarizeMode
 from repro_torch.core.packing import PACK, unpack_bits
+from repro_torch.engine import costs
 from repro_torch.engine.registry import (BackendSpec, LeafContext, PackContext,
                                          register_backend)
 from repro_torch.kernels import ops
@@ -130,23 +133,25 @@ def _leaf_key(lc: LeafContext, pc: PackContext) -> prng.Key | None:
     return prng.fold_in(pc.key, lc.index)
 
 
-def _conv_scale(leaf: torch.Tensor) -> torch.Tensor:
-    """Per-output-channel mean |w| of a (kh, kw, C, N) kernel."""
-    return leaf.to(torch.float32).abs().mean(dim=(0, 1, 2))
+def _conv_scale(leaf: torch.Tensor, pc: PackContext) -> torch.Tensor | None:
+    """Per-output-channel mean |w| of a (kh, kw, C, N) kernel, or None when
+    the plan packs without scales."""
+    return leaf.to(torch.float32).abs().mean(dim=(0, 1, 2)) if pc.with_scale else None
 
 
 def _pack_binarized_dense(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
-    """Binarized values (+-1 * scale) kept dense: the Alg.-1 inference
+    """Binarized values (+-1 [* scale]) kept dense: the Alg.-1 inference
     network for conv layers with no bitpacked lowering."""
-    scale = _conv_scale(leaf)
+    scale = _conv_scale(leaf, pc)
     key = _leaf_key(lc, pc)
     wb = B.deterministic_binarize(leaf) if key is None else B.stochastic_binarize(leaf, key)
-    return (wb.to(torch.float32) * scale).to(leaf.dtype)
+    return wb if scale is None else (wb.to(torch.float32) * scale).to(leaf.dtype)
 
 
 def _pack_linear(cls, lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
     """Binarize + bitpack a (K, N) projection into ``cls`` through K1; the
-    scale is the mean |w| over K (per output channel). Eq.-2 words come from
+    scale (unless the plan packs without) is the mean |w| over K (per output
+    channel). Eq.-2 words come from
     ``split(fold_in(key, index), 1)[0]``, the reference's key for a 2-D leaf
     (it splits once per stacked layer)."""
     if leaf.ndim != 2:
@@ -157,7 +162,8 @@ def _pack_linear(cls, lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
         packed = ops.binarize_and_pack(leaf)
     else:
         packed = ops.binarize_and_pack(leaf, prng.split(key, 1)[0], stochastic=True)
-    return cls(packed, leaf.to(torch.float32).abs().mean(dim=0), leaf.shape[0])
+    scale = leaf.to(torch.float32).abs().mean(dim=0) if pc.with_scale else None
+    return cls(packed, scale, leaf.shape[0])
 
 
 def _pack_packed_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
@@ -169,12 +175,12 @@ def _pack_packed_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
         raise _missing_key_error(lc)
     packed = ops.binarize_and_pack(leaf.reshape(kh * kw * c_in, n),
                                    prng.fold_in(pc.key, lc.index), stochastic=True)
-    return PackedConv(packed, _conv_scale(leaf), (kh, kw), c_in)
+    return PackedConv(packed, _conv_scale(leaf, pc), (kh, kw), c_in)
 
 
 def _pack_xnor_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
     kh, kw, c_in, _ = leaf.shape
-    return XnorConv(pack_conv_kernel(leaf), _conv_scale(leaf), (kh, kw), c_in)
+    return XnorConv(pack_conv_kernel(leaf), _conv_scale(leaf, pc), (kh, kw), c_in)
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +231,19 @@ def _apply_xnor_conv(w: XnorConv, x: torch.Tensor, *, stride=(1, 1), padding="SA
 DENSE = register_backend(BackendSpec(
     name="dense", kinds=("linear", "conv"), priority=0, leaf_type=None,
     eligible=_dense_eligible, pack=_pack_dense, apply=_apply_dense,
+    cost=functools.partial(costs.gemm_cost, "dense"),
     doc="Full-width master weights: torch.matmul, or F.conv2d in full f32."))
 
 BINARIZED_DENSE = register_backend(BackendSpec(
     name="binarized_dense", kinds=("conv",), priority=10, leaf_type=None,
     eligible=_conv_selected, pack=_pack_binarized_dense, apply=_apply_dense,
+    cost=functools.partial(costs.gemm_cost, "binarized_dense"), tp_dim=-1,
     doc="Conv fallback: Alg.-1 binarized values (+-1 * scale) stored densely."))
 
 PACKED_CONV = register_backend(BackendSpec(
     name="packed_conv", kinds=("conv",), priority=15, leaf_type=PackedConv,
     eligible=_packed_conv_eligible, pack=_pack_packed_conv, apply=_apply_packed_conv,
+    cost=functools.partial(costs.gemm_cost, "packed"), tp_dim=-1,
     doc="Stoch-mode conv: K1-bitpacked binary kernel, unpacked to +-1 * scale "
         "for the dense conv at apply time."))
 
@@ -242,7 +251,7 @@ PACKED = register_backend(BackendSpec(
     name="packed", kinds=("linear",), priority=20, leaf_type=PackedLinear,
     eligible=_packable,
     pack=lambda lc, leaf, pc: _pack_linear(PackedLinear, lc, leaf, pc),
-    apply=_apply_packed,
+    apply=_apply_packed, cost=functools.partial(costs.gemm_cost, "packed"), tp_dim=-1,
     doc="Bitpacked binary weights (+ per-channel scale) through the K2 "
         "packed-weight matmul kernel."))
 
@@ -251,11 +260,16 @@ XNOR = register_backend(BackendSpec(
     eligible=_xnor_eligible,
     pack=lambda lc, leaf, pc: _pack_linear(XnorLinear, lc, leaf, pc),
     apply=_apply_xnor, takes_sign_words=True,
+    cost=functools.partial(costs.gemm_cost, "xnor"),
+    # integer popcount partial sums all-reduce exactly, so xnor alone may
+    # shard a row-parallel projection's contraction dim
+    tp_dim=-1, tp_contract_dim=-2,
     doc="Fully-binary FC: binary weights and sign-packed activations (K3, or "
         "SignWords from the producer's fused K3), XNOR-popcount dot (K4)."))
 
 XNOR_CONV = register_backend(BackendSpec(
     name="xnor_conv", kinds=("conv",), priority=40, leaf_type=XnorConv,
     eligible=_xnor_conv_eligible, pack=_pack_xnor_conv, apply=_apply_xnor_conv,
+    cost=functools.partial(costs.gemm_cost, "xnor_conv"), tp_dim=-1,
     doc="Fully-binary conv: packed im2col patches (K5) + popcount matmul (K4) "
         "+ border correction."))

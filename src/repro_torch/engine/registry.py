@@ -6,6 +6,8 @@ time. It registers a :class:`BackendSpec` with
 * ``eligible(ctx)``  -- can this leaf run here, and if not, why not,
 * ``pack(ctx, leaf, pack_ctx)`` -- master weight -> serving representation,
 * ``apply(leaf, x)`` -- execute the layer on an input batch,
+* ``cost(m, k, n, **kw)`` -- device bytes and op count of one (M, K) x (K, N)
+  application (``engine.costs``; ``plan_report`` reads it),
 
 plus the apply seams it serves (``kinds``: "linear" and/or "conv") and the
 leaf class it produces, which is how ``apply_linear`` / ``apply_conv2d``
@@ -46,6 +48,7 @@ class PackContext:
 
     weight_mode: Any          # BinarizeMode for the weight values
     key: Any = None           # core.prng.Key; each leaf folds in its index
+    with_scale: bool = True   # packed leaves carry the per-channel mean |w|
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +60,20 @@ class BackendSpec:
     eligible: EligibilityFn
     pack: Callable[[LeafContext, Any, PackContext], Any]
     apply: Callable[..., Any]
+    # (m, k, n) -> {"bytes": ..., "ops": ...}; may take shape= / with_scale=
+    # keywords (plan_report passes them when the signature has them)
+    cost: Callable[..., dict]
     doc: str = ""
+    # Master-weight dim the plan's sharding column puts on the "model" mesh
+    # axis (negative: from the end). The bitpacked backends use -1, the
+    # out-channel dim, so an int32 word never splits across devices. None:
+    # the Megatron path rules (distributed.sharding.leaf_pspec) apply.
+    tp_dim: Optional[int] = None
+    # Contraction dim the backend may shard over "model" for row-parallel
+    # projections (whole int32 words; one all-reduce of partial sums). Only
+    # exact-accumulation backends set it: integer popcount sums all-reduce
+    # bit-exactly, f32 partial sums would change the summation order.
+    tp_contract_dim: Optional[int] = None
     # apply reads models.layers.SignWords (the activation's packed Eq.-1
     # signs), so the model may fuse the sign into the producer's K3
     takes_sign_words: bool = False
@@ -80,12 +96,24 @@ def register_backend(spec: BackendSpec) -> BackendSpec:
     return spec
 
 
+def unregister_backend(name: str) -> None:
+    """Removes a backend and its leaf-dispatch entries (no-op if absent)."""
+    old = _REGISTRY.pop(name, None)
+    if old is not None:
+        for key in [k for k, v in _LEAF_DISPATCH.items() if v is old]:
+            del _LEAF_DISPATCH[key]
+
+
 def get_backend(name: str) -> BackendSpec:
     try:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(
             f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}") from None
+
+
+def backend_names() -> list[str]:
+    return [s.name for s in backends()]
 
 
 def backends(kind: str | None = None) -> list[BackendSpec]:
@@ -100,6 +128,20 @@ def backend_for_leaf(leaf: Any, kind: str) -> BackendSpec:
     unregistered is dense."""
     spec = _LEAF_DISPATCH.get((kind, type(leaf)))
     return spec if spec is not None else _REGISTRY["dense"]
+
+
+def serving_leaf_types() -> tuple[type, ...]:
+    """Every leaf class some registered backend produces."""
+    return tuple({s.leaf_type for s in _REGISTRY.values() if s.leaf_type is not None})
+
+
+def spec_for_serving_leaf(leaf: Any) -> Optional[BackendSpec]:
+    """The spec whose ``leaf_type`` produced ``leaf`` (None for plain
+    tensors and unregistered types), whatever the kind."""
+    for (_, t), spec in _LEAF_DISPATCH.items():
+        if t is type(leaf):
+            return spec
+    return None
 
 
 def apply_linear(w: Any, x: Any) -> Any:

@@ -93,7 +93,7 @@ binarize_pack_kernel(const T* __restrict__ w, const uint32_t* __restrict__ bits,
     const int64_t off = (row0 + b) * N + n;
     const float v = bnn_to_float(w[off]);
     const uint32_t one =
-        kMode == kOperand ? stoch_bit(v, bits[off]) : static_cast<uint32_t>(v > 0.0f);
+        kMode == kOperand ? stoch_bit(v, bits[off]) : static_cast<uint32_t>(bnn_sign(v));
     word |= one << b;
   }
   out[idx] = static_cast<int32_t>(word);

@@ -14,3 +14,13 @@ __device__ __forceinline__ float bnn_to_float(float v) { return v; }
 __device__ __forceinline__ float bnn_to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
+// Eq. 1: a value signs +1 iff it is at least the smallest normal f32, 2^-126
+// (FLT_MIN; a bf16 converts to f32 exactly and has f32's exponent range).
+// Subnormals of either sign, +-0 and NaN sign -1, as in the reference, whose
+// XLA CPU reads a subnormal as zero. The comparison is the whole rule: the
+// kernels build without -ftz, so nothing else flushes. Python holds the same
+// value (core/binarize.py: SIGN_MIN).
+constexpr float kBnnSignMin = 1.17549435082228750797e-38f;  // 2^-126
+
+__device__ __forceinline__ bool bnn_sign(float v) { return v >= kBnnSignMin; }

@@ -1,10 +1,10 @@
 // K5: fused im2col + sign-binarize + bitpack of a conv input,
 // NHWC (B, H, W, C) f32 or bf16 -> (B, OH, OW, kh*kw*cw) int32 with
 // cw = ceil(C/32), in the per-tap word layout of xnor/conv/packing.py: word
-// t*cw + j of output pixel (oy, ox) holds the signs (x > 0) of channels
+// t*cw + j of output pixel (oy, ox) holds the Eq.-1 signs (bnn_sign) of channels
 // 32*j .. 32*j + 31 of input pixel (oy*sh + dy - ph0, ox*sw + dx - pw0),
 // t = dy*kw + dx. Taps that fall outside the image and channels >= C give
-// bit 0, the zero padding of the reference; so do 0, -0.0 and NaN.
+// bit 0, the zero padding of the reference; so do 0, -0.0, NaN and subnormals.
 //
 // Replaces the TPU kernel patch_pack_pallas (src/repro/xnor/conv/kernel.py:
 // _patch_pack_kernel, pallas_call at :76), which packs each pixel's words
@@ -99,18 +99,18 @@ struct Geometry {
 
 int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
-// Bits (x > 0) of the 16 bytes a lane read: 4 f32 or 8 bf16 channels.
+// Eq.-1 bits (bnn_sign) of the 16 bytes a lane read: 4 f32 or 8 bf16 channels.
 __device__ __forceinline__ uint32_t sign_bits(uint4 v, float) {
-  return (__uint_as_float(v.x) > 0.0f) | (__uint_as_float(v.y) > 0.0f) << 1 |
-         (__uint_as_float(v.z) > 0.0f) << 2 | (__uint_as_float(v.w) > 0.0f) << 3;
+  return bnn_sign(__uint_as_float(v.x)) | bnn_sign(__uint_as_float(v.y)) << 1 |
+         bnn_sign(__uint_as_float(v.z)) << 2 | bnn_sign(__uint_as_float(v.w)) << 3;
 }
 __device__ __forceinline__ uint32_t sign_bits(uint4 v, __nv_bfloat16) {
   const uint32_t u[4] = {v.x, v.y, v.z, v.w};
   uint32_t bits = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    bits |= static_cast<uint32_t>(__uint_as_float(u[i] << 16) > 0.0f) << (2 * i);
-    bits |= static_cast<uint32_t>(__uint_as_float(u[i] & 0xffff0000u) > 0.0f) << (2 * i + 1);
+    bits |= static_cast<uint32_t>(bnn_sign(__uint_as_float(u[i] << 16))) << (2 * i);
+    bits |= static_cast<uint32_t>(bnn_sign(__uint_as_float(u[i] & 0xffff0000u))) << (2 * i + 1);
   }
   return bits;
 }

@@ -1,6 +1,7 @@
 // K3: fused sign-binarize + bitpack of activations along the last axis,
 // (M, K) f32 or bf16 -> (M, ceil(K/32)) int32; bit b of word [m, j] is
-// y[m, 32*j + b] > 0 (Eq. 1: 0, -0.0 and NaN give bit 0), where y is x, or,
+// bnn_sign(y[m, 32*j + b]) (Eq. 1: y >= 2^-126; subnormals, +-0 and NaN give
+// bit 0), where y is x, or,
 // with the producer prologue, the eval-mode batch norm of x plus a bias:
 //
 //   y = (((x + bias[n]) - mean[n]) * rsqrt(var[n] + eps)) * scale[n] + shift[n]
@@ -21,7 +22,7 @@
 // Design: one warp per output word. Lane l reads x[m, 32*j + l] (a 128-byte
 // coalesced load for f32), and with the prologue the five vectors at the
 // same column (128-byte loads each, cached across the M rows);
-// __ballot_sync of (y > 0) is the word itself: lane b sets bit b, which is
+// __ballot_sync of bnn_sign(y) is the word itself: lane b sets bit b, which is
 // the xnor/packing.py layout. Lanes past K vote 0, the same as padding with
 // zeros, so no caller pads. A bf16 value converts to f32 exactly, so
 // comparing the converted value is comparing in bf16. Warps walk the words
@@ -72,7 +73,7 @@ sign_pack_kernel(const T* __restrict__ x, const Prologue bn, int32_t* __restrict
     if (col < K) {
       float v = bnn_to_float(x[m * K + col]);
       if constexpr (kBN) v = bn_eval(v, bn, col);
-      one = v > 0.0f;
+      one = bnn_sign(v);
     }
     const uint32_t bits = __ballot_sync(0xffffffffu, one);
     if (lane == 0) out[word] = static_cast<int32_t>(bits);

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.binarize import deterministic_binarize
 
 _TWO32 = 4294967296.0
 
@@ -28,8 +29,8 @@ def binary_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 def det_binarize_pack_ref(w: torch.Tensor) -> torch.Tensor:
-    """Sign-binarize (Eq. 1), then bitpack."""
-    return packing.pack_bits(torch.where(w > 0, 1.0, -1.0))
+    """Sign-binarize (Eq. 1, ``core.binarize.SIGN_MIN``), then bitpack."""
+    return packing.pack_bits(deterministic_binarize(w))
 
 
 def stoch_binarize_pack_ref(w: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:

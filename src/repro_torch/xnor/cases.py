@@ -1,6 +1,8 @@
 """Inputs that hold K3's producer prologue (``kernel.bn_sign_pack``) to the
-unfused chain it replaces, and the sweep that holds its rsqrt to
-``torch.rsqrt``; shared by the port's tests and ``chip_smoke.py``.
+unfused chain it replaces, the sweep that holds its rsqrt to
+``torch.rsqrt``, and the values on either side of Eq. 1's threshold
+(``core.binarize.SIGN_MIN``) that every sign site is held to; shared by the
+port's tests and ``chip_smoke.py``.
 
 A case is ``(h, bias, bn_scale, bn_bias, mean, var)``: (M, K) f32
 activations and five (K,) f32 vectors, in ``bn_sign_pack``'s order.
@@ -21,6 +23,76 @@ PAST_GRID_SHAPE = (8200, 2048)
 # subnormal (or +-1), NaN (0 * rsqrt(0) = 0 * inf); the rest stay random
 _PLANTS = 6
 _TINY = float(np.array(1, np.int32).view(np.float32))     # 2^-149
+
+
+def _f32(bits: int) -> float:
+    return float(np.array(bits, np.uint32).view(np.float32))
+
+
+# Values either side of Eq. 1's threshold 2^-126, each with the sign bit
+# Eq. 1 gives it (1 only at 2^-126 and above), as f32 bit patterns and as
+# bf16 ones (the top 16 bits of an f32): the smallest subnormal, a subnormal
+# in the middle (2^-127) and the largest, each of both signs, 2^-126 and
+# the next value above it, -2^-126, +-0 and NaN.
+SIGN_PLANTS = {
+    torch.float32: [(0x00000001, 0), (0x80000001, 0), (0x00400000, 0), (0x80400000, 0),
+                    (0x007FFFFF, 0), (0x807FFFFF, 0), (0x00800000, 1), (0x00800001, 1),
+                    (0x80800000, 0), (0x00000000, 0), (0x80000000, 0), (0x7FC00000, 0)],
+    torch.bfloat16: [(0x0001, 0), (0x8001, 0), (0x0040, 0), (0x8040, 0), (0x007F, 0),
+                     (0x807F, 0), (0x0080, 1), (0x0081, 1), (0x8080, 0), (0x0000, 0),
+                     (0x8000, 0), (0x7FC0, 0)],
+}
+
+
+def sign_plants(dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, bits): the planted values of ``dtype`` (f32 or bf16) on the
+    CPU and the 0/1 sign bits Eq. 1 gives them, as int64."""
+    pats, bits = zip(*SIGN_PLANTS[dtype])
+    if dtype == torch.float32:
+        vals = torch.tensor([_f32(b) for b in pats], dtype=torch.float32)
+    else:
+        vals = torch.tensor([_f32(b << 16) for b in pats], dtype=torch.float32).to(dtype)
+    return vals, torch.tensor(bits, dtype=torch.int64)
+
+
+def plant_signs(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with :func:`sign_plants` of its dtype written along ``dim``, at
+    the positions i with i % 16 < 12 (plant i % 16); returns the 0/1 bits
+    Eq. 1 gives those positions (-1 elsewhere), one per index of ``dim``."""
+    vals, bits = sign_plants(x.dtype)
+    n = x.shape[dim]
+    idx = torch.arange(n)
+    planted = idx % 16 < len(vals)
+    want = torch.full((n,), -1, dtype=torch.int64)
+    want[planted] = bits[idx[planted] % 16]
+    view = x.movedim(dim, -1)
+    view[..., planted.to(x.device)] = vals[idx[planted] % 16].to(x.device)
+    return want
+
+
+def plant_bn_signs(case: tuple[torch.Tensor, ...]) -> tuple[tuple[torch.Tensor, ...],
+                                                           torch.Tensor]:
+    """Plants :func:`sign_plants` (f32) as BN outputs of a ``bn_inputs``
+    case made with subnormals: in the columns c with c % 16 in 9..15,
+    y = 0 * inv_std * 1 + shift = shift exactly; ``bn_inputs`` planted +0,
+    -0.0, NaN and +-2^-149 at c % 16 < 6. Returns the case and the 0/1 bits
+    Eq. 1 gives each planted column (-1 where a column is random)."""
+    h, bias, scale, shift, mean, var = (t.clone() for t in case)
+    vals, bits = sign_plants(torch.float32)
+    slots = {9: 2, 10: 3, 11: 4, 12: 5, 13: 6, 14: 7, 15: 8}   # c % 16 -> plant
+    k = h.shape[1]
+    want = torch.full((k,), -1, dtype=torch.int64)
+    for c in range(k):
+        if c % 16 < _PLANTS:
+            want[c] = 0                    # bn_inputs' plants all sign -1
+        plant = slots.get(c % 16)
+        if plant is None:
+            continue
+        h[:, c] = mean[c]
+        bias[c], scale[c], shift[c] = 0.0, 1.0, vals[plant]
+        var[c] = var[c].abs() + 0.5
+        want[c] = bits[plant]
+    return (h, bias, scale, shift, mean, var), want
 
 
 def bn_inputs(m: int, k: int, seed: int, device, *,

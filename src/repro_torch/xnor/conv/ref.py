@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.binarize import deterministic_binarize
 from repro_torch.core.packing import PACK
 from repro_torch.models.layers import conv2d_nhwc
 from repro_torch.xnor import packing as apack
@@ -67,6 +68,6 @@ def sign_conv_ref(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
     signs taken before zero padding so border pixels contribute 0."""
     _, h, wd, _ = x.shape
     _, _, pads = conv_geometry(h, wd, w.shape[:2], stride, padding)
-    xs = torch.where(x > 0, 1.0, -1.0).to(torch.float32)
-    ws = torch.where(w > 0, 1.0, -1.0).to(torch.float32)
+    xs = deterministic_binarize(x).to(torch.float32)
+    ws = deterministic_binarize(w).to(torch.float32)
     return conv2d_nhwc(xs, ws, stride, pads)

@@ -1,7 +1,7 @@
 """K3 and K4 wrappers: fused sign + bitpack of activations, and the
 XNOR-popcount matmul over packed operands.
 
-* ``sign_pack(x)``: (M, K) f32/bf16 -> (M, ceil(K/32)) int32, bit = x > 0
+* ``sign_pack(x)``: (M, K) f32/bf16 -> (M, ceil(K/32)) int32, bit = Eq. 1
   (``csrc/sign_pack.cu``).
 * ``bn_sign_pack(h, bias, bn_scale, bn_bias, mean, var)``: the same words
   for y = eval batch_norm(h + bias), with the bias, the batch norm and the

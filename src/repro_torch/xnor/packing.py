@@ -3,8 +3,8 @@
 ``core.packing`` stores weights ``(K, N) -> (K // 32, N)``, packed along the
 leading axis. Activations contract along their last axis, so here
 ``(M, K) -> (M, K // 32)``: bit ``b`` of word ``[m, j]`` holds the sign of
-``x[m, 32 * j + b]`` (x > 0 -> 1, anything else -> 0, as Eq. 1 and
-``core.packing.pack_bits``).
+``x[m, 32 * j + b]`` (x >= ``core.binarize.SIGN_MIN`` -> 1, anything else,
+subnormals included, -> 0, as Eq. 1).
 
 Word ``a[m, j]`` and word ``w[j, n]`` then cover the same 32 contraction
 positions, so the binary dot product is
@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.binarize import sign_bit
 from repro_torch.core.packing import PACK, to_int32, to_uint32
 
 
@@ -40,7 +41,7 @@ def pack_activations(x: torch.Tensor) -> torch.Tensor:
     k = x.shape[-1]
     if k % PACK != 0:
         raise ValueError(f"last dim {k} not a multiple of {PACK}; use pad_features")
-    bits = (x > 0).to(torch.int64).reshape(x.shape[:-1] + (k // PACK, PACK))
+    bits = sign_bit(x).to(torch.int64).reshape(x.shape[:-1] + (k // PACK, PACK))
     return to_int32((bits << _shifts(x.device)).sum(dim=-1))
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.binarize import deterministic_binarize
 from repro_torch.core.packing import to_uint32
 from repro_torch.xnor import packing as apack
 
@@ -41,8 +42,8 @@ def xnor_matmul_ref(a_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
 
 def sign_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The semantic spec: ``sign(x) @ sign(w)`` computed densely in f32."""
-    xs = torch.where(x > 0, 1.0, -1.0).to(torch.float32)
-    ws = torch.where(w > 0, 1.0, -1.0).to(torch.float32)
+    xs = deterministic_binarize(x).to(torch.float32)
+    ws = deterministic_binarize(w).to(torch.float32)
     return xs @ ws
 
 

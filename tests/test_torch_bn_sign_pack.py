@@ -9,6 +9,11 @@ interpret mode, or its plain reference for tiny shapes, as the reference's
 own tests run it on the CPU). Logits through the fused route hold the
 existing xnor tests' f32 rtol 1e-4 / atol 1e-3, with no sign activation
 differing from the reference's.
+
+Eq. 1's threshold (``core.binarize.SIGN_MIN`` = 2^-126): a subnormal signs
+-1, as the reference's XLA CPU reads it as zero. The sign sites of the port
+(``deterministic_binarize``, K1's det pack, K3 plain and with its prologue,
+K5) equal the reference's on values either side of it, exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -17,13 +22,16 @@ import pytest
 import torch
 
 from repro.core.binarize import binarize as j_binarize
+from repro.core.binarize import deterministic_binarize as j_deterministic_binarize
+from repro.kernels.ref import det_binarize_pack_ref as j_det_binarize_pack_ref
 from repro.engine import compile_plan as j_compile_plan
 from repro.launch.train import make_paper_policy as j_make_paper_policy
 from repro.models import mnist_fc as jfc
 from repro.models import vgg as jvgg
 from repro.models.layers import batch_norm as j_batch_norm
 from repro.xnor import ops as jxops
-from repro_torch.core.binarize import deterministic_binarize
+from repro.xnor.conv import ops as jcops
+from repro_torch.core.binarize import SIGN_MIN, deterministic_binarize
 from repro_torch.engine import registry
 from repro_torch.interop import from_jax_tree
 from repro_torch.models import mnist_fc, vgg
@@ -31,6 +39,9 @@ from repro_torch.models.layers import (PackedLinear, SignWords, XnorLinear, appl
                                        batch_norm, bn_sign_words, takes_sign_words)
 from repro_torch.xnor import cases
 from repro_torch.xnor import ops as xops
+from repro_torch.core.packing import unpack_bits
+from repro_torch.kernels.ref import det_binarize_pack_ref
+from repro_torch.xnor.conv.ops import sign_and_pack_patches
 from repro_torch.xnor.kernel import bn_sign_pack, bn_sign_pack_plain, sign_pack
 
 from test_torch_vgg import _jax_vgg
@@ -67,15 +78,75 @@ def test_plain_matches_reference_chain_bit_for_bit(m, k):
 
 
 def test_a_subnormal_bn_output_is_where_the_reference_flushes():
-    """A BN output of +2^-149 is > 0, so Eq. 1 gives bit 1 in the port (as
-    on the card, which keeps subnormals); the reference's XLA CPU flushes
-    it to 0 and gives bit 0. Only such outputs differ (ROADMAP, queue 3)."""
+    """A BN output of +-2^-149 is below Eq. 1's threshold 2^-126, so it
+    signs -1 in the port, as in the reference, whose XLA CPU flushes it to
+    0: the port's words equal the reference's at every column, the
+    +2^-149 plants (columns 3, 19, 35, 51) included."""
     case = cases.bn_inputs(4, 64, 1, "cpu")
     port, ref = _bits(bn_sign_pack_plain(*case), 64), _bits(
         torch.from_numpy(_jax_chain_words(case).copy()), 64)
-    differ = sorted({c for _, c in torch.nonzero(port != ref).tolist()})
-    assert differ == [3, 19, 35, 51]                  # the +2^-149 plants
-    assert bool(port[:, differ].all()) and not bool(ref[:, differ].any())
+    assert torch.equal(port, ref)
+    assert not bool(port[:, [3, 19, 35, 51]].any())
+
+
+def test_a_subnormal_bn_intermediate_is_where_the_reference_flushes():
+    """The open residual (ROADMAP, queue 3): h + bias - mean = 2^-130 is
+    subnormal, and times inv_std = 1 and scale = 2^20 gives y = 2^-110, a
+    normal positive. The port's eager chain keeps the intermediate and
+    signs +1; the reference's XLA CPU flushes it to 0 and signs -1."""
+    f32 = np.float32
+    var = f32(1) - f32(1e-5)                          # var + eps == 1.0 in f32
+    case = tuple(torch.tensor(a, dtype=torch.float32) for a in (
+        [[2.0 ** -125]], [0.0], [2.0 ** 20], [0.0], [31 * 2.0 ** -130], [var]))
+    assert float(case[0][0, 0] - case[4][0]) == 2.0 ** -130
+    assert bn_sign_pack_plain(*case).tolist() == [[1]]
+    assert _jax_chain_words(case).tolist() == [[0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eq1_threshold_matches_reference_at_every_sign_site(dtype):
+    """Values either side of 2^-126 (``cases.sign_plants``: subnormals of
+    both signs, 2^-126 and the next value, -2^-126, +-0, NaN) sign as in
+    the reference through ``deterministic_binarize``, the det pack (K1's
+    plain version), plain K3 and K5's plain version, exactly."""
+    vals, bits = cases.sign_plants(dtype)
+    assert torch.equal((vals.float() >= SIGN_MIN).long(), bits)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+    def j(t):
+        return jnp.asarray(t.float().numpy()).astype(jdt)
+
+    got = deterministic_binarize(vals)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(j_deterministic_binarize(j(vals))).astype(np.float32))
+    assert torch.equal((got > 0).long(), bits)
+    w = torch.randn(128, 40, generator=torch.Generator().manual_seed(5)).to(dtype)
+    want = cases.plant_signs(w, 0)
+    np.testing.assert_array_equal(det_binarize_pack_ref(w).numpy(),
+                                  np.asarray(j_det_binarize_pack_ref(j(w))))
+    assert torch.equal((unpack_bits(det_binarize_pack_ref(w)) > 0).long().T[:, want >= 0],
+                       want[want >= 0].expand(40, -1))
+    x = torch.randn(5, 100, generator=torch.Generator().manual_seed(6)).to(dtype)
+    cases.plant_signs(x, 1)
+    np.testing.assert_array_equal(sign_pack(x).numpy(),
+                                  np.asarray(jxops.sign_and_pack(j(x), block_m=8, block_k=128)))
+    x = torch.randn(2, 5, 6, 40, generator=torch.Generator().manual_seed(7)).to(dtype)
+    cases.plant_signs(x, 3)
+    np.testing.assert_array_equal(
+        sign_and_pack_patches(x, ksize=(3, 3)).numpy(),
+        np.asarray(jcops.sign_and_pack_patches(j(x), ksize=(3, 3))))
+
+
+@pytest.mark.parametrize("m,k", [(4, 2048), (4, 512), (7, 100)])
+def test_eq1_threshold_at_the_fused_sites_matches_reference(m, k):
+    """The plants as BN outputs (``cases.plant_bn_signs``): K3's plain
+    prologue chain gives the reference chain's words, and Eq. 1's bits."""
+    case, want = cases.plant_bn_signs(cases.bn_inputs(m, k, 40 + k, "cpu"))
+    got = bn_sign_pack_plain(*case)
+    np.testing.assert_array_equal(got.numpy(), _jax_chain_words(case))
+    bits = _bits(got, k)
+    assert torch.equal(bits[:, want >= 0].long(), want[want >= 0].expand(m, -1))
 
 
 @pytest.mark.parametrize("m,k", cases.FUSED_SHAPES)

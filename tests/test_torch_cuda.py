@@ -8,16 +8,23 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.packing import unpack_bits
+from repro_torch.core.policy import make_paper_policy
+from repro_torch.engine import ExecutionPlan, compile_plan
+from repro_torch.engine.plan import tree_leaves_with_path, tree_map
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
 from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 from repro_torch.launch import serve
 from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
+from repro_torch.stoch import ensemble_forward, sample_replicas
 from repro_torch.xnor import cases as k3_cases
 from repro_torch.xnor.conv import cases as k5_cases
 from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
@@ -25,6 +32,7 @@ from repro_torch.xnor.conv.ops import xnor_conv2d
 from repro_torch.xnor.conv.packing import pack_conv_kernel
 from repro_torch.xnor.kernel import (ConvBorder, bn_sign_pack, bn_sign_pack_plain, sign_pack,
                                      sign_pack_plain, xnor_matmul, xnor_matmul_plain)
+from repro_torch.xnor.packing import unpack_activations
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)   # only the order of the f32 sum differs
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -572,3 +580,85 @@ def test_k4_checks_its_border(border, err):
     a, w = _words((8, 2), 1, "cpu"), _words((2, 8), 2, "cpu")
     with pytest.raises(ValueError, match=err):
         xnor_matmul(a, w, k_total=64, border=border)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 1's threshold, loaded manifests and the ensemble, on the card
+# ---------------------------------------------------------------------------
+
+GOLDEN = Path(__file__).resolve().parents[1] / "benchmarks" / "golden_plans"
+
+
+def _planted_bits_hold(bits, want):
+    """``bits``: 0/1 with the planted dim last; ``want``: -1 where unplanted."""
+    m = want >= 0
+    return torch.equal(bits.cpu().long()[..., m], want[m].expand_as(bits.cpu()[..., m]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eq1_threshold_on_the_card(cuda, dtype):
+    """Subnormals of both signs, 2^-126 and the next value, -2^-126, +-0
+    and NaN (``xnor.cases.sign_plants``) through K1 det, plain K3 and K5:
+    the kernels equal their plain versions on the CPU, and sign +1 only at
+    2^-126 and above."""
+    w = torch.randn(100, 40, generator=torch.Generator().manual_seed(1)).to(dtype)
+    want = k3_cases.plant_signs(w, 0)
+    got = binarize_pack(w.to(cuda), stochastic=False).cpu()
+    assert torch.equal(got, binarize_pack_plain(w, None, stochastic=False))
+    assert _planted_bits_hold((unpack_bits(got)[:100] > 0).T, want)
+    x = torch.randn(5, 100, generator=torch.Generator().manual_seed(2)).to(dtype)
+    want = k3_cases.plant_signs(x, 1)
+    got = sign_pack(x.to(cuda)).cpu()
+    assert torch.equal(got, sign_pack_plain(x))
+    assert _planted_bits_hold(unpack_activations(got)[:, :100] > 0, want)
+    x = torch.randn(2, 5, 6, 40, generator=torch.Generator().manual_seed(3)).to(dtype)
+    want = k3_cases.plant_signs(x, 3)
+    for ks, pad in (((1, 1), "VALID"), ((3, 3), "SAME")):
+        got = patch_pack(x.to(cuda), ksize=ks, padding=pad).cpu()
+        assert torch.equal(got, patch_pack_plain(x, ksize=ks, padding=pad))
+    assert _planted_bits_hold(unpack_activations(
+        patch_pack(x.to(cuda), ksize=(1, 1), padding="VALID").cpu())[..., :40] > 0, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(4, 2048), (4, 512), (7, 100)])
+def test_eq1_threshold_at_the_fused_sites_on_the_card(cuda, m, k):
+    case, want = k3_cases.plant_bn_signs(k3_cases.bn_inputs(m, k, 40 + k, "cpu"))
+    got = bn_sign_pack(*(t.to(cuda) for t in case)).cpu()
+    assert torch.equal(got, bn_sign_pack_plain(*case))
+    assert _planted_bits_hold(unpack_activations(got)[:, :k] > 0, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mnist_fc", "vgg16_cifar10"])
+@pytest.mark.parametrize("mode", ["det", "stoch", "xnor"])
+def test_loaded_golden_packs_identically_on_the_card(cuda, arch, mode):
+    """The committed manifest, loaded and packed on the card at full width,
+    gives the words of a compile packed on the CPU from the same masters."""
+    tree, _, _, n_fc = serve.build_model(arch, 0, device=cuda)
+    loaded = ExecutionPlan.load(GOLDEN / f"{arch}_{mode}.json")
+    on_card = loaded.pack(tree["params"], key=prng.key(1))
+    masters = tree_map(lambda t: t.cpu(), tree["params"])
+    on_cpu = compile_plan(masters, make_paper_policy(n_fc), mode).pack(masters,
+                                                                        key=prng.key(1))
+    for (path, a), (_, b) in zip(tree_leaves_with_path(on_card), tree_leaves_with_path(on_cpu)):
+        assert type(a) is type(b), path
+        if hasattr(a, "packed"):
+            assert torch.equal(a.packed.cpu(), b.packed), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mnist_fc", "vgg16_cifar10"])
+def test_ensemble_k1_is_the_single_sample_serve_on_the_card(cuda, arch):
+    single = serve.serve_classifier(arch=arch, binarize="stoch", slots=4, requests=8,
+                                    smoke=True)
+    tree, apply_fn, _, _ = serve.build_model(arch, 0, device=cuda, smoke=True)
+    rs = sample_replicas(tree["params"], single.plan, prng.key(1), 1)
+    with torch.inference_mode():
+        es = ensemble_forward(rs, lambda t: apply_fn(t, single.state, single.last_x))
+    assert torch.equal(es.mean_logits, single.last_logits)
+    k3 = serve.serve_classifier(arch=arch, binarize="stoch", slots=4, requests=8, smoke=True,
+                                ensemble=3)
+    assert k3.replicas.k == 3 and len(k3.agreement) == 8
+    assert torch.isfinite(k3.last_logits).all()
