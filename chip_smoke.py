@@ -86,7 +86,27 @@ Phases, each on its own lines of output; any failure exits non-zero:
    and launches, and K3 without it; K4 at each VGG shape as the conv path
    calls it, fused; K5 at each VGG conv input); and
    each xnor conv layer as a whole against F.conv2d on +-1 f32, with the
-   device kernels it launches counted by the profiler.
+   device kernels it launches counted by the profiler; bn_sign at the sites
+   it serves, beside the eager ops it replaced.
+
+Since the batch-norm sign sites flush subnormals as the reference does:
+phase 5 also holds ``bn_sign`` (the flushed bias, eval batch norm and sign,
+unpacked: every sign site K3's prologue does not take) against its plain
+version at the sites it serves, and ``bn_sign`` and fused K3 against the
+plain chain on the CPU with a subnormal planted at each flushed step
+(``xnor.cases.FLUSH_PLANTS``), with the reference's bits; phase 6 counts
+its launches (mnist_fc xnor 1 a batch, VGG-16 xnor 12), and with K3's
+prologue route off counts one bn_sign and one plain K3 a site in place of
+one fused K3. A phase 6d trains on the card (Alg. 1, the paper's recipe
+through ``launch.train.build_paper_model``): full-width mnist_fc 5 det and
+5 stoch steps and VGG-16 3 det steps, each step also run on the CPU from
+the same state and batch (step 1: equal binarized weights, grads and the
+new state within ``TRAIN_TOL``; every step's loss within
+``TRAIN_LOSS_RTOL``; binarized weights that differ are counted), with
+steps/s and each step's device ms; TF32 off through VGG-16's backward
+(f32 grads against f64 on the card, beside a TF32 backward); a run with
+injected failures restored from its checkpoints on the card, bit for bit
+against a clean run; and the training CLI for 50 mnist_fc stoch steps.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -125,17 +145,37 @@ BATCHES = 17                   # 64 requests / 4 slots + 1 warm-up
 
 # Kernel launches per batch and per pack on each served path (PERF.md's
 # table): K2 binary_matmul, K3 sign_pack (every one with the batch-norm
-# prologue: sign_pack_fused), K4 xnor_matmul, K5 patch_pack per batch; K1
-# binarize_pack once per packed leaf.
+# prologue: sign_pack_fused), K4 xnor_matmul, K5 patch_pack, bn_sign (the
+# sign sites K3 does not take: mnist_fc's 2->3, VGG's conv 1-11 and fc/1)
+# per batch; K1 binarize_pack once per packed leaf.
 SERVES = [
     ("mnist_fc", "det", {"binary_matmul": 2}, 2),
     ("mnist_fc", "stoch", {"binary_matmul": 2}, 2),
-    ("mnist_fc", "xnor", {"sign_pack": 2, "sign_pack_fused": 2, "xnor_matmul": 2}, 2),
+    ("mnist_fc", "xnor", {"sign_pack": 2, "sign_pack_fused": 2, "xnor_matmul": 2,
+                          "bn_sign": 1}, 2),
     ("vgg16_cifar10", "det", {"binary_matmul": 1}, 1),
     ("vgg16_cifar10", "stoch", {"binary_matmul": 1}, 13),
     ("vgg16_cifar10", "xnor", {"sign_pack": 1, "sign_pack_fused": 1, "xnor_matmul": 12,
-                               "patch_pack": 11}, 12),
+                               "patch_pack": 11, "bn_sign": 12}, 12),
 ]
+
+# The sign sites bn_sign serves at batch 4, as (M, K): mnist_fc's 2->3, then
+# VGG-16's conv 1-11 outputs (B*H*W, C) and fc/1.
+MNIST_BN_SIGN = [(4, 2048)]
+VGG_BN_SIGN = [(4096, 64), (1024, 128), (1024, 128), (256, 256), (256, 256), (256, 256),
+               (64, 512), (64, 512), (64, 512), (16, 512), (16, 512), (4, 512)]
+
+# Alg.-1 training on the card: (net, mode, steps), the paper's recipe at
+# batch 4 through launch.train.build_paper_model, each step held against
+# the same step on the CPU. Step 1's grads, masters, momentum and batch-norm
+# stats hold rtol = atol / (the tree's largest value) = TRAIN_TOL (the f32
+# sum order of cuBLAS/cuDNN against the CPU's; VGG's training batch norm
+# over batch 4 amplifies it, as the CPU parity tests state); every step's
+# loss holds TRAIN_LOSS_RTOL, and the binarized weights that differ are
+# counted.
+TRAIN_RUNS = [("mnist_fc", "det", 5), ("mnist_fc", "stoch", 5), ("vgg16_cifar10", "det", 3)]
+TRAIN_TOL = {"mnist_fc": 1e-4, "vgg16_cifar10": 1e-3}
+TRAIN_LOSS_RTOL = {"mnist_fc": 1e-3, "vgg16_cifar10": 1e-2}
 
 # The ensemble serves: (net, K2 launches a batch of one replica, stochastic
 # leaves K1 packs once a replica).
@@ -177,7 +217,6 @@ def main() -> int:
     from repro_torch.core import prng
     from repro_torch.core.packing import unpack_bits
     from repro_torch.core.policy import make_paper_policy
-    from repro_torch.core.binarize import sign_bit
     from repro_torch.engine import ExecutionPlan, compile_plan
     from repro_torch.engine.plan import tree_leaves_with_path, tree_map
     from repro_torch.kernels import _build
@@ -186,18 +225,18 @@ def main() -> int:
     from repro_torch.launch.serve import build_model, serve_classifier
     from repro_torch.models import mnist_fc, vgg
     from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
-    from repro_torch.core.binarize import deterministic_binarize
-    from repro_torch.models.layers import batch_norm
     from repro_torch.stoch import ensemble_forward, ensemble_stats, sample_replicas
     from repro_torch.xnor import cases as k3_cases
     from repro_torch.xnor.conv import cases as k5_cases
     from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain, patch_pack_tiles
     from repro_torch.xnor.conv.ops import xnor_conv2d
     from repro_torch.xnor.conv.packing import conv_geometry, pack_conv_kernel
-    from repro_torch.xnor.kernel import (ConvBorder, bn_sign_pack, bn_sign_pack_plain,
-                                         sign_pack, sign_pack_plain, xnor_matmul,
-                                         xnor_matmul_plain)
+    from repro_torch.xnor.kernel import (ConvBorder, bn_sign, bn_sign_pack,
+                                         bn_sign_pack_plain, bn_sign_plain, sign_pack,
+                                         sign_pack_plain, xnor_matmul, xnor_matmul_plain)
     from repro_torch.xnor.packing import unpack_activations
+    from repro_torch.core.binarize import deterministic_binarize
+    from repro_torch.models.layers import batch_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 references in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -210,7 +249,8 @@ def main() -> int:
                 "binary_matmul": (binary_matmul, "launches"),
                 "sign_pack": (sign_pack, "launches"),
                 "sign_pack_fused": (sign_pack, "launches_fused"),
-                "xnor_matmul": (xnor_matmul, "launches"), "patch_pack": (patch_pack, "launches")}
+                "xnor_matmul": (xnor_matmul, "launches"), "patch_pack": (patch_pack, "launches"),
+                "bn_sign": (bn_sign, "launches")}
 
     def launch_counts() -> dict[str, int]:
         return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
@@ -225,6 +265,7 @@ def main() -> int:
                  (kops_mod, "_binary_matmul", binary_matmul_plain),
                  (xops_mod, "_sign_pack", sign_pack_plain),
                  (xops_mod, "_bn_sign_pack", bn_sign_pack_plain),
+                 (xops_mod, "_bn_sign", bn_sign_plain),
                  (xops_mod, "_xnor_matmul", xnor_matmul_plain),
                  (cops_mod, "patch_pack", patch_pack_plain)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -241,30 +282,31 @@ def main() -> int:
 
     @contextlib.contextmanager
     def record_signs(module, into: list):
-        """Records the model's sign activations (> 0): the inputs of its
-        unfused sign sites, and the bits its fused K3 sites pack."""
-        orig, orig_fused = module.deterministic_binarize, module.bn_sign_words
+        """Records the model's sign activations (> 0): the outputs of its
+        bn_sign sites, and the bits its fused K3 sites pack."""
+        orig, orig_fused = module.bn_sign, module.bn_sign_words
 
-        def rec(x):
-            into.append(sign_bit(x).cpu())
-            return orig(x)
+        def rec(x, *vecs):
+            out = orig(x, *vecs)
+            into.append((out > 0).cpu())
+            return out
 
         def rec_fused(x, *vecs):
             sw = orig_fused(x, *vecs)
             into.append((unpack_activations(sw.words)[..., : sw.k] > 0).cpu())
             return sw
 
-        module.deterministic_binarize, module.bn_sign_words = rec, rec_fused
+        module.bn_sign, module.bn_sign_words = rec, rec_fused
         try:
             yield
         finally:
-            module.deterministic_binarize, module.bn_sign_words = orig, orig_fused
+            module.bn_sign, module.bn_sign_words = orig, orig_fused
 
     @contextlib.contextmanager
     def unfused(module):
-        """The model's forward with every sign site on the unfused chain (bias
-        add, eval batch norm and sign as eager ops, then K3): the forward
-        before K3 took its producer prologue."""
+        """The model's forward with every sign site off K3's prologue: bn_sign
+        (bias add, eval batch norm and sign in one kernel), then K3 packs
+        its +-1 output."""
         orig = module.takes_sign_words
         module.takes_sign_words = lambda w: False
         try:
@@ -479,7 +521,7 @@ def main() -> int:
     n_swept = k3_cases.rsqrt_sweep(dev)
     torch.cuda.synchronize()
     print(f"  rsqrt sweep: the prologue's rsqrtf equals torch.rsqrt on all {n_swept} "
-          f"positive finite f32 values ({time.perf_counter() - t0:.1f}s; control: a 1-ulp "
+          f"positive normal f32 values ({time.perf_counter() - t0:.1f}s; control: a 1-ulp "
           f"difference sets every bit)")
     errs["k3_fused"] = 0.0
 
@@ -521,6 +563,32 @@ def main() -> int:
         exact(f"K3 fused {m}x{kk} f32, planted BN outputs", got, bn_sign_pack_plain(*case))
         planted(f"K3 fused {m}x{kk}", unpack_activations(got)[:, :kk] > 0, want)
     errs["eq1"] = 0.0
+
+    print("== bn_sign (the flushed prologue and sign, unpacked) vs its plain version on the "
+          "card (exact) at the sites it serves, ragged K and M * K past the grid; and a "
+          "subnormal at each flushed step (xnor.cases.FLUSH_PLANTS) through bn_sign and "
+          "fused K3 against the plain chain on the CPU, with the reference's bits")
+    for i, (m, kk) in enumerate(dict.fromkeys(MNIST_BN_SIGN + VGG_BN_SIGN + [
+            (7, 100), (3, 31), (70000, 300)])):
+        case = k3_cases.plant_near_zero(k3_cases.bn_inputs(m, kk, 500 + i, dev))
+        got = bn_sign(*case)
+        exact(f"bn_sign {m}x{kk}", got, bn_sign_plain(*case))
+        exact(f"bn_sign {m}x{kk} packed == fused K3", sign_pack(got), bn_sign_pack(*case))
+    for m in (1, 5):
+        for eps, case, bits in k3_cases.flush_cases(m, "cpu"):
+            on_card = tuple(t.to(dev) for t in case)
+            got = bn_sign(*on_card, eps=eps)
+            exact(f"bn_sign flush plants M={m} eps={eps}", got.cpu(),
+                  bn_sign_plain(*case, eps=eps))
+            exact(f"fused K3 flush plants M={m} eps={eps}", bn_sign_pack(*on_card, eps=eps).cpu(),
+                  bn_sign_pack_plain(*case, eps=eps))
+            planted(f"bn_sign flush plants M={m} eps={eps}", got > 0, bits)
+    for m, kk in [(4, 2048), (7, 100)]:
+        case, want = k3_cases.plant_bn_signs(k3_cases.bn_inputs(m, kk, 700 + kk, "cpu"))
+        got = bn_sign(*(t.to(dev) for t in case))
+        exact(f"bn_sign {m}x{kk}, planted BN outputs", got.cpu(), bn_sign_plain(*case))
+        planted(f"bn_sign {m}x{kk}", got > 0, want)
+    errs["bn_sign"] = 0.0
 
     print("== K4 xnor_matmul vs plain (exact)")
     k4_cases = [(4, 64, 2048, 2048, "mnist_fc layers/1-2")]
@@ -730,25 +798,31 @@ def main() -> int:
                   f"{res.ms_per_batch:.4f} ms median; top: "
                   + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
         if binary_act:
-            # the same forward with every sign site on the unfused chain, as
-            # before K3 took its producer prologue: equal logits, more launches
+            # the same forward with K3's prologue route switched off: every
+            # fused site takes bn_sign, then K3 packs its +-1 output. Equal
+            # logits; by the counters, one bn_sign and one plain K3 a site
+            # in place of one fused K3
+            sites = per_batch["sign_pack_fused"]
             with torch.inference_mode(), unfused(model):
+                before = launch_counts()
                 chain_logits = forward()
+                delta = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
                 chain_kern = profiled(forward, reps=5)
                 chain_kernels = kernels_per_rep(forward, reps=5)
             if not torch.equal(chain_logits, again):
                 raise AssertionError(f"{arch} xnor: the fused route's logits differ from "
-                                     f"the unfused chain's")
-            sites = per_batch["sign_pack_fused"]
-            print(f"  unfused chain at the {sites} fused site(s): logits equal bit for bit; "
-                  f"device ms/batch {fmt(chain_kern and sum(chain_kern.values()))}, "
+                                     f"the unfused route's")
+            want_delta = {k: v for k, v in per_batch.items() if k != "sign_pack_fused"}
+            want_delta["bn_sign"] = per_batch["bn_sign"] + sites
+            if delta != want_delta:
+                raise AssertionError(f"{arch} xnor, route off: launches {delta}, expected "
+                                     f"{want_delta}")
+            print(f"  route off at the {sites} fused site(s) (bn_sign, then plain K3): logits "
+                  f"equal bit for bit; counters a batch {delta}; device ms/batch "
+                  f"{fmt(chain_kern and sum(chain_kern.values()))}, "
                   f"{fmt_count(chain_kernels)} device kernel launches per batch (fused: "
                   f"{fmt_count(per_batch_kernels)})")
             serve_ms[(arch, mode)]["chain_launches"] = chain_kernels
-            if None not in (chain_kernels, per_batch_kernels):
-                if chain_kernels - per_batch_kernels < 7 * sites:
-                    raise AssertionError(f"{arch} xnor: fusing removed only "
-                                         f"{chain_kernels - per_batch_kernels:g} launches")
         torch.testing.assert_close(again, logits, **F32_TOL)
         torch.testing.assert_close(again, plain_gpu, **F32_TOL)
         if arch == "mnist_fc" and not binary_act:
@@ -808,14 +882,15 @@ def main() -> int:
           "one K5 fewer a batch, one K1 fewer at pack time")
     res = counted_serve("vgg16_cifar10", "xnor, conv/3 binarized_dense",
                         {"sign_pack": 1, "sign_pack_fused": 1, "xnor_matmul": 11,
-                         "patch_pack": 10}, 11, binarize="xnor",
+                         "patch_pack": 10, "bn_sign": 12}, 11, binarize="xnor",
                         override=["conv/3=binarized_dense"])
     if (res.plan["conv/3/kernel"].backend != "binarized_dense"
             or not isinstance(res.params["conv"][3]["kernel"], torch.Tensor)):
         raise AssertionError("the override did not put conv/3 on binarized_dense")
     plain_forward_close("override", res, True)
     for mode, per_batch in (("det", {"binary_matmul": 2}),
-                            ("xnor", {"sign_pack": 2, "sign_pack_fused": 2, "xnor_matmul": 2})):
+                            ("xnor", {"sign_pack": 2, "sign_pack_fused": 2, "xnor_matmul": 2,
+                                      "bn_sign": 1})):
         print(f"== serve mnist_fc {mode} packed without scales (with_scale=False)")
         res = counted_serve("mnist_fc", f"{mode}, no scale", per_batch, 2, binarize=mode,
                             with_scale=False)
@@ -873,6 +948,198 @@ def main() -> int:
               f"mean {res.mean_agreement:.4f} min {res.min_agreement:.4f}, abstained "
               f"{res.abstained}/{res.requests} at 0.6; {k} replicas {res.packed_bytes} B "
               f"(shared leaves once) vs {res.dense_bytes} B bf16 dense, one copy")
+
+    # 6d. Alg.-1 training on the card
+    from repro_torch.core import binarize as B
+    from repro_torch.ft.failures import FailureInjector
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import steps as ST
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+    def on_cpu(state):
+        """A train state's tensors on the CPU (its key is no tensor)."""
+        return {k: (v if k == "key" else tree_map(lambda t: t.cpu(), v))
+                for k, v in state.items()}
+
+    def tree_err(got, want) -> tuple[float, float]:
+        """(largest |got - want| over the leaves, the largest |want|)."""
+        pairs = list(zip(tree_leaves_with_path(got), tree_leaves_with_path(want)))
+        return (max(float((a.cpu().double() - b.double()).abs().max()) for (_, a), (_, b) in pairs),
+                max(float(b.abs().max()) for _, (_, b) in pairs))
+
+    def hold(tag, got, want, tol):
+        err, scale = tree_err(got, want)
+        print(f"    {tag}: max_abs_err {err:.3e} (largest |value| {scale:.3e}; tolerance "
+              f"rtol {tol:g}, atol {tol:g} x largest)")
+        for (path, a), (_, b) in zip(tree_leaves_with_path(got), tree_leaves_with_path(want)):
+            torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol * scale,
+                                       msg=lambda m, p=path: f"{tag} {p}: {m}")
+
+    def step_events(fn) -> tuple[float, float | None, float | None, object]:
+        """(wall ms of one synchronised call, device ms and device kernel
+        launches of a second, profiled call of the same pure step, result)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"    torch.profiler failed ({e}); device time not measured")
+            return wall, None, None, out
+        ev = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        if not ev:
+            return wall, None, None, out
+        return (wall, sum(e.self_device_time_total for e in ev) / 1e3,
+                sum(e.count for e in ev), out)
+
+    train_ms = {}
+    print("== training (Alg. 1) on the card through launch.train.build_paper_model: the "
+          "paper's recipe (SGD momentum 0.9, eta0 1e-3 with Eq. 4, batch 4), full width; "
+          "each step also run on the CPU from the same state and batch")
+    for arch, mode, n_steps in TRAIN_RUNS:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        tol = TRAIN_TOL[arch]
+        state, step_fn, batch_fn = train_cli.build_paper_model(arch, binarize=mode,
+                                                               device="cuda")
+        cpu_state = on_cpu(state)
+        pol = make_paper_policy(4 if arch == "mnist_fc" else 3)
+        loss_fn = ST.make_classifier_loss(mnist_fc.apply if arch == "mnist_fc" else vgg.apply)
+        print(f"  {arch} {mode}, {n_steps} steps")
+        walls, devs, n_launch, flips = [], [], [], []
+        for i in range(n_steps):
+            batch = batch_fn(i)
+            cpu_batch = tree_map(lambda t: t.cpu(), batch)
+            key = prng.fold_in(state["key"], int(state["step"]))
+            wb = B.binarize_tree(state["params"], mode, pol, key)
+            wb_cpu = B.binarize_tree(cpu_state["params"], mode, pol, key)
+            flips.append(sum(int((a.cpu() != b).sum()) for (p, a), (_, b) in zip(
+                tree_leaves_with_path(wb), tree_leaves_with_path(wb_cpu)) if pol.selects(p)))
+            if i == 0:
+                if flips[0]:
+                    raise AssertionError(f"{arch} {mode}: step 1's binarized weights differ "
+                                         f"on the card")
+                _, grads = ST.binarized_value_and_grad(
+                    loss_fn, state["params"], batch, mode=mode, policy=pol, key=key,
+                    model_state=state["model_state"])
+                _, grads_cpu = ST.binarized_value_and_grad(
+                    loss_fn, cpu_state["params"], cpu_batch, mode=mode, policy=pol, key=key,
+                    model_state=cpu_state["model_state"])
+                hold("step 1 grads vs CPU", grads, grads_cpu, tol)
+            wall, dms, nl, (new, m) = step_events(lambda s=state, b=batch: step_fn(s, b))
+            new_cpu, m_cpu = step_fn(cpu_state, cpu_batch)
+            if i == 0:
+                for name in ("params", "opt", "model_state"):
+                    hold(f"step 1 {name} vs CPU", new[name], new_cpu[name], tol)
+            loss, loss_cpu = float(m["loss"]), float(m_cpu["loss"])
+            print(f"    step {i + 1}: loss {loss:.6f} (CPU {loss_cpu:.6f}), binarized weights "
+                  f"differing from the CPU's {flips[-1]}, wall {wall:.3f} ms, device "
+                  f"{fmt(dms)} ms in {fmt_count(nl)} device kernel launches")
+            if not abs(loss - loss_cpu) <= TRAIN_LOSS_RTOL[arch] * abs(loss_cpu):
+                raise AssertionError(f"{arch} {mode} step {i + 1}: loss {loss} vs CPU {loss_cpu}")
+            walls.append(wall)
+            devs.append(dms)
+            n_launch.append(nl)
+            state, cpu_state = new, new_cpu
+        if any(launch_counts().values()):
+            raise AssertionError(f"{arch} {mode}: training launched a port kernel "
+                                 f"{launch_counts()}")
+        steady = walls[1:]
+        train_ms[(arch, mode)] = {"wall_ms": walls, "device_ms": devs, "launches": n_launch,
+                                  "flips": flips,
+                                  "steps_per_s": 1e3 * len(steady) / sum(steady)}
+        print(f"    {1e3 * len(steady) / sum(steady):.2f} steps/s over steps 2-{n_steps} "
+              f"(median wall {statistics.median(steady):.3f} ms; step 1 {walls[0]:.3f} ms); "
+              f"device ms per step {[fmt(d) for d in devs]}; no port kernel launched (dense "
+              f"ops on the binarized weights)")
+
+    print("== training: TF32 stays off through VGG-16's backward (width 1.0, batch 4): "
+          "the step's f32 grads against f64 on the card, beside a backward left to cuDNN's "
+          "TF32 default")
+    vtree, _, _, _ = build_model("vgg16_cifar10", 0, device=dev)
+    gv = torch.Generator(device=dev).manual_seed(5)
+    vb = {"x": torch.rand(4, 32, 32, 3, generator=gv, device=dev),
+          "y": torch.randint(0, 10, (4,), generator=gv, device=dev)}
+    vloss = ST.make_classifier_loss(vgg.apply)
+    vpol = make_paper_policy(3)
+
+    def vgg_grads(dtype, tf32_backward=False):
+        t = tree_map(lambda x: x.to(dtype), vtree)
+        b = {"x": vb["x"].to(dtype), "y": vb["y"]}
+        if not tf32_backward:
+            return ST.binarized_value_and_grad(vloss, t["params"], b, mode="det", policy=vpol,
+                                               key=None, model_state=t["state"])[1]
+        from repro_torch.engine.plan import tree_unflatten
+        leaves = [x.detach().requires_grad_(True) for _, x in tree_leaves_with_path(t["params"])]
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            loss, _ = vloss(B.binarize_tree(tree_unflatten(t["params"], leaves), "det", vpol),
+                            b, t["state"])
+            return tree_unflatten(t["params"], list(torch.autograd.grad(loss, leaves)))
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+    g64 = tree_map(lambda x: x.cpu(), vgg_grads(torch.float64))
+    f32_err, g_scale = tree_err(vgg_grads(torch.float32), g64)
+    tf32_err, _ = tree_err(vgg_grads(torch.float32, tf32_backward=True), g64)
+    print(f"  grads vs f64: the step's {f32_err:.3e}, TF32 backward {tf32_err:.3e} (largest "
+          f"|grad| {g_scale:.3e}; bound on the step's: 1e-3 x largest)")
+    if not f32_err <= 1e-3 * g_scale:
+        raise AssertionError("VGG grads: the step's backward is not full f32")
+    if not tf32_err > f32_err:
+        print("  the TF32 backward came no further from f64 than the step's: this control "
+              "shows nothing on this card")
+    train_ms["tf32"] = {"f32_err": f32_err, "tf32_err": tf32_err, "scale": g_scale}
+
+    print("== training: checkpoint save -> restore -> replay on the card (mnist_fc stoch, "
+          "full width): a run with failures injected at steps 3 and 5, restored from its "
+          "checkpoints, ends bit for bit where a clean run does")
+    import shutil
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    finals = {}
+    for tag, fail_at in (("clean", ()), ("crash", (3, 5))):
+        state, step_fn, batch_fn = train_cli.build_paper_model("mnist_fc", binarize="stoch",
+                                                               device="cuda")
+        trainer = Trainer(TrainerConfig(total_steps=6, checkpoint_dir=str(ckpt_root / tag),
+                                        checkpoint_every=2, log_every=1),
+                          step_fn, batch_fn, state, failure_injector=FailureInjector(fail_at))
+        trainer.run()
+        finals[tag] = trainer
+    a, b = finals["clean"], finals["crash"]
+    if b.recoveries != 2:
+        raise AssertionError(f"expected 2 recoveries, got {b.recoveries}")
+    for (path, x), (_, y) in zip(tree_leaves_with_path(a.state), tree_leaves_with_path(b.state)):
+        if not ((x == y) if isinstance(x, prng.Key) else torch.equal(x, y)):
+            raise AssertionError(f"replay on the card: {path} differs from the clean run")
+    restored = b.ckpt.restore(b._template)
+    for (path, x), (_, y) in zip(tree_leaves_with_path(a.state), tree_leaves_with_path(restored)):
+        if not ((x == y) if isinstance(x, prng.Key) else torch.equal(x, y)):
+            raise AssertionError(f"restored checkpoint: {path} differs from the clean run")
+    clean_loss = {h["step"]: h["loss"] for h in a.history}
+    if any(h["loss"] != clean_loss[h["step"]] for h in b.history):
+        raise AssertionError("a replayed step's loss differs from the clean run's")
+    print(f"  clean 6 steps == crash run (recoveries {b.recoveries}, {len(b.history)} logged "
+          f"steps, replays included) bit for bit, every leaf and every loss; its last "
+          f"checkpoint restores to the same state")
+
+    print("== training CLI: python -m repro_torch.launch.train --arch mnist_fc --binarize "
+          "stoch --steps 50 (full width, the default device)")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_cli.main(["--arch", "mnist_fc", "--binarize", "stoch", "--steps", "50",
+                    "--ckpt-dir", str(ckpt_root)])
+    print(f"  the CLI took {time.perf_counter() - t0:.2f} s in all")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # 7. timing at the path shapes
     print("== timing (kernel_ms: CUDA events around 200 back-to-back wrapper calls, K1 "
@@ -1030,21 +1297,19 @@ def main() -> int:
         return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms)
 
     def k3_fused_row(m, kk):
-        """K3 with the producer prologue, beside the unfused chain it
-        replaces at a fused site (eager bias add, batch norm and sign, then
-        plain K3): the chain's device time and device kernel launches."""
+        """K3 with the producer prologue, beside the unfused route a site
+        takes with it off (bn_sign, then plain K3): the route's device time
+        and device kernel launches."""
         case = k3_cases.bn_inputs(m, kk, m + kk, dev)
-        h, bias, scale, shift, mean, var = case
         ms = time_warm(lambda: bn_sign_pack(*case))
         dev_ms = device_ms(lambda: bn_sign_pack(*case), "sign_pack_kernel")
         plain_ms = time_warm(lambda: bn_sign_pack_plain(*case))
 
         def chain():
-            return sign_pack(deterministic_binarize(
-                batch_norm(h + bias, scale, shift, mean, var)))
+            return sign_pack(bn_sign(*case))
 
         if not torch.equal(chain(), bn_sign_pack(*case)):
-            raise AssertionError(f"K3 fused {m}x{kk}: differs from the unfused chain")
+            raise AssertionError(f"K3 fused {m}x{kk}: differs from the unfused route")
         chain_ms = time_warm(chain)
         chain_kern = profiled(chain, reps=20)
         chain_dev = chain_kern and sum(chain_kern.values())
@@ -1053,10 +1318,36 @@ def main() -> int:
         t_b = nbytes / PEAK_BYTES_PER_S * 1e3
         print(f"  K3 fused (bias + eval BN + sign) {m}x{kk} f32: kernel_ms {ms:.4f}, device_ms "
               f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms none, bound_ms {t_b:.7f} "
-              f"(bytes, {nbytes} B); unfused chain + K3: wall {chain_ms:.4f} ms, device "
+              f"(bytes, {nbytes} B); unfused route (bn_sign + K3): wall {chain_ms:.4f} ms, device "
               f"{fmt(chain_dev)} ms in {fmt_count(chain_n)} device kernel launches")
         return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms), {
             "chain_ms": chain_ms, "chain_device_ms": chain_dev, "chain_launches": chain_n}
+
+    def bn_sign_row(m, kk, eager=False):
+        """bn_sign at one site's (M, K); with ``eager``, also the eager ops the
+        site ran before it (bias add, batch norm, sign; no flush): their
+        device time and device kernel launches."""
+        case = k3_cases.bn_inputs(m, kk, m + kk + 1, dev)
+        ms = time_warm(lambda: bn_sign(*case))
+        dev_ms = device_ms(lambda: bn_sign(*case), "bn_sign_kernel")
+        plain_ms = time_warm(lambda: bn_sign_plain(*case))
+        nbytes = (2 * m * kk + 5 * kk) * 4
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        extra = ""
+        if eager:
+            h, bias, scale, shift, mean, var = case
+
+            def chain():
+                return deterministic_binarize(batch_norm(h + bias, scale, shift, mean, var))
+
+            eager_kern = profiled(chain, reps=20)
+            extra = (f"; the eager ops it replaced: device "
+                     f"{fmt(eager_kern and sum(eager_kern.values()))} ms in "
+                     f"{fmt_count(kernels_per_rep(chain))} device kernel launches")
+        print(f"  bn_sign {m}x{kk} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, plain_ms "
+              f"{plain_ms:.4f} (the flushed chain in torch ops), library_ms none, bound_ms "
+              f"{t_b:.7f} (bytes, {nbytes} B){extra}")
+        return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms)
 
     def k4_row(m, wds, n, kk, scaled, conv=None):
         """``conv``: the NHWC input of a 3x3 SAME conv whose patches the rows
@@ -1117,6 +1408,23 @@ def main() -> int:
                                 total(launches["sign_pack_fused"], arch_mode),
                                 errs["k3_fused"],
                                 [row]), **chain})
+    bn_note = ("no pl.pallas_call: the reference's bias add, batch_norm and binarize, "
+               "separate XLA ops")
+    kernels.append({**entry("bn_sign: bias + eval batch norm + Eq.-1 sign, flushed, unpacked "
+                            "(mnist_fc xnor layers/2-3, 4x2048 f32)", k3_src,
+                            "src/repro/models/mnist_fc.py:60",
+                            total(launches["bn_sign"], mnist_x), errs["bn_sign"],
+                            [bn_sign_row(*MNIST_BN_SIGN[0], eager=True)]),
+                    "replaces_note": bn_note})
+    vgg_bn = [bn_sign_row(m, kk, eager=(i == 0)) for i, (m, kk) in enumerate(VGG_BN_SIGN)]
+    print("  bn_sign device_ms at VGG's 12 sites (conv 1-11, fc/1): "
+          + ", ".join(fmt(r[6]) for r in vgg_bn)
+          + (f"; sum {sum(r[6] for r in vgg_bn):.4f}" if None not in [r[6] for r in vgg_bn]
+             else ""))
+    kernels.append({**entry("bn_sign (vgg16 xnor, the 12 sites of one batch, summed)", k3_src,
+                            "src/repro/models/vgg.py:97", total(launches["bn_sign"], vgg_x),
+                            errs["bn_sign"], vgg_bn),
+                    "replaces_note": bn_note, "device_ms_per_shape": [r[6] for r in vgg_bn]})
     for (arch_mode, kk) in [(mnist_x, 2048), (vgg_x, 512)]:
         kernels.append(entry(f"sign_pack, no prologue (xnor_matmul on a float input; on no "
                              f"path), 4x{kk} f32", k3_src, k3_rep,
@@ -1175,13 +1483,23 @@ def main() -> int:
     print(f"  the 11 layers of one batch: xnor {layer_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms; "
           f"device kernels per xnor conv layer: {per_layer}")
 
+    print("== training summary (steps/s over the steps after the first, device ms per "
+          "step; no bound claimed)")
+    for key_, r in train_ms.items():
+        if key_ == "tf32":
+            continue
+        print(f"  {key_[0]} {key_[1]}: {r['steps_per_s']:.2f} steps/s, wall ms "
+              f"{[round(w, 3) for w in r['wall_ms']]}, device ms {[fmt(d) for d in r['device_ms']]}, "
+              f"device launches {[fmt_count(n) for n in r['launches']]}, binarized weights "
+              f"differing from the CPU's {r['flips']}")
+
     print("== serving summary (ms/batch median, img/s)")
     for (arch, mode), r in serve_ms.items():
         busy = r.get("busy")
         dev = f", device busy {busy:.4f} ms ({100 * busy / r['ms']:.1f}%)" if busy else ""
         launches = "" if r["launches"] is None else f", {r['launches']:g} device launches"
         if "chain_launches" in r:
-            launches += f" (unfused chain: {fmt_count(r['chain_launches'])})"
+            launches += f" (K3's prologue route off: {fmt_count(r['chain_launches'])})"
         print(f"  {arch} {mode}: {r['ms']:.4f} ms/batch, {r['ips']:.1f} img/s{dev}{launches}")
 
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,11 @@ class SyntheticSpec:
     kind: str                 # "mnist" | "cifar"
     batch_size: int
     seed: int = 0
+    n_train: int = 0          # the training set's size, for steps_per_epoch
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(self.n_train // self.batch_size, 1)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -64,3 +69,8 @@ def train_batch(spec: SyntheticSpec, step: int, *, device):
     if spec.kind == "cifar":
         return cifar_like(spec, step, device=device)
     raise ValueError(f"only the mnist and cifar generators are ported, not {spec.kind!r}")
+
+
+def eval_batch(spec: SyntheticSpec, step: int = 10_000_000, *, device):
+    """A held-out batch (a step index far outside the training range)."""
+    return train_batch(spec, step, device=device)

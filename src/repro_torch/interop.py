@@ -7,7 +7,9 @@ leaves. A serving leaf is recognised by its class name (``PackedLinear``,
 ``XnorLinear``, ``XnorConv``, ``PackedConv``), never by its attributes:
 all four have ``packed`` and ``k``, but their word layouts differ. Any
 other class raises. Array bits are kept as they are: int32 packed words
-keep their bit patterns.
+keep their bit patterns. ``from_jax_train_state`` carries a whole train
+state across (``train.steps``'s tree: params, optimizer slots, step, key,
+model state, compression residuals).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.models.layers import PackedConv, PackedLinear, XnorConv, XnorLinear
 
 _LINEAR = {"PackedLinear": PackedLinear, "XnorLinear": XnorLinear}
@@ -43,3 +46,21 @@ def from_jax_tree(tree: Any, *, device="cuda") -> Any:
     if isinstance(tree, numbers.Number) or hasattr(tree, "__array__"):
         return _tensor(tree, device)
     raise TypeError(f"from_jax_tree: unknown leaf class {type(tree).__qualname__!r}")
+
+
+def from_jax_train_state(state: dict, *, device="cuda") -> dict:
+    """A reference train state (``repro.train.steps.init_train_state``'s
+    tree) with numpy leaves, ``key`` given as its ``jax.random.key_data``
+    (uint32, shape (2,)) -> the port's: ``key`` a ``core.prng.Key``,
+    ``step`` an int32 0-d tensor on the CPU, every other leaf a tensor on
+    ``device``."""
+    out = {}
+    for name, sub in state.items():
+        if name == "key":
+            k0, k1 = np.asarray(sub).astype(np.uint32).tolist()
+            out[name] = prng.Key(int(k0), int(k1))
+        elif name == "step":
+            out[name] = torch.tensor(int(np.asarray(sub)), dtype=torch.int32)
+        else:
+            out[name] = from_jax_tree(sub, device=device)
+    return out

@@ -102,6 +102,8 @@ def library() -> ctypes.CDLL:
     lib.bnn_binary_matmul.restype = i32
     lib.bnn_sign_pack.argtypes = [vp] * 6 + [ctypes.c_float, vp, i64, i64, i32, vp]
     lib.bnn_sign_pack.restype = i32
+    lib.bnn_bn_sign.argtypes = [vp] * 6 + [ctypes.c_float, vp, i64, i64, vp]
+    lib.bnn_bn_sign.restype = i32
     lib.bnn_xnor_matmul.argtypes = [vp] * 5 + [i64] * 3 + [i32, vp, vp]
     lib.bnn_xnor_matmul.restype = i32
     lib.bnn_patch_pack.argtypes = [vp, vp] + [i64] * 6 + [i32] * 12 + [vp]

@@ -24,3 +24,13 @@ __device__ __forceinline__ float bnn_to_float(__nv_bfloat16 v) {
 constexpr float kBnnSignMin = 1.17549435082228750797e-38f;  // 2^-126
 
 __device__ __forceinline__ bool bnn_sign(float v) { return v >= kBnnSignMin; }
+
+// The reference's XLA CPU runs with DAZ and FTZ set: every subnormal input
+// and result of an f32 operation reads as a zero of its sign. A chain of
+// float steps that applies bnn_ftz to each input and each result gives the
+// reference's bits; the kernels build without -ftz, so nothing else flushes
+// and K2's and K4's float epilogues keep their subnormals. Python holds the
+// same rule (core/binarize.py: flush_subnormal).
+__device__ __forceinline__ float bnn_ftz(float v) {
+  return fabsf(v) < kBnnSignMin ? copysignf(0.0f, v) : v;
+}

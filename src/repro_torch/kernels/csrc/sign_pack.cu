@@ -6,18 +6,26 @@
 //
 //   y = (((x + bias[n]) - mean[n]) * rsqrt(var[n] + eps)) * scale[n] + shift[n]
 //
+// with every input and every intermediate result flushed as the reference's
+// XLA CPU flushes them (bnn_ftz).
+//
 // Replaces the TPU kernel sign_pack_pallas (src/repro/xnor/kernel.py:
 // _sign_pack_kernel), and with the prologue also the chain before it
 // (src/repro/models/mnist_fc.py: apply_linear's bias add, batch_norm and
 // binarize(h, "det")), which the reference runs as separate XLA ops.
 //
+// bn_sign_kernel is the same prologue and sign without the pack: (M, K) f32
+// in, (M, K) f32 +-1 out, for the sign sites whose consumer reads floats
+// (a dense layer, or K5 in front of an xnor conv). It takes the place of the
+// eager ops of the chain at those sites.
+//
 // Bound on this card: device-memory bytes. Each activation is read once
 // (with the prologue also five f32 vectors of K) and one int32 is written
-// per 32 of them; the compare is free beside the load. At the serving
-// shapes (4 x 2048 f32) that is 33 KB (75 KB with the prologue), so in
-// practice a launch is bound by its latency. The prologue removes the
-// elementwise launches the unfused chain takes before it (11 a site on the
-// H100, PERF.md).
+// per 32 of them (bn_sign: one f32 per activation); the compare is free
+// beside the load. At the serving shapes (4 x 2048 f32) that is 33 KB (75
+// KB with the prologue), so in practice a launch is bound by its latency.
+// The prologue removes the elementwise launches the unfused chain takes
+// before it (11 a site on the H100, PERF.md).
 //
 // Design: one warp per output word. Lane l reads x[m, 32*j + l] (a 128-byte
 // coalesced load for f32), and with the prologue the five vectors at the
@@ -26,15 +34,16 @@
 // the xnor/packing.py layout. Lanes past K vote 0, the same as padding with
 // zeros, so no caller pads. A bf16 value converts to f32 exactly, so
 // comparing the converted value is comparing in bf16. Warps walk the words
-// with a grid stride, so any M fits the grid.
+// with a grid stride, so any M fits the grid. bn_sign_kernel: one thread per
+// activation, grid stride, the column from a 32-bit index where M * K fits.
 //
-// The prologue must give the bits the unfused torch chain gives on the
-// card, so every step is one correctly rounded f32 operation in the chain's
-// order: __fadd_rn / __fsub_rn / __fmul_rn keep nvcc from contracting a
-// multiply and an add into one FMA, and rsqrtf is held equal to torch.rsqrt
-// over every positive finite f32 (xnor/cases.py: rsqrt_sweep). The
-// prologue takes f32 activations only: in bf16 the chain rounds twice more,
-// and the wrapper refuses bf16.
+// The prologue must give the reference's bits, so every step is one
+// correctly rounded f32 operation in the chain's order, flushed after:
+// __fadd_rn / __fsub_rn / __fmul_rn keep nvcc from contracting a multiply
+// and an add into one FMA, and rsqrtf is held equal to torch.rsqrt over
+// every positive normal f32 (xnor/cases.py: rsqrt_sweep; a subnormal
+// var + eps is flushed before it). The prologue takes f32 activations only:
+// in bf16 the chain rounds twice more, and the wrappers refuse bf16.
 #include "common.cuh"
 
 namespace {
@@ -52,10 +61,14 @@ struct Prologue {
   float eps;
 };
 
+// The chain's steps in its order, each input and each result flushed.
 __device__ __forceinline__ float bn_eval(float v, const Prologue& p, int64_t n) {
-  const float inv_std = rsqrtf(__fadd_rn(p.var[n], p.eps));
-  const float y = __fmul_rn(__fsub_rn(__fadd_rn(v, p.bias[n]), p.mean[n]), inv_std);
-  return __fadd_rn(__fmul_rn(y, p.scale[n]), p.shift[n]);
+  const float inv_std = rsqrtf(bnn_ftz(__fadd_rn(bnn_ftz(p.var[n]), p.eps)));
+  const float t = bnn_ftz(__fadd_rn(bnn_ftz(v), bnn_ftz(p.bias[n])));
+  const float c = bnn_ftz(__fsub_rn(t, bnn_ftz(p.mean[n])));
+  const float y = bnn_ftz(__fmul_rn(c, inv_std));
+  const float z = bnn_ftz(__fmul_rn(y, bnn_ftz(p.scale[n])));
+  return bnn_ftz(__fadd_rn(z, bnn_ftz(p.shift[n])));
 }
 
 template <typename T, bool kBN>
@@ -90,6 +103,16 @@ void launch(const void* x, const Prologue& bn, int32_t* out, int64_t M, int64_t 
                                                      M, K, k32);
 }
 
+template <typename I>
+__global__ void __launch_bounds__(kThreads)
+bn_sign_kernel(const float* __restrict__ x, const Prologue bn, float* __restrict__ out,
+               I total, I K) {
+  const I stride = static_cast<I>(gridDim.x) * kThreads;
+  for (I i = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x; i < total; i += stride) {
+    out[i] = bnn_sign(bn_eval(x[i], bn, static_cast<int64_t>(i % K))) ? 1.0f : -1.0f;
+  }
+}
+
 }  // namespace
 
 // x: (M, K) f32 or bf16 (dtype: BnnDtype), row-major and contiguous;
@@ -111,6 +134,31 @@ extern "C" int bnn_sign_pack(const void* x, const void* bias, const void* scale,
     launch<__nv_bfloat16, false>(x, bn, op, M, K, s);
   } else {
     launch<float, false>(x, bn, op, M, K, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x and out: (M, K) f32, row-major and contiguous; out[m, n] = +1 if
+// bnn_sign(y[m, n]) else -1, y the flushed prologue above. M >= 1, K >= 1;
+// bias, scale, shift, mean and var: (K,) f32, none null.
+extern "C" int bnn_bn_sign(const void* x, const void* bias, const void* scale,
+                           const void* shift, const void* mean, const void* var, float eps,
+                           void* out, int64_t M, int64_t K, void* stream) {
+  if (!bias || !scale || !shift || !mean || !var) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Prologue bn{static_cast<const float*>(bias), static_cast<const float*>(scale),
+                    static_cast<const float*>(shift), static_cast<const float*>(mean),
+                    static_cast<const float*>(var), eps};
+  const int64_t total = M * K;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  const unsigned grid = static_cast<unsigned>(blocks < (1 << 20) ? blocks : (1 << 20));
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  if (total < (int64_t{1} << 32) - int64_t{grid} * kThreads) {
+    bn_sign_kernel<uint32_t><<<grid, kThreads, 0, s>>>(xp, bn, op, static_cast<uint32_t>(total),
+                                                       static_cast<uint32_t>(K));
+  } else {
+    bn_sign_kernel<int64_t><<<grid, kThreads, 0, s>>>(xp, bn, op, total, K);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """Base layers: linear and conv application (dense, bitpacked binary, or
-fully binary), eval-mode batch norm and the He initializer.
+fully binary), batch norm (eval and training mode), the fused batch-norm
+sign of the fully-binary path, and the He initializer.
 
 Models are binarization-agnostic: the serving path substitutes serving
 leaves (:class:`PackedLinear`, :class:`XnorLinear`, :class:`XnorConv`,
@@ -148,6 +149,18 @@ def bn_sign_words(x: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
     return SignWords(xops.bn_sign_and_pack(x, bias, scale, shift, mean, var), x.shape[-1])
 
 
+def bn_sign(x: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+            mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """The Eq.-1 sign (+-1 f32) of ``batch_norm(x + bias, scale, shift, mean,
+    var)``, in x's shape (batch norm over the last axis): one kernel
+    computes the bias, the batch norm and the sign, with the reference's
+    flushes (``xnor.kernel.bn_sign_plain``). The sign sites whose consumer
+    reads floats take it."""
+    from repro_torch.xnor import ops as xops
+
+    return xops.bn_sign(x, bias, scale, shift, mean, var)
+
+
 def apply_linear(w, x, bias: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w (+ bias); the leaf type of ``w`` selects its backend. ``x`` is a
     tensor, or :class:`SignWords` where ``takes_sign_words(w)`` holds."""
@@ -206,8 +219,36 @@ def he_normal(generator: torch.Generator, shape, *, device,
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               mean: torch.Tensor, var: torch.Tensor, *, eps: float = BN_EPS) -> torch.Tensor:
-    """Eval-mode batch norm over the last axis with running stats, in f32."""
+               mean: torch.Tensor, var: torch.Tensor, *, training: bool = False,
+               momentum: float = 0.9, eps: float = BN_EPS, axes=(0,)):
+    """Batch norm over the last axis, in f32.
+
+    Eval mode (the default) normalises with the running stats and returns
+    y. Training mode normalises with the batch mean and population variance
+    over ``axes`` (gradients flow through both) and returns
+    ``(y, new_mean, new_var)``, the running stats moved by ``momentum`` as
+    the reference moves them; no gradient flows into the new stats."""
     x32 = x.to(torch.float32)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(x.dtype)
+    if not training:
+        y = (x32 - mean) * torch.rsqrt(var + eps)
+        return (y * scale + bias).to(x.dtype)
+    mu = x32.mean(dim=axes)
+    va = x32.var(dim=axes, correction=0)
+    with torch.no_grad():
+        new_mean = momentum * mean + (1.0 - momentum) * mu
+        new_var = momentum * var + (1.0 - momentum) * va
+    y = (x32 - mu) * torch.rsqrt(va + eps)
+    return (y * scale + bias).to(x.dtype), new_mean, new_var
+
+
+def layer_batch_norm(x: torch.Tensor, lp: dict, ls: dict, *, training: bool,
+                     new_state: list, axes=(0,)) -> torch.Tensor:
+    """A model layer's batch norm: its ``bn_scale`` and ``bn_bias`` params
+    (``lp``) and its running ``mean`` and ``var`` (``ls``); in training mode
+    the moved stats are appended to ``new_state``."""
+    if not training:
+        return batch_norm(x, lp["bn_scale"], lp["bn_bias"], ls["mean"], ls["var"])
+    x, m, v = batch_norm(x, lp["bn_scale"], lp["bn_bias"], ls["mean"], ls["var"],
+                         training=True, axes=axes)
+    new_state.append({"mean": m, "var": v})
+    return x

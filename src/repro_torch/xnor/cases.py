@@ -1,8 +1,9 @@
-"""Inputs that hold K3's producer prologue (``kernel.bn_sign_pack``) to the
-unfused chain it replaces, the sweep that holds its rsqrt to
-``torch.rsqrt``, and the values on either side of Eq. 1's threshold
-(``core.binarize.SIGN_MIN``) that every sign site is held to; shared by the
-port's tests and ``chip_smoke.py``.
+"""Inputs that hold K3's producer prologue (``kernel.bn_sign_pack``) and
+``kernel.bn_sign`` to their plain chain, the sweep that holds the
+prologue's rsqrt to ``torch.rsqrt``, the values on either side of Eq. 1's
+threshold (``core.binarize.SIGN_MIN``) that every sign site is held to, and
+a subnormal planted at each step the chain flushes; shared by the port's
+tests and ``chip_smoke.py``.
 
 A case is ``(h, bias, bn_scale, bn_bias, mean, var)``: (M, K) f32
 activations and five (K,) f32 vectors, in ``bn_sign_pack``'s order.
@@ -42,6 +43,49 @@ SIGN_PLANTS = {
                      (0x807F, 0), (0x0080, 1), (0x0081, 1), (0x8080, 0), (0x0000, 0),
                      (0x8000, 0), (0x7FC0, 0)],
 }
+
+
+_F32_EPS = np.float32(BN_EPS)
+VAR_ONE = float(np.float32(1) - _F32_EPS)                        # var + eps == 1
+VAR_2M40 = float(np.nextafter(-_F32_EPS, np.float32(0)))          # var + eps == 2^-40
+
+# A subnormal at each step of the flushed chain (``kernel.bn_sign_plain``):
+# the six inputs, then x + bias, - mean, var + eps, * inv_std, * scale and
+# + shift. Each row: (step, h, bias, bn_scale, bn_bias, mean, var, eps, the
+# reference's sign bit). Every value and every unflushed intermediate is
+# exact in f32, and where the sign depends on the flush the chain without
+# it signs the other way (the subnormal result of + shift signs -1 either
+# way, the result of - mean is the ROADMAP's smallest case). With eps = 0
+# a subnormal var is also a subnormal var + eps: with eps = 1e-5, var + eps
+# is a multiple of 2^-41 and cannot be subnormal.
+FLUSH_PLANTS = [
+    ("h", 2.0 ** -135, 0.0, 1.0, 0.0, 0.0, VAR_2M40, BN_EPS, 0),
+    ("bias", 0.0, 2.0 ** -135, 1.0, 0.0, 0.0, VAR_2M40, BN_EPS, 0),
+    ("x + bias", 2.0 ** -125, -31 * 2.0 ** -130, 1.0, 0.0, 0.0, VAR_2M40, BN_EPS, 0),
+    ("mean", 0.0, 0.0, 1.0, 0.0, -(2.0 ** -135), VAR_2M40, BN_EPS, 0),
+    ("- mean", 2.0 ** -125, 0.0, 2.0 ** 20, 0.0, 31 * 2.0 ** -130, VAR_ONE, BN_EPS, 0),
+    ("var, var + eps", 0.0, 0.0, 1.0, 2.0 ** -100, 0.0, 2.0 ** -140, 0.0, 0),
+    ("* inv_std", 2.0 ** -65, 0.0, 2.0 ** 20, 0.0, 0.0, 2.0 ** 126, BN_EPS, 0),
+    ("bn_scale", 2.0 ** 30, 0.0, 2.0 ** -140, 0.0, 0.0, VAR_ONE, BN_EPS, 0),
+    ("* bn_scale", 0.5, 0.0, -(2.0 ** -126), 2.0 ** -126, 0.0, VAR_ONE, BN_EPS, 1),
+    ("bn_bias", 1.0, 0.0, 2.0 ** -126, -(2.0 ** -127), 0.0, VAR_ONE, BN_EPS, 1),
+    ("+ bn_bias", 1.0, 0.0, 2.0 ** -125, -31 * 2.0 ** -130, 0.0, VAR_ONE, BN_EPS, 0),
+]
+
+
+def flush_cases(m: int, device, reps: int = 5) -> list[tuple[float, tuple, torch.Tensor]]:
+    """``(eps, case, bits)`` for each eps of :data:`FLUSH_PLANTS`: a case of
+    M rows whose columns are that eps's plants, repeated ``reps`` times
+    (so K is ragged for reps = 5), and the 0/1 bit each column signs to."""
+    out = []
+    for eps in sorted({p[7] for p in FLUSH_PLANTS}):
+        rows = [p for p in FLUSH_PLANTS if p[7] == eps] * reps
+        cols = list(zip(*(p[1:7] for p in rows)))
+        h = torch.tensor(cols[0], dtype=torch.float32).expand(m, -1).contiguous()
+        vecs = [torch.tensor(c, dtype=torch.float32) for c in cols[1:]]
+        bits = torch.tensor([p[8] for p in rows], dtype=torch.int64)
+        out.append((eps, tuple(t.to(device) for t in (h, *vecs)), bits))
+    return out
 
 
 def sign_plants(dtype) -> tuple[torch.Tensor, torch.Tensor]:
@@ -150,7 +194,9 @@ def plant_near_zero(case: tuple[torch.Tensor, ...],
 
 def rsqrt_sweep(device, chunk: int = 1 << 27) -> int:
     """Holds the prologue's ``rsqrt(var + eps)`` equal to ``torch.rsqrt(var)``
-    on ``device`` for every positive finite f32 ``var`` (eps = 0), through
+    on ``device`` for every positive normal f32 ``var`` (eps = 0; the
+    prologue flushes a subnormal var + eps to 0 first, as the reference
+    does, so its rsqrt never sees one), through
     ``bn_sign_pack`` itself, ``chunk`` values a launch: with h = 1, bias =
     mean = 0, scale = s and shift = -s * torch.rsqrt(var), y is
     s * (kernel's rsqrt - torch's), exactly, so a bit is set where the two
@@ -159,11 +205,11 @@ def rsqrt_sweep(device, chunk: int = 1 << 27) -> int:
     number of values checked; raises where they differ."""
     from repro_torch.xnor.kernel import bn_sign_pack
 
-    end = 0x7F800000                   # bit patterns 1 .. 0x7F7FFFFF: positive finite
+    first, end = 0x00800000, 0x7F800000   # 2^-126 .. the largest finite f32
     checked = 0
     ones = torch.ones((1, chunk), device=device)
     zeros = torch.zeros(chunk, device=device)
-    for start in range(1, end, chunk):
+    for start in range(first, end, chunk):
         n = min(chunk, end - start)
         var = torch.arange(start, start + n, dtype=torch.int32, device=device).view(
             torch.float32)
@@ -172,12 +218,12 @@ def rsqrt_sweep(device, chunk: int = 1 << 27) -> int:
             words = bn_sign_pack(ones[:, :n], zeros[:n], torch.full_like(r, s), -s * r,
                                  zeros[:n], var, eps=0.0)
             if bool(words.any()):
-                first = start + int(torch.nonzero(
+                where = start + int(torch.nonzero(
                     torch.repeat_interleave(words[0] != 0, 32)[:n])[0])
                 raise AssertionError(
                     f"rsqrt sweep: the kernel's rsqrt differs from torch.rsqrt near "
-                    f"bit pattern {first:#x} ({'above' if s > 0 else 'below'})")
-        if start == 1:
+                    f"bit pattern {where:#x} ({'above' if s > 0 else 'below'})")
+        if start == first:
             below = torch.nextafter(r[:4096], zeros[:4096])
             ctrl = bn_sign_pack(ones[:, :4096], zeros[:4096], ones[0, :4096], -below,
                                 zeros[:4096], var[:4096], eps=0.0)

@@ -5,8 +5,10 @@ XNOR-popcount matmul over packed operands.
   (``csrc/sign_pack.cu``).
 * ``bn_sign_pack(h, bias, bn_scale, bn_bias, mean, var)``: the same words
   for y = eval batch_norm(h + bias), with the bias, the batch norm and the
-  sign computed in K3's load (its producer prologue), f32 only: the bits
-  equal the unfused chain's (``bn_sign_pack_plain``).
+  sign computed in K3's load (its producer prologue), f32 only.
+* ``bn_sign(h, bias, bn_scale, bn_bias, mean, var)``: the same prologue and
+  sign as +-1 f32 of h's shape, unpacked (``bn_sign_kernel`` in
+  ``csrc/sign_pack.cu``), for the sign sites whose consumer reads floats.
 * ``xnor_matmul(a, w, scale, k_total=k, border=None)``: a (M, W) int32 x
   w (W, N) int32 -> ``k - 2 * popcount(a XOR w)`` as int32, or
   f32(dot) * scale (``csrc/xnor_matmul.cu``). W is taken as given: surplus
@@ -15,10 +17,16 @@ XNOR-popcount matmul over packed operands.
   the zero-padding border correction before the scale, so the conv path
   needs no further op.
 
+``bn_sign_pack`` and ``bn_sign`` give the bits of ``bn_sign_plain``, the
+reference's chain (bias add, eval batch norm, Eq.-1 sign) with every input
+and intermediate result flushed to zero where subnormal, as the reference's
+XLA CPU flushes them.
+
 A CPU tensor runs the plain version in ``xnor.ref``; a CUDA tensor launches
 the kernel or raises. ``sign_pack.launches`` and ``xnor_matmul.launches``
 count kernel launches; ``sign_pack.launches`` counts K3 with and without
-its prologue, and ``sign_pack.launches_fused`` those with it among them.
+its prologue, and ``sign_pack.launches_fused`` those with it among them;
+``bn_sign.launches`` counts ``bn_sign_kernel``.
 """
 from __future__ import annotations
 
@@ -28,10 +36,10 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.binarize import deterministic_binarize
+from repro_torch.core.binarize import deterministic_binarize, flush_subnormal
 from repro_torch.core.packing import PACK
 from repro_torch.kernels import _build
-from repro_torch.models.layers import BN_EPS, batch_norm
+from repro_torch.models.layers import BN_EPS
 from repro_torch.xnor import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,36 +115,56 @@ sign_pack.launches = 0
 sign_pack.launches_fused = 0   # the launches with the producer prologue among them
 
 
+def bn_sign_plain(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
+                  bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
+                  eps: float = BN_EPS) -> torch.Tensor:
+    """+-1 f32 of h's shape: the Eq.-1 sign of ``(((h + bias) - mean) *
+    rsqrt(var + eps)) * bn_scale + bn_bias``, one f32 step at a time in the
+    reference's order, with the six inputs and every step's result flushed
+    (``flush_subnormal``), as the reference's XLA CPU computes the chain."""
+    f = flush_subnormal
+    inv_std = torch.rsqrt(f(f(var) + eps))
+    y = f(f(f(h) + f(bias)) - f(mean))
+    y = f(f(y * inv_std) * f(bn_scale))
+    return deterministic_binarize(f(y + f(bn_bias)))
+
+
 def bn_sign_pack_plain(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
                        bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
                        eps: float = BN_EPS) -> torch.Tensor:
-    """The plain torch version of :func:`bn_sign_pack`, on any device: the
-    unfused chain the models run (bias add, eval batch norm, Eq.-1 sign),
-    then :func:`sign_pack_plain`."""
-    y = batch_norm(h + bias.to(h.dtype), bn_scale, bn_bias, mean, var, eps=eps)
-    return sign_pack_plain(deterministic_binarize(y))
+    """The plain torch version of :func:`bn_sign_pack`, on any device:
+    :func:`bn_sign_plain`, then :func:`sign_pack_plain`."""
+    return sign_pack_plain(bn_sign_plain(h, bias, bn_scale, bn_bias, mean, var, eps=eps))
+
+
+def _bn_checked(name: str, h: torch.Tensor, vecs) -> str:
+    """The device rule of the prologue wrappers, after their checks: (M, K)
+    f32 activations and five (K,) f32 vectors; bf16 raises ``TypeError``
+    (the unfused chain rounds the bias add and the batch norm's output to
+    bf16, and the prologue does not)."""
+    if h.ndim != 2 or h.shape[1] == 0:
+        raise ValueError(f"h must be an (M, K) matrix with K >= 1, got {tuple(h.shape)}")
+    if h.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 activations, got {h.dtype}")
+    k = h.shape[1]
+    for v in vecs:
+        if v.shape != (k,) or v.dtype != torch.float32:
+            raise ValueError(f"bias, bn_scale, bn_bias, mean and var must be float32 of "
+                             f"shape ({k},), got {v.dtype} {tuple(v.shape)}")
+    return _build.kernel_device(name, [h, *vecs])
 
 
 def bn_sign_pack(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
                  bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
                  eps: float = BN_EPS) -> torch.Tensor:
     """(M, K) f32 -> (M, ceil(K/32)) int32: the Eq.-1 signs of
-    ``batch_norm(h + bias, bn_scale, bn_bias, mean, var)``, packed along the
-    last axis; the five vectors are (K,) f32. bf16 raises ``TypeError``: the
-    unfused chain rounds the bias add and the batch norm's output to bf16,
-    and the kernel's prologue does not."""
-    if h.ndim != 2 or h.shape[1] == 0:
-        raise ValueError(f"h must be an (M, K) matrix with K >= 1, got {tuple(h.shape)}")
-    if h.dtype != torch.float32:
-        raise TypeError(f"bn_sign_pack takes float32 activations, got {h.dtype}")
-    m, k = h.shape
+    ``batch_norm(h + bias, bn_scale, bn_bias, mean, var)``, flushed as
+    :func:`bn_sign_plain`, packed along the last axis; the five vectors are
+    (K,) f32. bf16 raises ``TypeError``."""
     vecs = (bias, bn_scale, bn_bias, mean, var)
-    for v in vecs:
-        if v.shape != (k,) or v.dtype != torch.float32:
-            raise ValueError(f"bias, bn_scale, bn_bias, mean and var must be float32 of "
-                             f"shape ({k},), got {v.dtype} {tuple(v.shape)}")
-    if _build.kernel_device("sign_pack", [h, *vecs]) == "cpu":
+    if _bn_checked("bn_sign_pack", h, vecs) == "cpu":
         return bn_sign_pack_plain(h, *vecs, eps=eps)
+    m, k = h.shape
     out = torch.empty((m, (k + PACK - 1) // PACK), dtype=torch.int32, device=h.device)
     if m == 0:
         return out
@@ -147,6 +175,29 @@ def bn_sign_pack(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
     sign_pack.launches += 1
     sign_pack.launches_fused += 1
     return out
+
+
+def bn_sign(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
+            bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
+            eps: float = BN_EPS) -> torch.Tensor:
+    """(M, K) f32 -> (M, K) f32 +-1: the signs :func:`bn_sign_pack` packs,
+    unpacked; the five vectors are (K,) f32. bf16 raises ``TypeError``."""
+    vecs = (bias, bn_scale, bn_bias, mean, var)
+    if _bn_checked("bn_sign", h, vecs) == "cpu":
+        return bn_sign_plain(h, *vecs, eps=eps)
+    m, k = h.shape
+    out = torch.empty((m, k), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return out
+    code = _build.library().bnn_bn_sign(
+        h.data_ptr(), *(v.data_ptr() for v in vecs), eps, out.data_ptr(), m, k,
+        _build.stream(h.device))
+    _build.check(code, "bn_sign")
+    bn_sign.launches += 1
+    return out
+
+
+bn_sign.launches = 0
 
 
 def xnor_matmul_plain(a_packed: torch.Tensor, w_packed: torch.Tensor,

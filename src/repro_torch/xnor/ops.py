@@ -1,5 +1,5 @@
-"""Public wrappers around K3 (with and without its batch-norm prologue)
-and K4: leading-dim flattening and the word-count checks of the
+"""Public wrappers around K3 (with and without its batch-norm prologue),
+the unpacked prologue-and-sign kernel, and K4: leading-dim flattening and the word-count checks of the
 reference's ``xnor/ops.py``.
 
 Unlike the reference, nothing here pads to blocks or cuts tiny shapes over
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.packing import PACK
 from repro_torch.xnor.kernel import ConvBorder
+from repro_torch.xnor.kernel import bn_sign as _bn_sign
 from repro_torch.xnor.kernel import bn_sign_pack as _bn_sign_pack
 from repro_torch.xnor.kernel import sign_pack as _sign_pack
 from repro_torch.xnor.kernel import xnor_matmul as _xnor_matmul
@@ -33,6 +34,16 @@ def bn_sign_and_pack(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor
     out = _bn_sign_pack(h.reshape(-1, k).contiguous(),
                         *(v.contiguous() for v in (bias, bn_scale, bn_bias, mean, var)))
     return out.reshape(*lead, out.shape[-1])
+
+
+def bn_sign(h: torch.Tensor, bias: torch.Tensor, bn_scale: torch.Tensor,
+            bn_bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """Eq.-1 sign (+-1 f32) of eval ``batch_norm(h + bias, ...)`` in one
+    launch: ``(..., K) -> (..., K)``; the vectors are (K,)."""
+    *lead, k = h.shape
+    out = _bn_sign(h.reshape(-1, k).contiguous(),
+                   *(v.contiguous() for v in (bias, bn_scale, bn_bias, mean, var)))
+    return out.reshape(*lead, k)
 
 
 def xnor_matmul_packed(a_packed: torch.Tensor, w_packed: torch.Tensor,

@@ -2,8 +2,9 @@
 eval batch norm and Eq.-1 sign folded into K3's load) and for the route that
 sends it sign words.
 
-The plain version is exactly the unfused chain, so on the same numpy inputs
-its words equal, bit for bit, the reference's chain: ``batch_norm`` (eval),
+The plain version is the chain flushed where the reference's XLA CPU
+flushes (``bn_sign_plain``), so on the same numpy inputs its words equal,
+bit for bit, the reference's chain: ``batch_norm`` (eval),
 ``binarize(., "det")``, then ``sign_and_pack`` (the Pallas kernel in
 interpret mode, or its plain reference for tiny shapes, as the reference's
 own tests run it on the CPU). Logits through the fused route hold the
@@ -36,7 +37,7 @@ from repro_torch.engine import registry
 from repro_torch.interop import from_jax_tree
 from repro_torch.models import mnist_fc, vgg
 from repro_torch.models.layers import (PackedLinear, SignWords, XnorLinear, apply_linear,
-                                       batch_norm, bn_sign_words, takes_sign_words)
+                                       batch_norm, bn_sign, bn_sign_words, takes_sign_words)
 from repro_torch.xnor import cases
 from repro_torch.xnor import ops as xops
 from repro_torch.core.packing import unpack_bits
@@ -90,16 +91,16 @@ def test_a_subnormal_bn_output_is_where_the_reference_flushes():
 
 
 def test_a_subnormal_bn_intermediate_is_where_the_reference_flushes():
-    """The open residual (ROADMAP, queue 3): h + bias - mean = 2^-130 is
-    subnormal, and times inv_std = 1 and scale = 2^20 gives y = 2^-110, a
-    normal positive. The port's eager chain keeps the intermediate and
-    signs +1; the reference's XLA CPU flushes it to 0 and signs -1."""
+    """The smallest case of the fault once open in ROADMAP queue 3: h + bias
+    - mean = 2^-130 is subnormal, and times inv_std = 1 and scale = 2^20
+    gives y = 2^-110, a normal positive. The reference's XLA CPU flushes the
+    intermediate to 0 and signs -1; the port's chain flushes it too."""
     f32 = np.float32
     var = f32(1) - f32(1e-5)                          # var + eps == 1.0 in f32
     case = tuple(torch.tensor(a, dtype=torch.float32) for a in (
         [[2.0 ** -125]], [0.0], [2.0 ** 20], [0.0], [31 * 2.0 ** -130], [var]))
     assert float(case[0][0, 0] - case[4][0]) == 2.0 ** -130
-    assert bn_sign_pack_plain(*case).tolist() == [[1]]
+    assert bn_sign_pack_plain(*case).tolist() == [[0]]
     assert _jax_chain_words(case).tolist() == [[0]]
 
 
@@ -152,11 +153,13 @@ def test_eq1_threshold_at_the_fused_sites_matches_reference(m, k):
 @pytest.mark.parametrize("m,k", cases.FUSED_SHAPES)
 def test_wrapper_on_cpu_is_the_plain_chain(m, k):
     """On the CPU the wrapper runs the plain version, launches nothing and
-    equals the model's unfused ops, near-zero plants included."""
+    equals the model's unfused ops (``bn_sign``, then K3), and here, with no
+    subnormal intermediate, the eager chain, near-zero plants included."""
     case = cases.plant_near_zero(cases.bn_inputs(m, k, m + k, "cpu"))
     before = (sign_pack.launches, sign_pack.launches_fused)
     got = bn_sign_pack(*case)
     h, bias, scale, shift, mean, var = case
+    assert torch.equal(got, sign_pack(bn_sign(*case)))
     want = sign_pack(deterministic_binarize(batch_norm(h + bias, scale, shift, mean, var)))
     assert torch.equal(got, want)
     assert (sign_pack.launches, sign_pack.launches_fused) == before
@@ -166,7 +169,7 @@ def test_wrapper_on_cpu_is_the_plain_chain(m, k):
 
 def test_sign_words_feed_the_xnor_leaf_like_the_chain():
     """An XnorLinear fed the fused SignWords gives the logits it gives the
-    +-1 activation of the unfused chain, bit for bit."""
+    +-1 activation of the unfused site (``bn_sign``), bit for bit."""
     h, bias, scale, shift, mean, var = cases.bn_inputs(4, 100, 9, "cpu")
     rng = np.random.default_rng(10)
     leaf = XnorLinear(torch.from_numpy(rng.integers(-2**31, 2**31, (4, 24), dtype=np.int64)
@@ -174,7 +177,7 @@ def test_sign_words_feed_the_xnor_leaf_like_the_chain():
                       torch.from_numpy(rng.uniform(0.5, 2.0, 24).astype(np.float32)), 100)
     sw = bn_sign_words(h, bias, scale, shift, mean, var)
     assert isinstance(sw, SignWords) and sw.k == 100
-    chain = deterministic_binarize(batch_norm(h + bias, scale, shift, mean, var))
+    chain = bn_sign(h, bias, scale, shift, mean, var)
     assert torch.equal(apply_linear(leaf, sw), apply_linear(leaf, chain))
     with pytest.raises(ValueError, match="k=100"):
         apply_linear(XnorLinear(leaf.packed, leaf.scale, 99), sw)
@@ -189,20 +192,21 @@ def test_only_the_xnor_backend_takes_sign_words():
 
 
 def _count_routes(monkeypatch, module):
-    """Counts the model's fused sites and its unfused sign activations."""
+    """Counts the model's fused sites and its unfused (``bn_sign``) sign
+    activations."""
     seen = {"fused": 0, "chain": 0}
-    fused, chain = module.bn_sign_words, module.deterministic_binarize
+    fused, chain = module.bn_sign_words, module.bn_sign
 
     def count_fused(*a):
         seen["fused"] += 1
         return fused(*a)
 
-    def count_chain(x):
+    def count_chain(*a):
         seen["chain"] += 1
-        return chain(x)
+        return chain(*a)
 
     monkeypatch.setattr(module, "bn_sign_words", count_fused)
-    monkeypatch.setattr(module, "deterministic_binarize", count_chain)
+    monkeypatch.setattr(module, "bn_sign", count_chain)
     return seen
 
 

@@ -30,8 +30,9 @@ from repro_torch.xnor.conv import cases as k5_cases
 from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
 from repro_torch.xnor.conv.ops import xnor_conv2d
 from repro_torch.xnor.conv.packing import pack_conv_kernel
-from repro_torch.xnor.kernel import (ConvBorder, bn_sign_pack, bn_sign_pack_plain, sign_pack,
-                                     sign_pack_plain, xnor_matmul, xnor_matmul_plain)
+from repro_torch.xnor.kernel import (ConvBorder, bn_sign, bn_sign_pack, bn_sign_pack_plain,
+                                     bn_sign_plain, sign_pack, sign_pack_plain, xnor_matmul,
+                                     xnor_matmul_plain)
 from repro_torch.xnor.packing import unpack_activations
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)   # only the order of the f32 sum differs
@@ -263,8 +264,9 @@ def test_k3_with_prologue_matches_its_plain_chain(cuda, m, k):
 
 @pytest.mark.cuda
 def test_k3_prologue_rsqrt_equals_torch_rsqrt(cuda):
-    """The prologue's rsqrt equals torch.rsqrt on every positive finite f32."""
-    assert k3_cases.rsqrt_sweep(cuda) == 0x7F800000 - 1
+    """The prologue's rsqrt equals torch.rsqrt on every positive normal f32
+    (a subnormal var + eps is flushed before it)."""
+    assert k3_cases.rsqrt_sweep(cuda) == 0x7F800000 - 0x00800000
 
 
 @pytest.mark.cuda
@@ -386,15 +388,17 @@ def test_dense_conv_stays_full_f32(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,mode,per_batch,packs", [
-    ("mnist_fc", "xnor", {"sign_pack": 1, "xnor_matmul": 1}, 1),   # one hidden xnor layer
+    # one hidden xnor layer: its input site fused, its output site on bn_sign
+    ("mnist_fc", "xnor", {"sign_pack": 1, "xnor_matmul": 1, "bn_sign": 1}, 1),
     ("vgg16_cifar10", "det", {"binary_matmul": 1}, 1),
     ("vgg16_cifar10", "stoch", {"binary_matmul": 1}, 13),
-    ("vgg16_cifar10", "xnor", {"sign_pack": 1, "xnor_matmul": 12, "patch_pack": 11}, 12),
+    ("vgg16_cifar10", "xnor", {"sign_pack": 1, "xnor_matmul": 12, "patch_pack": 11,
+                               "bn_sign": 12}, 12),
 ])
 def test_new_serves_run_the_kernels(cuda, arch, mode, per_batch, packs):
     counters = {"binarize_pack": binarize_pack, "binary_matmul": binary_matmul,
                 "sign_pack": sign_pack, "xnor_matmul": xnor_matmul,
-                "patch_pack": patch_pack}
+                "patch_pack": patch_pack, "bn_sign": bn_sign}
     for fn in counters.values():
         fn.launches = 0
     res = serve.serve_classifier(arch=arch, binarize=mode, slots=4, requests=8,
@@ -662,3 +666,159 @@ def test_ensemble_k1_is_the_single_sample_serve_on_the_card(cuda, arch):
                                 ensemble=3)
     assert k3.replicas.k == 3 and len(k3.agreement) == 8
     assert torch.isfinite(k3.last_logits).all()
+
+
+# ---------------------------------------------------------------------------
+# bn_sign, the flushed prologue, and Alg.-1 training on the card
+# ---------------------------------------------------------------------------
+
+# (M, K) of the sign sites bn_sign serves: mnist_fc's 2->3, VGG's conv 1-11
+# outputs and fc/1 at batch 4; ragged K; and M * K past 2^24 threads' grid
+BN_SIGN_SHAPES = [(4, 2048), (4096, 64), (1024, 128), (256, 256), (64, 512), (16, 512),
+                  (4, 512), (7, 100), (3, 31), (70000, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", BN_SIGN_SHAPES)
+def test_bn_sign_matches_its_plain_version(cuda, m, k):
+    """+-1 of the flushed chain on the card equals its plain version on the
+    card, planted BN outputs included; one launch, counted."""
+    case = k3_cases.plant_near_zero(k3_cases.bn_inputs(m, k, m + k, cuda))
+    before = bn_sign.launches
+    got = bn_sign(*case)
+    assert bn_sign.launches == before + 1
+    assert got.shape == (m, k) and got.dtype == torch.float32
+    assert torch.equal(got, bn_sign_plain(*case))
+    assert torch.equal(sign_pack(got), bn_sign_pack(*case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5])
+def test_flushed_steps_on_the_card(cuda, m):
+    """A subnormal at each flushed step (``xnor.cases.FLUSH_PLANTS``):
+    bn_sign and fused K3 give the plain chain's bits on the CPU and the
+    planted bits (the reference's)."""
+    for eps, case, bits in k3_cases.flush_cases(m, "cpu"):
+        on_card = tuple(t.to(cuda) for t in case)
+        got = bn_sign(*on_card, eps=eps).cpu()
+        assert torch.equal(got, bn_sign_plain(*case, eps=eps))
+        assert torch.equal((got > 0).long(), bits.expand(m, -1))
+        assert torch.equal(bn_sign_pack(*on_card, eps=eps).cpu(),
+                           bn_sign_pack_plain(*case, eps=eps))
+
+
+@pytest.mark.cuda
+def test_bn_sign_refuses_bf16_on_the_card(cuda):
+    h, *vecs = k3_cases.bn_inputs(4, 64, 0, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bn_sign(h.to(torch.bfloat16), *vecs)
+
+
+def _tree_close(got, want, tol):
+    want = list(tree_leaves_with_path(want))
+    scale = max(float(t.abs().max()) for _, t in want)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(got), want):
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=tol, atol=tol * scale,
+                                   msg=lambda m, p=path: f"{p}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "stoch"])
+def test_mnist_train_step_on_the_card_matches_the_cpu(cuda, mode):
+    """One full-width mnist_fc step (the paper's recipe, batch 4) on the
+    card and on the CPU from the same state and batch: the binarized
+    weights are equal, the grads, masters, momentum and batch-norm stats
+    within rtol 1e-4 / atol 1e-4 x the tree's largest value."""
+    from repro_torch.core import binarize as B
+    from repro_torch.launch.train import build_paper_model
+    from repro_torch.train import steps as ST
+
+    state, step_fn, batch_fn = build_paper_model("mnist_fc", binarize=mode, device=cuda)
+    batch = batch_fn(0)
+    cpu_state = {k: (v if k in ("key", "step") else tree_map(lambda t: t.cpu(), v))
+                 for k, v in state.items()}
+    pol = make_paper_policy(4)
+    key = prng.fold_in(state["key"], 0)
+    wb = B.binarize_tree(state["params"], mode, pol, key)
+    wb_cpu = B.binarize_tree(cpu_state["params"], mode, pol, key)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(wb), tree_leaves_with_path(wb_cpu)):
+        assert torch.equal(a.cpu(), b), path
+    new, m = step_fn(state, batch)
+    new_cpu, m_cpu = step_fn(cpu_state, tree_map(lambda t: t.cpu(), batch))
+    torch.testing.assert_close(m["loss"].cpu(), m_cpu["loss"], rtol=1e-4, atol=0)
+    for name in ("params", "opt", "model_state"):
+        _tree_close(new[name], new_cpu[name], 1e-4)
+
+
+def _vgg_grads(cuda, dtype, tf32_backward=False):
+    """Grads of one VGG-16 (width 0.25) det loss at batch 4 on the card, in
+    ``dtype``; with ``tf32_backward`` autograd runs outside ``full_f32``
+    with cuDNN's TF32 on (PyTorch's default), as a step without the guard
+    would."""
+    from repro_torch.core import binarize as B
+    from repro_torch.models import vgg
+    from repro_torch.train import steps as ST
+
+    tree = vgg.init(torch.Generator(device=cuda).manual_seed(0), width_mult=0.25,
+                    device=cuda)
+    tree = tree_map(lambda t: t.to(dtype), tree)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"x": torch.rand(4, 32, 32, 3, generator=g, device=cuda).to(dtype),
+             "y": torch.randint(0, 10, (4,), generator=g, device=cuda)}
+    loss_fn = ST.make_classifier_loss(vgg.apply)
+    pol = make_paper_policy(3)
+    if not tf32_backward:
+        return ST.binarized_value_and_grad(loss_fn, tree["params"], batch, mode="det",
+                                           policy=pol, key=None,
+                                           model_state=tree["state"])[1]
+    leaves = [t.detach().requires_grad_(True) for _, t in tree_leaves_with_path(tree["params"])]
+    from repro_torch.engine.plan import tree_unflatten
+
+    masters = tree_unflatten(tree["params"], leaves)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss, _ = loss_fn(B.binarize_tree(masters, "det", pol), batch, tree["state"])
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return tree_unflatten(tree["params"], list(grads))
+
+
+@pytest.mark.cuda
+def test_tf32_stays_off_through_vgg_backward(cuda):
+    """The train step's VGG grads in f32 on the card stay within 1e-3 x the
+    tree's largest grad of the same grads in f64, and closer than a
+    backward left to cuDNN's TF32 default."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    want = _vgg_grads(cuda, torch.float64)
+    scale = max(float(t.abs().max()) for _, t in tree_leaves_with_path(want))
+
+    def err(tree):
+        return max(float((a.double() - b).abs().max()) for (_, a), (_, b) in zip(
+            tree_leaves_with_path(tree), tree_leaves_with_path(want)))
+
+    f32 = err(_vgg_grads(cuda, torch.float32))
+    tf32 = err(_vgg_grads(cuda, torch.float32, tf32_backward=True))
+    assert f32 <= 1e-3 * scale, (f32, scale)
+    assert tf32 > f32, (tf32, f32)
+    # the step restores the global flags
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic) == flags
+
+
+@pytest.mark.cuda
+def test_train_steps_replay_bit_for_bit_on_the_card(cuda):
+    """Two runs of three VGG-16 (width 0.25) det steps from one state give
+    the same state bit for bit: cuDNN runs deterministic algorithms."""
+    from repro_torch.launch.train import build_paper_model
+
+    def run():
+        state, step_fn, batch_fn = build_paper_model("vgg16_cifar10", binarize="det",
+                                                     smoke=True, device=cuda)
+        for i in range(3):
+            state, _ = step_fn(state, batch_fn(i))
+        return state
+
+    a, b = run(), run()
+    for (path, x), (_, y) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
+        assert (x == y) if isinstance(x, prng.Key) else torch.equal(x, y), path

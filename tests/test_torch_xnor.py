@@ -273,11 +273,11 @@ def _jax_mnist(seed, hidden):
 
 
 def record_signs(monkeypatch, jax_module, port_module):
-    """Records the sign activations on both sides (on the port's side also
-    the signs its fused K3 sites pack, read back from the words); returns a
-    function counting the positions whose sign differs."""
-    from repro_torch.core.binarize import deterministic_binarize
-    from repro_torch.models.layers import bn_sign_words
+    """Records the sign activations on both sides (on the port's side those
+    of its ``bn_sign`` sites, and the signs its fused K3 sites pack, read
+    back from the words); returns a function counting the positions whose
+    sign differs."""
+    from repro_torch.models.layers import bn_sign, bn_sign_words
 
     seen = {"jax": [], "port": []}
     j_binarize = jax_module.binarize
@@ -287,8 +287,8 @@ def record_signs(monkeypatch, jax_module, port_module):
         seen["jax"].append(np.asarray(out) > 0)
         return out
 
-    def p_rec(x):
-        out = deterministic_binarize(x)
+    def p_rec(x, *vecs):
+        out = bn_sign(x, *vecs)
         seen["port"].append((out > 0).numpy())
         return out
 
@@ -298,7 +298,7 @@ def record_signs(monkeypatch, jax_module, port_module):
         return sw
 
     monkeypatch.setattr(jax_module, "binarize", j_rec)
-    monkeypatch.setattr(port_module, "deterministic_binarize", p_rec)
+    monkeypatch.setattr(port_module, "bn_sign", p_rec)
     monkeypatch.setattr(port_module, "bn_sign_words", p_rec_fused)
 
     def flips():
