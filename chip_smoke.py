@@ -108,6 +108,28 @@ steps/s and each step's device ms; TF32 off through VGG-16's backward
 injected failures restored from its checkpoints on the card, bit for bit
 against a clean run; and the training CLI for 50 mnist_fc stoch steps.
 
+Since the dense LM serve (phase 6e, about a minute and a half more):
+K2 at StarCoder2-3B's four projection shapes in bf16 at M = 4 and 32
+(f32 tolerance), K3 on bf16 activations at its widths and K4 over its
+96- and 384-word rows (exact); then StarCoder2-3B at its full CONFIG
+width (30 layers, d_model 3072, d_ff 12288, vocab 49152, bf16
+activations) served in det, stoch and xnor through
+``launch.serve.serve_lm`` (16 requests, 4 slots, 32-token prompts, 16 new
+tokens, seed 0): launch counters exact (120 K1 at pack time; 120 K2, or
+120 K3 + 120 K4, per prefill and per decode step); every packed
+per-layer leaf equal to a plain pack of the same masters (stoch: two
+layers also against a CPU pack at their split keys); the first four
+requests' greedy logits against the plain kernels on the card (first
+step within ``LM_LOGIT_TOL`` of the largest logit, xnor bit for bit,
+tokens equal up to the first step whose top-2 margin is under it); every
+stream equal to the one-shot ``generate`` of its request; pack seconds,
+dense and served MB, tok/s, median TTFT and latency, the decode step's
+wall ms, device ms and device launches, and peak allocated bytes; and a
+traced serve (``--trace``, written to ``build/lm_trace.json``) that
+``validate_trace`` passes at coverage >= 0.95, with the dispatch/device
+split of ``decode_step`` and ``prefill_into``. Phase 7 times K2, K3 and K4
+at the LM decode shapes.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -183,6 +205,26 @@ ENSEMBLE_K = 8
 ENSEMBLES = [("mnist_fc", {"binary_matmul": 2}, 2),
              ("vgg16_cifar10", {"binary_matmul": 1}, 13)]
 
+# The dense LM serve (phase 6e): StarCoder2-3B at its full CONFIG width (30
+# layers, d_model 3072, 24 heads with 2 KV heads of 128, d_ff 12288, vocab
+# 49152, bf16 activations) through launch.serve.serve_lm at the reference
+# CLI's defaults. A prefill or decode step runs each of the 4 projections of
+# each layer once: 120 K2 launches (det, stoch) or 120 K3 + 120 K4 (xnor);
+# the pack runs K1 once a layer and projection.
+LM_ARCH = "starcoder2_3b"
+LM_MODES = ("det", "stoch", "xnor")
+LM_SERVE = dict(requests=16, slots=4, prompt_len=32, max_new=16, seed=0)
+# (K, N) of the 4 projections of a layer: qkv, w_o, wi, wo
+LM_KN = [(3072, 3584), (3072, 3072), (3072, 12288), (12288, 3072)]
+# Logits against the same forward with the plain kernels on the card: the
+# largest |difference| at most LM_LOGIT_TOL x the largest |logit|, about four
+# bf16 ulps of it (K2's f32 sums differ from the plain version's only in
+# order, but every op rounds its output to bf16, and 30 layers carry a
+# one-ulp difference on); xnor's integer popcounts must agree exactly.
+# Greedy tokens must agree up to the first step whose top-2 logit margin
+# (of the plain run) is under that tolerance.
+LM_LOGIT_TOL = 2.0 ** -5
+
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
 VGG_XNOR_CONVS = [((4, 16, 16, 64), 128), ((4, 16, 16, 128), 128),
                   ((4, 8, 8, 128), 256), ((4, 8, 8, 256), 256), ((4, 8, 8, 256), 256),
@@ -210,6 +252,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    import numpy as np
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.kernels.ops as kops_mod
     import repro_torch.xnor.conv.ops as cops_mod
@@ -359,12 +402,14 @@ def main() -> int:
                 if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
 
     def device_ms(fn, kernel: str, reps: int = 20) -> float | None:
-        """Device time of one launch of the named kernel inside ``fn``. The
-        profiler now and then records no event for a kernel that ran, so
-        up to three profiles are taken."""
+        """Device time of one launch of the named kernel inside ``fn`` (of
+        each kernel whose name holds ``kernel``, summed): its time over the
+        launches the profiler recorded. The profiler now and then records no
+        event for a launch that ran, so the time is not divided by ``reps``
+        (that reads low), and up to three profiles are taken."""
         for _ in range(3):
-            kern = profiled(fn, reps)
-            hits = [v for k, v in (kern or {}).items() if kernel in k]
+            events = profile_events(fn, reps)
+            hits = [t / n / 1e3 for k, (t, n) in (events or {}).items() if kernel in k]
             if hits:
                 return sum(hits)
         return None
@@ -492,6 +537,23 @@ def main() -> int:
                 if not all(torch.equal(a, got) for a in again):
                     raise AssertionError(f"K2 {tag}: two calls differ")
     print("  every case bit-identical over 4 calls")
+    print(f"== K2 at {LM_ARCH}'s projection shapes, bf16 (decode M=4, prefill M=32), scaled: "
+          f"f32 tolerance (products with +-1 are exact, both sides sum in f32)")
+    for m in (4, 32):
+        for k, n in LM_KN:
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            wp = binarize_pack(torch.randn(k, n, generator=g, device=dev), stochastic=False)
+            scale = torch.rand(n, generator=g, device=dev) + 0.5
+            got, want = binary_matmul(x, wp, scale), binary_matmul_plain(x, wp, scale)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print(f"  {m}x{k}x{n} bf16 scaled: max_abs_err {err:.3e} (|want| max "
+                  f"{want.abs().max().item():.3e})")
+            torch.testing.assert_close(got, want, **F32_TOL, msg=f"K2 LM {m}x{k}x{n}")
+            if not torch.equal(binary_matmul(x, wp, scale), got):
+                raise AssertionError(f"K2 LM {m}x{k}x{n}: two calls differ")
+            if m == 4:
+                errs["k2_lm"] = max(errs.get("k2_lm", 0.0), err)
 
     # 5. K3, K4, K5 against their plain versions, exact
     def acts(shape, dtype=torch.float32):
@@ -508,6 +570,9 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             x = acts((m, k), dtype)
             exact(f"K3 {m}x{k} {str(dtype)[6:]}", sign_pack(x), sign_pack_plain(x))
+    for (m, k) in [(4, 3072), (4, 12288), (32, 3072), (32, 12288)]:
+        x = acts((m, k), torch.bfloat16)
+        exact(f"K3 {LM_ARCH} input {m}x{k} bf16", sign_pack(x), sign_pack_plain(x))
 
     print("== K3 with the producer prologue (bias, eval batch norm, Eq.-1 sign) vs its "
           "plain chain (exact; BN outputs 0.0, -0.0, NaN, 0 * inf, +-2^-149 planted, and "
@@ -598,6 +663,8 @@ def main() -> int:
                  (33, 9 * 2, 65, 9 * 40, "extra words C=40"), (3, 1, 1, 7, "tiny"),
                  (65, 9 * 2, 65, 9 * 40, "extra words C=40, ragged 4-row group"),
                  (4096, 72, 256, 2304, "large M")]
+    k4_cases += [(m, k // 32, n, k, f"{LM_ARCH} {'decode' if m == 4 else 'prefill'} {k}x{n}")
+                 for m in (4, 32) for k, n in LM_KN]
     for m, wds, n, k, what in k4_cases:
         a, w = words((m, wds)), words((wds, n))
         for s in (None, torch.rand(n, generator=g, device=dev) + 0.5):
@@ -1141,6 +1208,217 @@ def main() -> int:
     print(f"  the CLI took {time.perf_counter() - t0:.2f} s in all")
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
+    # 6e. the dense LM serve: StarCoder2-3B at full width in det, stoch, xnor
+    import cProfile
+    import pstats
+
+    from repro_torch.configs import base as cb
+    from repro_torch.core.policy import DEFAULT_POLICY
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import validate_trace
+
+    lm_cfg = cb.get_config(LM_ARCH)
+    n_proj = 4 * lm_cfg.n_layers                  # projection launches a prefill or step
+    lm_rows = {}
+
+    def lm_greedy(engine, prompts, max_new):
+        """(B, max_new, V) f32: each step's logits of greedy generation from
+        ``prompts``, the computation ``engine.generate`` runs."""
+        out = []
+        with torch.inference_mode():
+            lg, cache = T.prefill(lm_cfg, engine.params, prompts,
+                                  max_len=prompts.shape[1] + max_new)
+            for i in range(max_new):
+                out.append(lg.to(torch.float32))
+                if i < max_new - 1:
+                    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                    lg, cache = T.decode_step(lm_cfg, engine.params, cache, tok[:, None])
+        return torch.stack(out, 1)
+
+    def top2_margin(logits):
+        top2 = torch.topk(logits, 2, dim=-1).values
+        return top2[..., 0] - top2[..., 1]
+
+    for mode in LM_MODES:
+        print(f"== serve {LM_ARCH} full width ({lm_cfg.n_layers} layers, d_model "
+              f"{lm_cfg.d_model}, d_ff {lm_cfg.d_ff}, vocab {lm_cfg.vocab_size}, "
+              f"{lm_cfg.dtype}) --packed --binarize {mode}: {LM_SERVE}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()        # earlier phases' tensors still held
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        res = serve_lm(arch=LM_ARCH, packed=True, binarize=mode, device="cuda", **LM_SERVE)
+        got = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - live
+        calls = LM_SERVE["requests"] + res.steps - 1      # prefills + decode steps
+        want = {name: 0 for name in counters}
+        want["binarize_pack"] = n_proj
+        for name in (("sign_pack", "xnor_matmul") if mode == "xnor" else ("binary_matmul",)):
+            want[name] = n_proj * calls
+        print(f"  launches {got}: {LM_SERVE['requests']} prefills + {res.steps - 1} decode "
+              f"steps x {n_proj} projections, {n_proj} K1 at pack time")
+        if got != want:
+            raise AssertionError(f"{LM_ARCH} {mode}: expected launches {want}")
+        for name, count in got.items():
+            launches[name][(LM_ARCH, mode)] = count
+        run_mode[(LM_ARCH, mode)] = mode
+        engine = res.engine
+        done = sorted(res.batcher.completed, key=lambda r: r.uid)
+        if len(done) != LM_SERVE["requests"] or res.tokens != 16 * LM_SERVE["max_new"]:
+            raise AssertionError(f"{LM_ARCH} {mode}: served {len(done)} requests, "
+                                 f"{res.tokens} tokens")
+
+        # the served words against a plain pack of the same masters at key(seed + 1)
+        masters = T.init_lm(lm_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        plan = compile_plan(masters, DEFAULT_POLICY, mode)
+        with plain_kernels():
+            plain = plan.pack(masters, key=prng.key(1))
+        n_layers_checked = 0
+        for (path, a), (_, b) in zip(tree_leaves_with_path(engine.params),
+                                     tree_leaves_with_path(plain)):
+            if hasattr(a, "packed"):
+                if type(a) is not type(b) or not torch.equal(a.packed, b.packed):
+                    raise AssertionError(f"{LM_ARCH} {mode}: served {path} differs from "
+                                         f"the plain pack")
+                n_layers_checked += a.packed.shape[0]
+        stoch_note = ""
+        if mode == "stoch":
+            # the threefry twin on the card against the CPU, through a whole
+            # layer pack: layers 0 and L-1 of w_o, packed on the CPU
+            row = plan["layers/attn/w_o"]
+            keys = prng.split(prng.fold_in(prng.key(1), row.index), lm_cfg.n_layers)
+            served = engine.params["layers"]["attn"]["w_o"].packed
+            for layer in (0, lm_cfg.n_layers - 1):
+                cpu = kops_mod.binarize_and_pack(masters["layers"]["attn"]["w_o"][layer].cpu(),
+                                                 keys[layer], stochastic=True)
+                if not torch.equal(served[layer].cpu(), cpu):
+                    raise AssertionError(f"{LM_ARCH} stoch: w_o layer {layer} words differ "
+                                         f"from the CPU's")
+            stoch_note = (f"; w_o layers 0 and {lm_cfg.n_layers - 1} equal a CPU pack at "
+                          f"their split keys")
+        del masters, plain
+        print(f"  {n_layers_checked} served per-layer leaves (K1) == plain pack{stoch_note}")
+
+        # greedy streams against the plain kernels on this card, first 4 requests
+        prompts = torch.from_numpy(np.stack([r.prompt for r in done[:4]])).to(dev)
+        k_lg = lm_greedy(engine, prompts, LM_SERVE["max_new"])
+        with plain_kernels():
+            p_lg = lm_greedy(engine, prompts, LM_SERVE["max_new"])
+        tol = LM_LOGIT_TOL * p_lg.abs().amax(dim=-1)           # (4, steps)
+        err0 = (k_lg[:, 0] - p_lg[:, 0]).abs().amax(dim=-1)
+        print(f"  first step's logits vs the plain kernels: max_abs_err per request "
+              f"{[round(e, 5) for e in err0.tolist()]} (tolerance "
+              f"{[round(t, 5) for t in tol[:, 0].tolist()]})")
+        if (err0 > tol[:, 0]).any() or (mode == "xnor" and not torch.equal(k_lg, p_lg)):
+            raise AssertionError(f"{LM_ARCH} {mode}: logits differ from the plain kernels")
+        margin = top2_margin(p_lg)
+        same = k_lg.argmax(-1) == p_lg.argmax(-1)
+        for b in range(prompts.shape[0]):
+            bad = (~same[b]).nonzero()
+            if not len(bad):
+                print(f"  request {b}: {LM_SERVE['max_new']} greedy tokens equal the plain "
+                      f"kernels' (smallest top-2 margin {margin[b].min().item():.4g})")
+                continue
+            i = bad[0].item()
+            print(f"  request {b}: tokens equal up to step {i}, where the plain run's top-2 "
+                  f"margin is {margin[b, i].item():.4g} (tolerance {tol[b, i].item():.4g})")
+            if margin[b, i] >= tol[b, i]:
+                raise AssertionError(f"{LM_ARCH} {mode}: request {b} diverges at step {i} "
+                                     f"with a top-2 margin above the tolerance")
+        err_lm = err0.max().item()
+
+        # every stream equals the one-shot generate of its request
+        for r in done:
+            one = engine.generate(r.prompt[None], r.max_new).tokens[0].tolist()
+            if one != r.generated:
+                raise AssertionError(f"{LM_ARCH} {mode}: request {r.uid}'s stream differs "
+                                     f"from its one-shot generate")
+        print(f"  all {len(done)} streams equal the one-shot generate of their request")
+
+        # decode step: wall (synced), device time and launches (profiler)
+        state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
+        for slot in range(4):
+            state = engine.prefill_into(state, slot, done[slot].prompt)
+        tok = torch.argmax(state.logits, dim=-1)
+        step_wall = []
+        for _ in range(LM_SERVE["max_new"] - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = engine.decode_step(state, tok)
+            torch.cuda.synchronize()
+            step_wall.append(time.perf_counter() - t0)
+        step_ms = statistics.median(step_wall) * 1e3
+        step_state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
+
+        def one_step():
+            engine.decode_step(step_state, tok)
+
+        step_kern = profiled(one_step, reps=5)
+        step_dev = step_kern and sum(step_kern.values())
+        step_n = kernels_per_rep(one_step, reps=5)
+        # where the host's time goes: cProfile over 3 decode steps (it adds a
+        # cost to every Python call, so read it for ranking, not for totals)
+        host = cProfile.Profile()
+        host.enable()
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+        host.disable()
+        host_top = sorted(pstats.Stats(host).stats.items(), key=lambda kv: -kv[1][2])[:6]
+        print("  host (cProfile, tottime a decode step): " + "; ".join(
+            f"{fn} ({Path(file).name}:{line}) {tt / 3 * 1e3:.2f} ms in {nc // 3} calls"
+            for (file, line, fn), (_, nc, tt, _, _) in host_top))
+        top = sorted((step_kern or {}).items(), key=lambda kv: -kv[1])[:4]
+        lm_rows[mode] = {
+            "pack_s": res.pack_seconds, "dense_mb": res.dense_bytes / 1e6,
+            "served_mb": res.packed_bytes / 1e6, "tok_s": res.tok_per_s,
+            "ttft_ms": res.median_ttft * 1e3, "latency_ms": res.median_latency * 1e3,
+            "step_ms": step_ms, "step_device_ms": step_dev, "step_launches": step_n,
+            "peak_gb": peak / 1e9, "seconds": res.seconds, "steps": res.steps,
+            "max_abs_err": err_lm}
+        print(f"  pack {res.pack_seconds:.3f} s; {res.dense_bytes / 1e6:.1f} MB bf16 dense -> "
+              f"{res.packed_bytes / 1e6:.1f} MB served ({res.dense_bytes / res.packed_bytes:.2f}x); "
+              f"{res.tok_per_s:.1f} tok/s, median TTFT {res.median_ttft * 1e3:.1f} ms, median "
+              f"latency {res.median_latency * 1e3:.1f} ms; decode step {step_ms:.3f} ms median "
+              f"(synced), device {fmt(step_dev)} ms in {fmt_count(step_n)} device launches "
+              f"(torch.profiler, 5 steps); peak allocated {peak / 1e9:.2f} GB above the "
+              f"{live / 1e9:.2f} GB earlier phases hold; top: "
+              + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
+        del res, engine, state, step_state, k_lg, p_lg
+
+    # a traced serve: the trace validates and splits each entry point's time
+    # into dispatch (the host issuing kernels) and device (the fence's wait)
+    trace_path = Path(__file__).resolve().parent / "build" / "lm_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    print(f"== traced serve {LM_ARCH} det (--trace {trace_path.name}; fenced)")
+    torch.cuda.empty_cache()
+    res = serve_lm(arch=LM_ARCH, packed=True, binarize="det", device="cuda",
+                   trace=str(trace_path), **LM_SERVE)
+    info = validate_trace(str(trace_path))
+    if info["root"] != "stream_serve" or info["coverage"] < 0.95:
+        raise AssertionError(f"trace: {info}")
+    spans = [e for e in res.tracer.events if e["ph"] == "X"]
+    split = {}
+    for parent in ("decode_step", "prefill_into"):
+        outer = [e for e in spans if e["name"] == parent]
+        kids = {"dispatch": 0.0, "device": 0.0}
+        for o in outer:
+            for e in spans:
+                if (e["name"] in kids and e["args"]["depth"] == o["args"]["depth"] + 1
+                        and o["ts"] <= e["ts"] <= o["ts"] + o["dur"]):
+                    kids[e["name"]] += e["dur"] / 1e3
+        split[parent] = (len(outer), kids["dispatch"] / len(outer), kids["device"] / len(outer))
+        print(f"  {parent}: {len(outer)} spans, dispatch {split[parent][1]:.3f} ms + device "
+              f"{split[parent][2]:.3f} ms a call (means)")
+    print(f"  trace: {info['spans']} spans, coverage {info['coverage'] * 100:.1f}%; traced "
+          f"{res.tok_per_s:.1f} tok/s")
+    lm_rows["trace"] = {"coverage": info["coverage"], "split": split,
+                        "tok_s": res.tok_per_s}
+    del res
+    torch.cuda.empty_cache()
+
     # 7. timing at the path shapes
     print("== timing (kernel_ms: CUDA events around 200 back-to-back wrapper calls, K1 "
           "cold with L2 flushed before each call, as at pack time; device_ms: the "
@@ -1285,14 +1563,14 @@ def main() -> int:
                 "library_ms": None if None in libs else sum(libs),
                 "device_ms": None if None in devs else sum(devs)}
 
-    def k3_row(m, kk):
-        x = torch.randn(m, kk, generator=g, device=dev)
+    def k3_row(m, kk, dtype=torch.float32):
+        x = torch.randn(m, kk, generator=g, device=dev).to(dtype)
         ms = time_warm(lambda: sign_pack(x))
         dev_ms = device_ms(lambda: sign_pack(x), "sign_pack_kernel")
         plain_ms = time_warm(lambda: sign_pack_plain(x))
-        nbytes = m * kk * 4 + m * ((kk + 31) // 32) * 4
+        nbytes = m * kk * x.element_size() + m * ((kk + 31) // 32) * 4
         t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-        print(f"  K3 {m}x{kk} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, plain_ms "
+        print(f"  K3 {m}x{kk} {str(dtype)[6:]}: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, plain_ms "
               f"{plain_ms:.4f}, library_ms none, bound_ms {t_b:.5f} (bytes, {nbytes} B)")
         return (ms, plain_ms, t_b, t_b, 0.0, None, dev_ms)
 
@@ -1455,6 +1733,47 @@ def main() -> int:
                             errs["k5"], vgg_k5),
                     "device_ms_per_shape": [r[6] for r in vgg_k5]})
 
+    # the LM decode shapes: the 4 projections of one StarCoder2-3B layer at 4 slots
+    def k2_lm_row(m, k, n):
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        wk = torch.randn(k, n, generator=g, device=dev)
+        wp = binarize_pack(wk, stochastic=False)
+        scale = wk.abs().mean(dim=0)
+        wl = unpack_bits(wp).to(torch.bfloat16)          # the library call's operand
+        ms = time_warm(lambda: binary_matmul(x, wp, scale))
+        dev_ms = device_ms(lambda: binary_matmul(x, wp, scale), "binary_matmul_kernel")
+        plain_ms = time_warm(lambda: binary_matmul_plain(x, wp, scale), iters=50)
+        lib_ms = time_warm(lambda: (x @ wl).float() * scale)
+        nbytes = m * k * 2 + (k // 32) * n * 4 + n * 4 + m * n * 4
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, 2.0 * m * k * n / PEAK_BF16_FLOP_PER_S * 1e3
+        print(f"  K2 scaled {m}x{k}x{n} bf16: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, "
+              f"plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (bf16 torch.matmul on "
+              f"unpacked +-1 times scale), bound_ms {max(t_b, t_o):.5f} "
+              f"({'bytes' if t_b >= t_o else 'operations'})")
+        return (ms, plain_ms, max(t_b, t_o), t_b, t_o, lib_ms, dev_ms)
+
+    print(f"== {LM_ARCH} decode shapes (M = 4 slots; a layer runs qkv, w_o, wi, wo)")
+    lm_k2_runs = [(LM_ARCH, "det"), (LM_ARCH, "stoch")]
+    lm_x = [(LM_ARCH, "xnor")]
+    lm_k2 = [k2_lm_row(4, k, n) for k, n in LM_KN]
+    kernels.append({**entry(f"binary_matmul ({LM_ARCH} det/stoch decode, bf16 M=4, scaled: "
+                            f"the 4 projections of a layer, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul"], lm_k2_runs), errs["k2_lm"], lm_k2),
+                    "device_ms_per_shape": [r[6] for r in lm_k2]})
+    k3_lm = {kk: k3_row(4, kk, torch.bfloat16) for kk in sorted({k for k, _ in LM_KN})}
+    lm_k3 = [k3_lm[k] for k, _ in LM_KN]
+    kernels.append({**entry(f"sign_pack, no prologue ({LM_ARCH} xnor decode, bf16 M=4: the 4 "
+                            f"projection inputs of a layer, summed)", k3_src, k3_rep,
+                            total(launches["sign_pack"], lm_x), errs["k3"], lm_k3),
+                    "device_ms_per_shape": [r[6] for r in lm_k3]})
+    lm_k4 = [k4_row(4, k // 32, n, k, True) for k, n in LM_KN]
+    kernels.append({**entry(f"xnor_matmul ({LM_ARCH} xnor decode, M=4, scaled: the 4 "
+                            f"projections of a layer, summed)", k4_src, k4_rep,
+                            total(launches["xnor_matmul"], lm_x), errs["k4"], lm_k4),
+                    "device_ms_per_shape": [r[6] for r in lm_k4]})
+
     print("== xnor conv layers as a whole (K5, then K4 with the border correction and "
           "epilogue in its flush) against F.conv2d on +-1 f32, TF32 off; device kernels "
           "a layer launches, counted by torch.profiler")
@@ -1502,6 +1821,19 @@ def main() -> int:
             launches += f" (K3's prologue route off: {fmt_count(r['chain_launches'])})"
         print(f"  {arch} {mode}: {r['ms']:.4f} ms/batch, {r['ips']:.1f} img/s{dev}{launches}")
 
+    print(f"== {LM_ARCH} serving summary (full width, {LM_SERVE})")
+    for mode in LM_MODES:
+        r = lm_rows[mode]
+        print(f"  {mode}: pack {r['pack_s']:.3f} s, {r['dense_mb']:.1f} -> {r['served_mb']:.1f} "
+              f"MB, {r['tok_s']:.1f} tok/s ({r['steps']} steps in {r['seconds']:.3f} s), median "
+              f"TTFT {r['ttft_ms']:.1f} ms, median latency {r['latency_ms']:.1f} ms, decode "
+              f"step {r['step_ms']:.3f} ms (device {fmt(r['step_device_ms'])} ms, "
+              f"{fmt_count(r['step_launches'])} launches), peak {r['peak_gb']:.2f} GB, logits "
+              f"vs plain kernels {r['max_abs_err']:.4g}")
+    tr = lm_rows["trace"]
+    print(f"  traced det: coverage {tr['coverage'] * 100:.1f}%, {tr['tok_s']:.1f} tok/s; "
+          + "; ".join(f"{k} dispatch {d:.3f} + device {v:.3f} ms ({n} calls)"
+                      for k, (n, d, v) in tr["split"].items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ Priority order (highest wins among eligible), as in the reference:
   xnor_conv (40) > xnor (30) > packed (20) > packed_conv (15)
     > binarized_dense (10) > dense (0)
 
-* ``packed`` binarizes a (K, N) projection (Eq. 1, or Eq. 2 with words from
-  the pack key, ``core.prng``) and bitpacks it with K1, then serves it with K2.
+* ``packed`` binarizes a (K, N) projection, or each layer of a stacked
+  (L, K, N) one (Eq. 1, or Eq. 2 with words from the pack key,
+  ``core.prng``), and bitpacks it with K1, then serves it with K2.
 * ``xnor`` packs the same way (Eq. 1) and serves with K3 (sign + pack the
   activations) and K4 (XNOR-popcount matmul). It takes ``SignWords`` too:
   the model then runs the producer's bias, batch norm and sign inside K3.
@@ -149,21 +150,25 @@ def _pack_binarized_dense(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
 
 
 def _pack_linear(cls, lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
-    """Binarize + bitpack a (K, N) projection into ``cls`` through K1; the
-    scale (unless the plan packs without) is the mean |w| over K (per output
-    channel). Eq.-2 words come from
-    ``split(fold_in(key, index), 1)[0]``, the reference's key for a 2-D leaf
-    (it splits once per stacked layer)."""
-    if leaf.ndim != 2:
-        raise NotImplementedError(
-            f"{lc.path!r}: stacked {tuple(leaf.shape)} leaves pack with the LM slice")
+    """Binarize + bitpack a (..., K, N) projection into ``cls`` through K1,
+    one launch per (K, N) layer of a stacked leaf; the scale (unless the plan
+    packs without) is the mean |w| over K, (..., N). Layer l's Eq.-2 words
+    come from ``split(fold_in(key, index), L)[l]``, the keys the
+    reference's vmap over the L layers draws from (L = 1 for a 2-D leaf)."""
+    k_dim, n_dim = leaf.shape[-2], leaf.shape[-1]
+    lead = tuple(leaf.shape[:-2])
+    w3 = leaf.reshape(-1, k_dim, n_dim)
     key = _leaf_key(lc, pc)
-    if key is None:
-        packed = ops.binarize_and_pack(leaf)
-    else:
-        packed = ops.binarize_and_pack(leaf, prng.split(key, 1)[0], stochastic=True)
-    scale = leaf.to(torch.float32).abs().mean(dim=0) if pc.with_scale else None
-    return cls(packed, scale, leaf.shape[0])
+    keys = None if key is None else prng.split(key, w3.shape[0])
+    packed, scale = [], []
+    for i, w in enumerate(w3):
+        packed.append(ops.binarize_and_pack(w) if keys is None
+                      else ops.binarize_and_pack(w, keys[i], stochastic=True))
+        if pc.with_scale:
+            scale.append(w.to(torch.float32).abs().mean(dim=0))
+    packed = torch.stack(packed).reshape(*lead, -1, n_dim)
+    scale = torch.stack(scale).reshape(*lead, n_dim) if pc.with_scale else None
+    return cls(packed, scale, k_dim)
 
 
 def _pack_packed_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):

@@ -7,9 +7,10 @@ leaves. A serving leaf is recognised by its class name (``PackedLinear``,
 ``XnorLinear``, ``XnorConv``, ``PackedConv``), never by its attributes:
 all four have ``packed`` and ``k``, but their word layouts differ. Any
 other class raises. Array bits are kept as they are: int32 packed words
-keep their bit patterns. ``from_jax_train_state`` carries a whole train
-state across (``train.steps``'s tree: params, optimizer slots, step, key,
-model state, compression residuals).
+keep their bit patterns, bf16 arrays their bf16 values, and stacked
+(L, K/32, N) packed leaves their leading dims. ``from_jax_train_state``
+carries a whole train state across (``train.steps``'s tree: params,
+optimizer slots, step, key, model state, compression residuals).
 """
 from __future__ import annotations
 
@@ -27,7 +28,12 @@ _CONV = {"XnorConv": XnorConv, "PackedConv": PackedConv}
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (ml_dtypes' is not one torch
+        # reads): carry the bits as int16 and view them as torch.bfloat16
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def from_jax_tree(tree: Any, *, device="cuda") -> Any:

@@ -1,5 +1,6 @@
 """Serving driver: fixed-batch inference of the paper's nets (the MNIST FC
-net and VGG-16 on CIFAR-10) with binary weights, and in ``xnor`` mode binary
+net and VGG-16 on CIFAR-10), and step-level continuous-batching serving of
+the dense LM family, with binary weights, and in ``xnor`` mode binary
 activations too.
 
 The master weights are compiled into an execution plan (``repro_torch.engine``)
@@ -14,46 +15,68 @@ dense. Prints the weight bytes before and after packing, ms/batch and img/s.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16_cifar10 \
       --binarize xnor --slots 4 --requests 64
 
+Token archs (``serve_lm``; the dense family: starcoder2_3b, qwen2_5_32b,
+h2o_danube_3_4b, deepseek_coder_33b) stream requests through
+``serve.engine.stream_serve``: a persistent slot-addressed KV cache,
+per-step slot refill, per-request ``max_new``, tok/s from tokens actually
+recorded. ``--packed`` serves the plan's packed leaves (every attention and
+MLP projection: K2, or K3 + K4 in ``xnor``); without it the dense masters.
+``--trace OUT.json`` writes a Chrome trace of the loop (dispatch vs device
+spans; ``--no-trace-fence`` drops the device fence) and ``--metrics-out
+OUT.json|.prom`` the serving metrics:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
+      --packed --binarize xnor --requests 16 --slots 4 --prompt-len 32 \
+      --max-new 16 --trace build/trace.json --metrics-out build/metrics.prom
+
 Plan manifests, as the reference's serve: ``--plan OUT.json`` saves the
 compiled plan, ``--plan-from IN.json`` serves a saved one (its mode
 supersedes ``--binarize``), ``--plan-report`` prints the per-layer
 backend/bytes/reason table, ``--override PATH=BACKEND`` forces a layer
 (path or '/'-prefix) onto a backend, and ``--analyze`` runs the plan lints
-and exits 1 on an error finding:
+and exits 1 on an error finding (classifiers):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16_cifar10 \
       --binarize xnor --override conv/3=binarized_dense --plan-report
 
-Stochastic ensemble: ``--ensemble K`` (with ``--binarize stoch``) draws K
-packed replicas of every stochastic layer, classifies from the
-ensemble-mean logits and reports the replicas' vote agreement;
+Stochastic ensemble (classifiers): ``--ensemble K`` (with ``--binarize
+stoch``) draws K packed replicas of every stochastic layer, classifies from
+the ensemble-mean logits and reports the replicas' vote agreement;
 ``--abstain-threshold A`` counts the images whose agreement is below A:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mnist_fc \
       --binarize stoch --ensemble 8 --abstain-threshold 0.6
 
 Runs on the CUDA device unless ``--device cpu`` is given; asking for CUDA
-where there is none raises.
+where there is none raises. The reference's chunked prefill, prefix cache
+and LM ensemble (ROADMAP queue 1 item 6b), mesh serving (item 7) and the
+collective audit and compiled-program analysis (item 8) are not ported:
+their flags exit naming the item.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import math
 import statistics
 import time
 from typing import Any
 
 import torch
 
+import numpy as np
+
+from repro_torch.configs import base as cb
 from repro_torch.configs import mnist_fc as C
 from repro_torch.configs import vgg16_cifar10 as VC
 from repro_torch.core import prng
-from repro_torch.core.policy import make_paper_policy
+from repro_torch.core.policy import DEFAULT_POLICY, make_paper_policy
 from repro_torch.data import synthetic as syn
 from repro_torch.engine import ExecutionPlan, compile_plan, format_plan_table, plan_report
-from repro_torch.engine.plan import tree_leaves_with_path
 from repro_torch.models import mnist_fc, vgg
+from repro_torch.models import transformer as T
+from repro_torch.obs import MetricsRegistry, Tracer, validate_trace
+from repro_torch.serve import SlotBatcher
+from repro_torch.serve.engine import ServeEngine, packed_param_bytes, stream_serve
 from repro_torch.stoch import ReplicaSet, ensemble_forward, sample_replicas
 
 ARCHS = ("mnist_fc", "vgg16_cifar10")
@@ -70,22 +93,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device!r} asked for, but torch sees no CUDA "
                            f"device (pass device='cpu' to run on the CPU)")
     return dev
-
-
-def packed_param_bytes(params) -> tuple[int, int]:
-    """(dense bf16 bytes, served bytes): a serving leaf counts its master
-    shape on the dense side (never its word count, which includes pad words)
-    and its words and scale on the served side; every other leaf counts its
-    bf16 size on both sides."""
-    dense = packed = 0
-    for _, leaf in tree_leaves_with_path(params):
-        if hasattr(leaf, "master_shape"):
-            dense += math.prod(leaf.master_shape) * 2
-            packed += leaf.nbytes()
-        else:
-            dense += leaf.numel() * 2
-            packed += leaf.numel() * 2
-    return dense, packed
 
 
 @dataclasses.dataclass
@@ -185,10 +192,12 @@ def serve_classifier(*, arch: str = "mnist_fc", binarize: str = "det",
                      plan_out: str = "", plan_from: str = "", show_report: bool = False,
                      override=(), analyze: bool = False, ensemble: int = 1,
                      abstain_threshold: float | None = None,
-                     replica_axis: str = "data") -> ServeResult:
+                     replica_axis: str = "data", metrics_out: str = "") -> ServeResult:
     """Fixed-batch image-classification serving of the paper's nets.
     ``WARMUP_BATCHES`` untimed batches run first and are not counted as
     requests. The plan's mode decides the sign-activation forward.
+    ``metrics_out`` writes the reference's classifier metrics there (JSON,
+    or Prometheus text for a .prom/.txt path).
 
     ``ensemble`` K >= 2 serves K replicas drawn at ``prng.key(seed + 1)``
     (``stoch.sample_replicas``; needs a stochastic plan) and classifies
@@ -274,6 +283,22 @@ def serve_classifier(*, arch: str = "mnist_fc", binarize: str = "det",
         if abstain_threshold is not None:
             msg += f"; abstained {abstained}/{done} at threshold {abstain_threshold}"
         print(msg)
+    if metrics_out:
+        metrics = MetricsRegistry()
+        h = metrics.histogram("serve_batch_seconds", "wall seconds per inference batch")
+        for sec in lat:
+            h.observe(sec)
+        metrics.counter("serve_images_total", "images classified").inc(done)
+        metrics.gauge("serve_img_per_s", "images / serving wall seconds").set(res.img_per_s)
+        if agrees:
+            ah = metrics.histogram("serve_vote_agreement",
+                                   "per-image ensemble replica vote agreement (0-1)")
+            for a in agrees:
+                ah.observe(float(a))
+            if abstain_threshold is not None:
+                metrics.counter("serve_abstain_total",
+                                "images below the abstain threshold").inc(abstained)
+        write_metrics(metrics, metrics_out)
     if findings is not None:
         from repro_torch.analysis import format_findings, gate
 
@@ -283,20 +308,167 @@ def serve_classifier(*, arch: str = "mnist_fc", binarize: str = "det",
     return res
 
 
-def main(argv=None) -> ServeResult:
+def write_metrics(metrics: MetricsRegistry, path: str) -> None:
+    """Prometheus text for a .prom/.txt path, else JSON, as the reference's CLI."""
+    if path.endswith((".prom", ".txt")):
+        with open(path, "w") as f:
+            f.write(metrics.to_prometheus())
+        print(f"metrics (prometheus) -> {path}")
+    else:
+        print(f"metrics -> {metrics.save(path)}")
+
+
+@dataclasses.dataclass
+class LMServeResult:
+    cfg: Any
+    steps: int                      # token-emission steps
+    seconds: float                  # wall time of stream_serve, synced
+    engine: ServeEngine             # its params: the served tree
+    batcher: SlotBatcher            # the ledger: completed requests, prompts, tokens
+    plan: ExecutionPlan | None
+    dense_bytes: int
+    packed_bytes: int
+    pack_seconds: float | None      # plan.pack, synced; None when not packed
+    tracer: Tracer | None
+    metrics: MetricsRegistry | None
+
+    @property
+    def tokens(self) -> int:
+        return self.batcher.tokens_generated
+
+    @property
+    def tok_per_s(self) -> float:
+        return self.tokens / self.seconds
+
+    @property
+    def median_ttft(self) -> float:
+        return statistics.median(r.ttft for r in self.batcher.completed)
+
+    @property
+    def median_latency(self) -> float:
+        return statistics.median(r.latency for r in self.batcher.completed)
+
+
+def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str = "det",
+             requests: int = 16, slots: int = 4, prompt_len: int = 32, max_new: int = 16,
+             max_new_skew: int = 0, seed: int = 0, device="cuda", smoke: bool = False,
+             plan_out: str = "", plan_from: str = "", show_report: bool = False,
+             override=(), trace: str = "", trace_fence: bool = True,
+             metrics_out: str = "") -> LMServeResult:
+    """Step-level continuous-batching serving of a token arch, as the
+    reference's ``launch.serve`` token path: master weights drawn from
+    ``seed`` (``torch.Generator``), packed at ``prng.key(seed + 1)`` when
+    ``packed`` (the masters are dropped once packed), ``requests`` synthetic
+    prompts of ``prompt_len`` tokens from ``numpy.random.default_rng(seed)``,
+    each asking ``max_new`` tokens less up to ``max_new_skew``, served on
+    ``slots`` slots. ``trace`` writes a Chrome trace of the loop and
+    validates it; ``metrics_out`` writes the serving metrics."""
+    arch = cb.canonical_arch(arch)
+    cfg = cb.get_config(arch, smoke=smoke)
+    if cfg.frontend:
+        raise SystemExit(f"{arch} uses a stubbed frontend; serve a token arch")
+    if (plan_from or override) and not packed:
+        raise SystemExit("--plan-from/--override change how weights are packed; add "
+                         "--packed (use --plan/--plan-report alone for a dry inspection)")
+    dev = resolve_device(device)
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    plan = None
+    if packed or plan_out or plan_from or show_report or override:
+        plan = make_plan(params, DEFAULT_POLICY, binarize=binarize, plan_out=plan_out,
+                         plan_from=plan_from, show_report=show_report, report_batch=slots,
+                         override=override)
+    pack_seconds = None
+    if packed:
+        t0 = time.perf_counter()
+        params = plan.pack(params, key=prng.key(seed + 1))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        pack_seconds = time.perf_counter() - t0
+    elif plan is not None:
+        print("(--packed not set: serving dense master weights; the compiled plan is "
+              "not applied)")
+    dense_b, packed_b = packed_param_bytes(params)
+    if packed:
+        print(f"packed weights: {dense_b / 1e6:.1f}MB (bf16 dense) -> {packed_b / 1e6:.1f}MB "
+              f"({dense_b / max(packed_b, 1):.1f}x smaller)")
+    tracer = Tracer(fence=trace_fence) if trace else None
+    metrics = MetricsRegistry() if metrics_out else None
+    engine = ServeEngine(cfg, params, tracer=tracer)
+    batcher = SlotBatcher(slots, prompt_len, tracer=tracer)
+    rng = np.random.default_rng(seed)
+    for _ in range(requests):
+        # per-request max_new: uniform in [max(1, max_new - skew), max_new]
+        m = max_new - int(rng.integers(0, max_new_skew + 1))
+        batcher.submit(rng.integers(0, cfg.vocab_size, prompt_len), max(1, m))
+    t0 = time.perf_counter()
+    steps = stream_serve(engine, batcher, max_new_cap=max_new, metrics=metrics)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    res = LMServeResult(cfg=cfg, steps=steps, seconds=time.perf_counter() - t0,
+                        engine=engine, batcher=batcher, plan=plan, dense_bytes=dense_b,
+                        packed_bytes=packed_b, pack_seconds=pack_seconds, tracer=tracer,
+                        metrics=metrics)
+    done = batcher.completed
+    # throughput from tokens actually recorded, never steps * batch
+    ttft = res.median_ttft if done else float("nan")
+    lat = res.median_latency if done else float("nan")
+    print(f"served {len(done)} requests in {steps} decode steps, {res.seconds:.2f}s "
+          f"({res.tokens} tokens, {res.tok_per_s:.1f} tok/s; median TTFT {ttft * 1e3:.1f} ms, "
+          f"median latency {lat * 1e3:.1f} ms)")
+    if metrics is not None:
+        h = metrics["serve_step_seconds"].summary()
+        if h.get("count"):
+            print(f"step latency: p50 {h['p50'] * 1e3:.1f} ms, p95 {h['p95'] * 1e3:.1f} ms, "
+                  f"p99 {h['p99'] * 1e3:.1f} ms over {h['count']} steps")
+        write_metrics(metrics, metrics_out)
+    if tracer is not None:
+        path = tracer.save(trace)
+        info = validate_trace(path)
+        cov = "n/a" if info["coverage"] is None else f"{info['coverage'] * 100:.1f}%"
+        print(f"trace -> {path} ({info['spans']} spans, step coverage {cov}; open in "
+              f"https://ui.perfetto.dev)")
+    return res
+
+
+#: The reference's token-arch flags whose features are not ported yet, and
+#: the ROADMAP item each waits for.
+_DEFERRED_LM_FLAGS = (("prefill_chunk", "--prefill-chunk", "queue 1 item 6b"),
+                      ("prefix_cache", "--prefix-cache", "queue 1 item 6b"),
+                      ("shared_prefix", "--shared-prefix", "queue 1 item 6b"),
+                      ("mesh", "--mesh", "queue 1 item 7"),
+                      ("mesh_shape", "--mesh-shape", "queue 1 item 7"),
+                      ("audit_collectives", "--audit-collectives", "queue 1 item 8"),
+                      ("analyze", "--analyze", "queue 1 item 8"))
+
+
+def main(argv=None) -> ServeResult | LMServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mnist_fc",
-                    choices=list(ARCHS) + ["vgg16-cifar10"])
+                    help=f"{' | '.join(ARCHS)}, or a token arch: "
+                         f"{' | '.join(a for a in cb.ARCH_IDS if a not in ARCHS)} "
+                         f"(the dense family runs)")
     ap.add_argument("--binarize", default="det", choices=["det", "stoch", "xnor"])
+    ap.add_argument("--packed", action="store_true",
+                    help="token archs: serve the plan's packed leaves (without it, the "
+                         "dense masters); the classifiers always serve packed")
     ap.add_argument("--slots", type=int, default=C.BATCH_SIZE,
-                    help="images per batch (the paper's batch is 4)")
-    ap.add_argument("--requests", type=int, default=64)
+                    help="images per batch (the paper's batch is 4), or decode slots")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="requests to serve (default: 64 images, 16 token requests)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="per-request max_new cap (the decode cache is sized for "
+                         "prompt_len + max_new positions)")
+    ap.add_argument("--max-new-skew", type=int, default=0,
+                    help="lower each request's max_new by a random 0..this many tokens "
+                         "(exercises per-step slot refill)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cpu runs the plain versions")
     ap.add_argument("--smoke", action="store_true",
                     help=f"mnist_fc hidden widths {C.SMOKE_HIDDEN} instead of {C.HIDDEN}; "
-                         f"vgg16_cifar10 width_mult {VC.SMOKE_WIDTH_MULT}")
+                         f"vgg16_cifar10 width_mult {VC.SMOKE_WIDTH_MULT}; a token arch's "
+                         f"SMOKE config")
     ap.add_argument("--plan", default="", metavar="OUT.json",
                     help="save the compiled execution-plan manifest to this path")
     ap.add_argument("--plan-from", default="", metavar="IN.json",
@@ -318,14 +490,57 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--replica-axis", default="data", choices=["data", "model"],
                     help="mesh axis the ensemble replica dim shards over (recorded in "
                          "the plan manifest, v3)")
+    ap.add_argument("--trace", default="", metavar="OUT.json",
+                    help="token archs: write a Chrome trace of the serving loop (a span "
+                         "per step: refill/prefill/sample/record/decode, dispatch vs "
+                         "device time); open it in Perfetto")
+    ap.add_argument("--no-trace-fence", action="store_true",
+                    help="with --trace: no device fence (dispatch-only spans; the launch "
+                         "queue is not serialised)")
+    ap.add_argument("--metrics-out", default="", metavar="OUT.json",
+                    help="write the serving metrics here (a .prom/.txt suffix: Prometheus "
+                         "text, else JSON)")
+    ap.add_argument("--prefill-chunk", type=int, default=0, help="not ported (ROADMAP)")
+    ap.add_argument("--prefix-cache", type=int, default=0, help="not ported (ROADMAP)")
+    ap.add_argument("--shared-prefix", type=int, default=0, help="not ported (ROADMAP)")
+    ap.add_argument("--mesh", default="", help="not ported (ROADMAP)")
+    ap.add_argument("--mesh-shape", default="", help="not ported (ROADMAP)")
+    ap.add_argument("--audit-collectives", action="store_true", help="not ported (ROADMAP)")
     args = ap.parse_args(argv)
-    return serve_classifier(arch=args.arch, binarize=args.binarize, slots=args.slots,
-                            requests=args.requests, seed=args.seed, device=args.device,
-                            smoke=args.smoke, plan_out=args.plan, plan_from=args.plan_from,
-                            show_report=args.plan_report, override=args.override,
-                            analyze=args.analyze, ensemble=args.ensemble,
-                            abstain_threshold=args.abstain_threshold,
-                            replica_axis=args.replica_axis)
+    arch = cb.canonical_arch(args.arch)
+    if arch in ARCHS:
+        if args.prefill_chunk or args.prefix_cache or args.shared_prefix:
+            raise SystemExit("--prefill-chunk/--prefix-cache chunk the token-arch prompt "
+                             "admission; the classifier path has no prompts")
+        if args.trace or args.audit_collectives:
+            raise SystemExit("--trace/--audit-collectives instrument the step-level token "
+                             "serving loop; the classifier path is fixed-batch (use "
+                             "--metrics-out)")
+        if args.mesh or args.mesh_shape:
+            raise SystemExit("--mesh: the port serves on one device (ROADMAP queue 1 item 7)")
+        return serve_classifier(arch=arch, binarize=args.binarize, slots=args.slots,
+                                requests=64 if args.requests is None else args.requests,
+                                seed=args.seed, device=args.device, smoke=args.smoke,
+                                plan_out=args.plan, plan_from=args.plan_from,
+                                show_report=args.plan_report, override=args.override,
+                                analyze=args.analyze, ensemble=args.ensemble,
+                                abstain_threshold=args.abstain_threshold,
+                                replica_axis=args.replica_axis, metrics_out=args.metrics_out)
+    if arch not in cb.ARCH_IDS:
+        raise SystemExit(f"unknown --arch {args.arch!r}; one of {', '.join(cb.ARCH_IDS)}")
+    for attr, flag, item in _DEFERRED_LM_FLAGS:
+        if getattr(args, attr):
+            raise SystemExit(f"{flag} is not ported for the token archs yet (ROADMAP {item})")
+    if args.ensemble > 1 or args.abstain_threshold is not None:
+        raise SystemExit("--ensemble on a token arch (the LM ensemble) is not ported yet "
+                         "(ROADMAP queue 1 item 6b)")
+    return serve_lm(arch=arch, packed=args.packed, binarize=args.binarize,
+                    requests=16 if args.requests is None else args.requests,
+                    slots=args.slots, prompt_len=args.prompt_len, max_new=args.max_new,
+                    max_new_skew=args.max_new_skew, seed=args.seed, device=args.device,
+                    smoke=args.smoke, plan_out=args.plan, plan_from=args.plan_from,
+                    show_report=args.plan_report, override=args.override, trace=args.trace,
+                    trace_fence=not args.no_trace_fence, metrics_out=args.metrics_out)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """Base layers: linear and conv application (dense, bitpacked binary, or
 fully binary), batch norm (eval and training mode), the fused batch-norm
-sign of the fully-binary path, and the He initializer.
+sign of the fully-binary path, the He initializer, and the LM layers (the
+scaled-normal initializers, RMS and layer norm, rotary embeddings and the
+embedding lookup, each upcasting to f32 where the reference does).
 
 Models are binarization-agnostic: the serving path substitutes serving
 leaves (:class:`PackedLinear`, :class:`XnorLinear`, :class:`XnorConv`,
@@ -26,16 +28,25 @@ def _nbytes(packed: torch.Tensor, scale: torch.Tensor | None) -> int:
 
 @dataclasses.dataclass
 class _LinearLeaf:
-    """Bitpacked (K, N) weight: words, optional per-column scale, true K."""
+    """Bitpacked (..., K, N) weight: words, optional per-column scale, true
+    K. Leading dims stack layers (an LM's (L, K, N) leaves); ``leaf[i]`` is
+    layer i's leaf."""
 
-    packed: torch.Tensor             # (ceil(k / 32), N) int32
-    scale: torch.Tensor | None       # (N,) f32 or None
+    packed: torch.Tensor             # (*lead, ceil(k / 32), N) int32
+    scale: torch.Tensor | None       # (*lead, N) f32 or None
     k: int                           # true contraction size
 
     @property
     def master_shape(self) -> tuple[int, ...]:
-        """The master weight's (K, N), whatever pad words the layout holds."""
-        return (self.k, self.packed.shape[-1])
+        """The master weight's (*lead, K, N), whatever pad words the layout
+        holds."""
+        return (*self.packed.shape[:-2], self.k, self.packed.shape[-1])
+
+    def __getitem__(self, i: int):
+        if self.packed.ndim < 3:
+            raise IndexError(f"a {tuple(self.packed.shape)} leaf has no stacked dim")
+        return type(self)(self.packed[i], None if self.scale is None else self.scale[i],
+                          self.k)
 
     def nbytes(self) -> int:
         return _nbytes(self.packed, self.scale)
@@ -252,3 +263,76 @@ def layer_batch_norm(x: torch.Tensor, lp: dict, ls: dict, *, training: bool,
                          training=True, axes=axes)
     new_state.append({"mean": m, "var": v})
     return x
+
+
+# ---------------------------------------------------------------------------
+# LM layers
+# ---------------------------------------------------------------------------
+
+
+def lm_init(generator: torch.Generator, shape, *, device, dtype=torch.float32,
+            fan_in: int | None = None) -> torch.Tensor:
+    """Scaled-normal init for transformer projections: std fan_in^-1/2,
+    fan_in the second-to-last dim by default (so stacked (L, K, N) leaves
+    init per layer)."""
+    if fan_in is None:
+        fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    return fan_in ** -0.5 * torch.randn(tuple(shape), generator=generator, device=device,
+                                        dtype=dtype)
+
+
+def embed_init(generator: torch.Generator, shape, *, device,
+               dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis, computed in f32, with the weight
+    ``1 + scale``; returns x's dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of the rotary angles, (B, S, 1, head_dim/2) f32, for
+    positions (B, S) or (S,): one table serves the q and k of a call."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].to(torch.float32) * freqs
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, hd) rotated by a :func:`rope_cos_sin` table, in f32;
+    returns x's dtype."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd) rotated by its positions ((B, S) or (S,))."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows of ``embedding`` (V, D) at ``tokens`` (any shape), cast to ``dtype``."""
+    rows = embedding.index_select(0, tokens.reshape(-1))
+    return rows.reshape(*tokens.shape, embedding.shape[-1]).to(dtype)

@@ -16,16 +16,18 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.packing import unpack_bits
-from repro_torch.core.policy import make_paper_policy
+from repro_torch.core.policy import DEFAULT_POLICY, make_paper_policy
 from repro_torch.engine import ExecutionPlan, compile_plan
 from repro_torch.engine.plan import tree_leaves_with_path, tree_map
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
 from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 from repro_torch.launch import serve
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
 from repro_torch.stoch import ensemble_forward, sample_replicas
 from repro_torch.xnor import cases as k3_cases
+from repro_torch.xnor import ops as xops
 from repro_torch.xnor.conv import cases as k5_cases
 from repro_torch.xnor.conv.kernel import patch_pack, patch_pack_plain
 from repro_torch.xnor.conv.ops import xnor_conv2d
@@ -822,3 +824,113 @@ def test_train_steps_replay_bit_for_bit_on_the_card(cuda):
     a, b = run(), run()
     for (path, x), (_, y) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
         assert (x == y) if isinstance(x, prng.Key) else torch.equal(x, y), path
+
+
+# ---------------------------------------------------------------------------
+# the dense LM serve (StarCoder2-3B's projection shapes, bf16 activations)
+# ---------------------------------------------------------------------------
+
+# (K, N) of StarCoder2-3B's four projections: qkv, w_o, wi, wo
+LM_KN = [(3072, 3584), (3072, 3072), (3072, 12288), (12288, 3072)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 32])          # decode (4 slots), prefill (32 tokens)
+@pytest.mark.parametrize("k,n", [(3072, 3584), (3072, 12288), (12288, 3072)])
+def test_k2_at_the_lm_shapes_matches_plain(cuda, m, k, n):
+    """bf16 activations: products with +-1 are exact and both sides sum in
+    f32, so only the sum order differs (f32 tolerance, at K up to 12288)."""
+    x, wp, scale = _k2_inputs(m, k, n, torch.bfloat16, True, cuda)
+    torch.testing.assert_close(binary_matmul(x, wp, scale), binary_matmul_plain(x, wp, scale),
+                               **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(4, 12288), (4, 3072), (32, 12288)])
+def test_k3_on_bf16_lm_activations(cuda, m, k):
+    """Eq. 1 on bf16 activations at the LM's widths, the threshold values
+    planted (bf16 has f32's exponent range, so 2^-126 is its threshold too)."""
+    x = _acts((m, k), m * k, cuda, torch.bfloat16)
+    plants = torch.tensor([2.0 ** -126, -(2.0 ** -126), 2.0 ** -127, -(2.0 ** -133), 1.0],
+                          device=cuda).to(torch.bfloat16)
+    x[0, 3:3 + plants.numel()] = plants
+    got = sign_pack(x)
+    assert torch.equal(got, sign_pack_plain(x))
+    bits = unpack_activations(got)[0, 3:3 + plants.numel()]
+    assert bits.tolist() == [1, -1, -1, -1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("n", [3072, 3584, 12288])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_k4_at_k_12288(cuda, m, n, scaled):
+    """384-word rows (the LM's wo input), exact."""
+    a, w = _words((m, 384), m + n, cuda), _words((384, n), n, cuda)
+    scale = (torch.from_numpy(np.random.default_rng(n).uniform(0.5, 2, n)
+                              .astype(np.float32)).to(cuda) if scaled else None)
+    assert torch.equal(xnor_matmul(a, w, scale, k_total=12288),
+                       xnor_matmul_plain(a, w, scale, k_total=12288))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "stoch", "xnor"])
+def test_stacked_k1_pack_matches_the_cpu(cuda, mode):
+    """A stacked (L, K, N) leaf packs one K1 launch a layer, and its words
+    equal the CPU's plain pack (stoch: the twin's words per layer key)."""
+    rng = np.random.default_rng(5)
+    tree = {"layers": {"mlp": {"wi": torch.from_numpy(
+        rng.normal(size=(3, 3072, 512)).astype(np.float32))}}}
+    plan = compile_plan(tree, DEFAULT_POLICY, mode)
+    before = binarize_pack.launches
+    got = plan.pack(tree_map(lambda t: t.to(cuda), tree), key=prng.key(9))
+    assert binarize_pack.launches - before == 3
+    want = plan.pack(tree, key=prng.key(9))
+    a, b = got["layers"]["mlp"]["wi"], want["layers"]["mlp"]["wi"]
+    assert a.packed.shape == (3, 96, 512) and torch.equal(a.packed.cpu(), b.packed)
+    torch.testing.assert_close(a.scale.cpu(), b.scale, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "stoch", "xnor"])
+def test_lm_serve_on_the_card(cuda, mode):
+    """starcoder2's SMOKE config (2 layers, f32) served on the card: the
+    counters are exact (4 projections a layer, per prefill and decode step),
+    every stream equals the one-shot generate, and the logits equal the same
+    forward with the plain kernels on the card (xnor bit for bit)."""
+    counts = (binary_matmul, sign_pack, xnor_matmul)
+    before = [f.launches for f in counts]
+    res = serve.serve_lm(arch="starcoder2_3b", smoke=True, packed=True, binarize=mode,
+                         requests=5, slots=2, prompt_len=8, max_new=3, device="cuda")
+    calls = 2 * 4 * (5 + res.steps - 1)          # layers x projections x calls
+    got = [f.launches - b for f, b in zip(counts, before)]
+    assert got == ([calls, 0, 0] if mode != "xnor" else [0, calls, calls])
+    eng = res.engine
+    for r in res.batcher.completed:
+        assert eng.generate(r.prompt[None], r.max_new).tokens[0].tolist() == r.generated
+    prompts = torch.from_numpy(np.stack([r.prompt for r in res.batcher.completed])).to(cuda)
+    logits = T.forward(res.cfg, eng.params, prompts)[0]
+    saved = (ops._binary_matmul, xops._sign_pack, xops._xnor_matmul)
+    ops._binary_matmul, xops._sign_pack, xops._xnor_matmul = (
+        binary_matmul_plain, sign_pack_plain, xnor_matmul_plain)
+    try:
+        plain = T.forward(res.cfg, eng.params, prompts)[0]
+    finally:
+        ops._binary_matmul, xops._sign_pack, xops._xnor_matmul = saved
+    if mode == "xnor":
+        assert torch.equal(logits, plain)
+    else:
+        torch.testing.assert_close(logits, plain, **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_lm_trace_splits_dispatch_and_device_on_the_card(cuda, tmp_path):
+    from repro_torch.obs import validate_trace
+
+    res = serve.serve_lm(arch="starcoder2_3b", smoke=True, packed=True, requests=3,
+                         slots=2, prompt_len=8, max_new=3, device="cuda",
+                         trace=str(tmp_path / "t.json"))
+    info = validate_trace(str(tmp_path / "t.json"))
+    assert info["root"] == "stream_serve" and info["coverage"] >= 0.95
+    names = [e["name"] for e in res.tracer.events]
+    assert names.count("device") == names.count("dispatch") > 0

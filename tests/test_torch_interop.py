@@ -94,8 +94,15 @@ for name in names:
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
           and sys.modules[m] is not None]
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
+
+#: Modules the LM slice added; the walk must reach each of them.
+_LM_SLICE = ("repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.__main__",
+             "repro_torch.configs.base", "repro_torch.configs.starcoder2_3b",
+             "repro_torch.configs.jamba_1_5_large", "repro_torch.models.attention",
+             "repro_torch.models.mlp", "repro_torch.models.transformer",
+             "repro_torch.serve.batcher", "repro_torch.serve.engine")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -103,4 +110,6 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _ISOLATION], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30      # every module was imported
+    names = out.stdout.split()
+    assert len(names) >= 30                       # every module was imported
+    assert set(_LM_SLICE) <= set(names)
