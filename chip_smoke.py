@@ -130,6 +130,30 @@ traced serve (``--trace``, written to ``build/lm_trace.json``) that
 split of ``decode_step`` and ``prefill_into``. Phase 7 times K2, K3 and K4
 at the LM decode shapes.
 
+Since the rest of the dense LM serve engine (phase 6f, about two minutes
+more), from the same StarCoder2-3B masters at full width: chunked prefill
+with the prefix cache in det and xnor (``LM_CHUNK``: 16 requests sharing a
+16-token prompt prefix plus one repeating request ``LM_REPEAT_OF``'s
+prompt, 4 slots, chunks of 8, a 32-entry cache): launch counters exact
+(120 K2, or 120 K3 + 120 K4, per decode step and per chunk, so a fused
+step runs both), at least one prefix hit and tokens skipped, the repeated
+prompt's full-prompt hit emitting its twin's stream, every stream equal to
+the same engine's whole-prompt stream up to a near tie under
+``LM_LOGIT_TOL`` (the smallest margin printed); wall ms, device ms and
+device launches of a decode step, a chunk alone and a fused step; tok/s
+and median TTFT; and a traced chunked det serve (``build/
+lm_chunked_trace.json``, coverage >= 0.95) with the dispatch/device split
+of ``decode_prefill``, ``prefill_chunk``, ``decode_step`` and
+``prefix_splice``. Temperature sampling (det, T = 0.8, key 5): the uniform
+words under the first draw on the card equal the CPU twin's, and the
+sampled tokens equal the same sampling with the plain kernels up to a
+near tie of logits / T + gumbel. The K = 4 stochastic ensemble (8
+requests, 8 new tokens): K1 120 x 4 at pack and K2 120 x 4 per prefill and
+decode step, every stream equal to the ensemble's one-shot ``generate``,
+agreement in [0, 1] and variance >= 0, a K = 1 ensemble's tokens and
+logprobs equal to the stoch-packed engine's bit for bit; replica bytes,
+pack seconds, tok/s and the decode step's wall and device ms.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -224,6 +248,18 @@ LM_KN = [(3072, 3584), (3072, 3072), (3072, 12288), (12288, 3072)]
 # Greedy tokens must agree up to the first step whose top-2 logit margin
 # (of the plain run) is under that tolerance.
 LM_LOGIT_TOL = 2.0 ** -5
+# The rest of the serve engine (phase 6f), from the same masters: chunked
+# prefill with a prefix cache (det, xnor): 16 requests whose first 16 prompt
+# tokens are shared, then one more repeating request LM_REPEAT_OF's prompt
+# (a full-prompt hit), chunks of 8 tokens, a 32-entry cache; temperature
+# sampling (det) at T = 0.8 from key 5; and the K = 4 stochastic ensemble on
+# 8 requests of 8 new tokens. A fused step runs 120 K2 for its decode and
+# 120 for its chunk (xnor: 120 K3 + 120 K4 each); an ensemble step 120 x K.
+LM_CHUNK = dict(requests=16, slots=4, prompt_len=32, max_new=16, prefill_chunk=8,
+                prefix_cache=32, shared_prefix=16)
+LM_REPEAT_OF = 2
+LM_TEMPERATURE, LM_TEMPERATURE_KEY = 0.8, 5
+LM_ENSEMBLE = dict(k=4, requests=8, slots=4, prompt_len=32, max_new=8)
 
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
 VGG_XNOR_CONVS = [((4, 16, 16, 64), 128), ((4, 16, 16, 128), 128),
@@ -1240,6 +1276,26 @@ def main() -> int:
         top2 = torch.topk(logits, 2, dim=-1).values
         return top2[..., 0] - top2[..., 1]
 
+    def span_split(tracer, parents) -> dict[str, tuple[int, float, float]]:
+        """parent span -> (spans, mean dispatch ms, mean device ms) of a
+        fenced trace: each entry point's time split into the host issuing
+        kernels and the fence's wait for the card."""
+        spans = [e for e in tracer.events if e["ph"] == "X"]
+        split = {}
+        for parent in parents:
+            outer = [e for e in spans if e["name"] == parent]
+            kids = {"dispatch": 0.0, "device": 0.0}
+            for o in outer:
+                for e in spans:
+                    if (e["name"] in kids and e["args"]["depth"] == o["args"]["depth"] + 1
+                            and o["ts"] <= e["ts"] <= o["ts"] + o["dur"]):
+                        kids[e["name"]] += e["dur"] / 1e3
+            n = max(len(outer), 1)
+            split[parent] = (len(outer), kids["dispatch"] / n, kids["device"] / n)
+            print(f"  {parent}: {len(outer)} spans, dispatch {split[parent][1]:.3f} ms + "
+                  f"device {split[parent][2]:.3f} ms a call (means)")
+        return split
+
     for mode in LM_MODES:
         print(f"== serve {LM_ARCH} full width ({lm_cfg.n_layers} layers, d_model "
               f"{lm_cfg.d_model}, d_ff {lm_cfg.d_ff}, vocab {lm_cfg.vocab_size}, "
@@ -1399,24 +1455,294 @@ def main() -> int:
     info = validate_trace(str(trace_path))
     if info["root"] != "stream_serve" or info["coverage"] < 0.95:
         raise AssertionError(f"trace: {info}")
-    spans = [e for e in res.tracer.events if e["ph"] == "X"]
-    split = {}
-    for parent in ("decode_step", "prefill_into"):
-        outer = [e for e in spans if e["name"] == parent]
-        kids = {"dispatch": 0.0, "device": 0.0}
-        for o in outer:
-            for e in spans:
-                if (e["name"] in kids and e["args"]["depth"] == o["args"]["depth"] + 1
-                        and o["ts"] <= e["ts"] <= o["ts"] + o["dur"]):
-                    kids[e["name"]] += e["dur"] / 1e3
-        split[parent] = (len(outer), kids["dispatch"] / len(outer), kids["device"] / len(outer))
-        print(f"  {parent}: {len(outer)} spans, dispatch {split[parent][1]:.3f} ms + device "
-              f"{split[parent][2]:.3f} ms a call (means)")
+    split = span_split(res.tracer, ("decode_step", "prefill_into"))
     print(f"  trace: {info['spans']} spans, coverage {info['coverage'] * 100:.1f}%; traced "
           f"{res.tok_per_s:.1f} tok/s")
     lm_rows["trace"] = {"coverage": info["coverage"], "split": split,
                         "tok_s": res.tok_per_s}
     del res
+    torch.cuda.empty_cache()
+
+    # 6f. the rest of the dense LM serve engine at StarCoder2-3B's full width,
+    # from the masters 6e served (seed 0): chunked prefill with the prefix
+    # cache (det, xnor), temperature sampling (det), the K-replica ensemble
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serve import PrefixCache, ServeEngine, SlotBatcher, stream_serve
+    from repro_torch.serve.engine import tempered
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def expect_counts(tag, run, want_nonzero):
+        """Reads the counters after ``run`` and holds them against
+        ``want_nonzero`` (every other counter 0); records them as a main-path
+        run."""
+        got = launch_counts()
+        want = {name: 0 for name in counters}
+        want.update(want_nonzero)
+        print(f"  launches {got}")
+        if got != want:
+            raise AssertionError(f"{tag}: expected launches {want}")
+        for name, count in got.items():
+            launches[name][(LM_ARCH, run[0])] = count
+        run_mode[(LM_ARCH, run[0])] = run[1]
+
+    def serve_streams(engine, prompts, max_new, slots, **kw):
+        """(streams by uid, batcher, steps, synced seconds) of one stream_serve."""
+        b = SlotBatcher(slots, len(prompts[0]))
+        for p_ in prompts:
+            b.submit(p_, max_new)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = stream_serve(engine, b, max_new_cap=max_new, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if len(b.completed) != len(prompts) or b.tokens_generated != len(prompts) * max_new:
+            raise AssertionError(f"served {len(b.completed)} of {len(prompts)} requests")
+        return {r.uid: list(r.generated) for r in b.completed}, b, steps, secs
+
+    def synced_ms(fn, reps):
+        wall = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        return statistics.median(wall) * 1e3
+
+    def step_costs(fn, reps=5):
+        """(wall ms synced median, device ms, device launches) of one call."""
+        dev_k = profiled(fn, reps=3)
+        return synced_ms(fn, reps), dev_k and sum(dev_k.values()), kernels_per_rep(fn, reps=3)
+
+    def first_diff(a, b):
+        return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+
+    masters = T.init_lm(lm_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    vocab = lm_cfg.vocab_size
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, LM_CHUNK["shared_prefix"])
+    chunk_prompts = []
+    for _ in range(LM_CHUNK["requests"]):
+        p_ = rng.integers(0, vocab, LM_CHUNK["prompt_len"])
+        p_[:len(shared)] = shared
+        chunk_prompts.append(p_)
+    chunk_prompts.append(chunk_prompts[LM_REPEAT_OF].copy())
+    n_req, repeat = len(chunk_prompts), len(chunk_prompts) - 1
+    c_new, c_slots, c_len = LM_CHUNK["max_new"], LM_CHUNK["slots"], LM_CHUNK["prefill_chunk"]
+    lm_packed, lm6f = {}, {}
+    for mode in ("det", "xnor"):
+        print(f"== serve {LM_ARCH} full width --packed --binarize {mode}, chunked prefill "
+              f"and the prefix cache: {LM_CHUNK}, request {repeat} repeating request "
+              f"{LM_REPEAT_OF}'s prompt")
+        lm_packed[mode] = packed = compile_plan(masters, DEFAULT_POLICY, mode).pack(
+            masters, key=prng.key(1))
+        engine = ServeEngine(lm_cfg, packed)
+        whole, wb, _, wsecs = serve_streams(engine, chunk_prompts, c_new, c_slots)
+        w_ttft = statistics.median(r.ttft for r in wb.completed) * 1e3
+        print(f"  whole-prompt admission of the same requests: "
+              f"{wb.tokens_generated / wsecs:.1f} tok/s, median TTFT {w_ttft:.1f} ms")
+        pc, reg = PrefixCache(max_entries=LM_CHUNK["prefix_cache"]), MetricsRegistry()
+        reset_counts()
+        streams, b, steps, secs = serve_streams(engine, chunk_prompts, c_new, c_slots,
+                                                prefill_chunk=c_len, prefix_cache=pc,
+                                                metrics=reg)
+        chunks = int(reg["serve_prefill_chunks_total"].value)
+        # every decode (steps - 1: the last emission needs none) and every
+        # chunk runs the 120 projections once; a fused step does both
+        calls = steps - 1 + chunks
+        print(f"  {steps - 1} decode steps + {chunks} prefill chunks, x {n_proj} projections")
+        expect_counts(f"{LM_ARCH} {mode} chunked", (f"{mode} chunked", mode),
+                      {name: n_proj * calls for name in
+                       (("sign_pack", "xnor_matmul") if mode == "xnor" else ("binary_matmul",))})
+        st = pc.stats()
+        print(f"  prefix cache: {st}")
+        if st["hits"] < 1 or st["tokens_skipped"] <= 0:
+            raise AssertionError(f"{LM_ARCH} {mode}: no prefix hit")
+        if streams[repeat] != streams[LM_REPEAT_OF]:
+            raise AssertionError(f"{LM_ARCH} {mode}: request {repeat}'s full-prompt hit "
+                                 f"differs from request {LM_REPEAT_OF}'s stream")
+        # every chunked stream against the same engine's whole-prompt stream,
+        # up to a near tie on the whole-prompt greedy path
+        lg = lm_greedy(engine, torch.from_numpy(np.stack(chunk_prompts)).to(dev), c_new)
+        tol = LM_LOGIT_TOL * lg.abs().amax(dim=-1)
+        margin = top2_margin(lg)
+        n_equal = 0
+        for uid in range(n_req):
+            if streams[uid] == whole[uid]:
+                n_equal += 1
+                continue
+            i = first_diff(streams[uid], whole[uid])
+            print(f"  request {uid}: chunked stream equals the whole-prompt one up to step "
+                  f"{i}, where the top-2 margin is {margin[uid, i].item():.4g} (tolerance "
+                  f"{tol[uid, i].item():.4g})")
+            if margin[uid, i] >= tol[uid, i]:
+                raise AssertionError(f"{LM_ARCH} {mode}: request {uid}'s chunked stream "
+                                     f"diverges with a top-2 margin above the tolerance")
+        print(f"  {n_equal}/{n_req} chunked streams equal the whole-prompt streams (smallest "
+              f"top-2 margin on the whole-prompt path {margin.min().item():.4g}); request "
+              f"{repeat}'s full-prompt hit emits request {LM_REPEAT_OF}'s stream")
+
+        # a decode step, a chunk alone and the fused step: slots 0-2 decoding,
+        # slot 3 with its first chunk in, its second chunk next
+        state = engine.init_decode(c_slots, LM_CHUNK["prompt_len"], c_new)
+        for slot in range(c_slots - 1):
+            state = engine.prefill_into(state, slot, chunk_prompts[slot])
+        mid = chunk_prompts[c_slots - 1]
+        state = engine.prefill_chunk_into(state, c_slots - 1, mid[:c_len], 0)
+        tok = torch.argmax(state.logits, dim=-1)
+        keep = [False] * (c_slots - 1) + [True]
+        parts = {
+            "decode_step": lambda: engine.decode_step(state, tok),
+            "prefill_chunk_into": lambda: engine.prefill_chunk_into(
+                state, c_slots - 1, mid[c_len:2 * c_len], c_len),
+            "fused_step": lambda: engine.fused_step(state, tok, keep, c_slots - 1,
+                                                    mid[c_len:2 * c_len], c_len)}
+        costs = {name: step_costs(fn) for name, fn in parts.items()}
+        for name, (w_ms, d_ms, n_k) in costs.items():
+            print(f"  {name}: wall {w_ms:.3f} ms (synced median of 5), device {fmt(d_ms)} ms "
+                  f"in {fmt_count(n_k)} device launches")
+        row = {"tok_s": b.tokens_generated / secs, "seconds": secs, "steps": steps,
+               "chunks": chunks, "ttft_ms": statistics.median(r.ttft for r in b.completed) * 1e3,
+               "prefix": st, "n_equal": n_equal, "margin": margin.min().item(), "costs": costs,
+               "whole_tok_s": wb.tokens_generated / wsecs, "whole_ttft_ms": w_ttft}
+        print(f"  {row['tok_s']:.1f} tok/s ({steps} steps in {secs:.3f} s), median TTFT "
+              f"{row['ttft_ms']:.1f} ms")
+        if mode == "det":
+            # a traced chunked serve: the fused step's dispatch/device split
+            tr = Tracer()
+            path = Path(__file__).resolve().parent / "build" / "lm_chunked_trace.json"
+            _, tb, _, tsecs = serve_streams(
+                ServeEngine(lm_cfg, packed, tracer=tr), chunk_prompts, c_new, c_slots,
+                prefill_chunk=c_len, prefix_cache=PrefixCache(max_entries=LM_CHUNK["prefix_cache"]))
+            info = validate_trace(tr.save(str(path)))
+            if info["root"] != "stream_serve" or info["coverage"] < 0.95:
+                raise AssertionError(f"chunked trace: {info}")
+            print(f"== traced chunked serve {LM_ARCH} det (fenced; {path.name}): "
+                  f"{info['spans']} spans, coverage {info['coverage'] * 100:.1f}%, "
+                  f"{tb.tokens_generated / tsecs:.1f} tok/s")
+            row["split"] = span_split(tr, ("decode_prefill", "prefill_chunk", "decode_step",
+                                           "prefix_splice"))
+        lm6f[mode] = row
+        del engine, state, lg
+
+    # temperature sampling (det): the words on the card against the CPU twin's,
+    # and the sampled tokens against the same sampling with the plain kernels
+    print(f"== {LM_ARCH} det, temperature {LM_TEMPERATURE} at key {LM_TEMPERATURE_KEY}: the "
+          f"first {c_slots} prompts, {c_new} tokens")
+    engine = ServeEngine(lm_cfg, lm_packed["det"])
+    prompts4 = torch.from_numpy(np.stack(chunk_prompts[:c_slots])).to(dev)
+    tkey = prng.key(LM_TEMPERATURE_KEY)
+    first = prng.split(tkey)[1]
+    shape = (c_slots, vocab)
+    u_dev = prng.uniform(first, shape, dev, minval=prng.TINY32, maxval=1.0)
+    u_cpu = prng.uniform(first, shape, minval=prng.TINY32, maxval=1.0)
+    if not torch.equal(u_dev.cpu().view(torch.int32), u_cpu.view(torch.int32)):
+        raise AssertionError("uniform words under categorical differ from the CPU's")
+    g_err = (prng.gumbel(first, shape, dev).cpu() - prng.gumbel(first, shape)).abs().max().item()
+    print(f"  the first draw's {c_slots}x{vocab} uniform words on the card == the CPU twin's; "
+          f"gumbel max |card - CPU| {g_err:.3g}")
+
+    def sampled(max_new):
+        """(tokens, top-2 margins of logits / T + gumbel, tolerance), each
+        (B, max_new), along generate's tempered path and key chain."""
+        key_, toks, margins, tols = tkey, [], [], []
+        with torch.inference_mode():
+            lg_, cache = T.prefill(lm_cfg, engine.params, prompts4,
+                                   max_len=prompts4.shape[1] + max_new)
+            for i in range(max_new):
+                key_, sub = prng.split(key_)
+                x = tempered(lg_, LM_TEMPERATURE)
+                y = x + prng.gumbel(sub, tuple(x.shape), dev)
+                tok_ = torch.argmax(y, dim=-1).to(torch.int32)
+                toks.append(tok_)
+                margins.append(top2_margin(y))
+                tols.append(LM_LOGIT_TOL * x.abs().amax(dim=-1))
+                if i < max_new - 1:
+                    lg_, cache = T.decode_step(lm_cfg, engine.params, cache, tok_[:, None])
+        return torch.stack(toks, 1), torch.stack(margins, 1), torch.stack(tols, 1)
+
+    reset_counts()
+    gen = engine.generate(prompts4, c_new, temperature=LM_TEMPERATURE, key=tkey)
+    expect_counts(f"{LM_ARCH} det temperature", ("det temperature", "det"),
+                  {"binary_matmul": n_proj * c_new})
+    k_tok, _, _ = sampled(c_new)
+    if not torch.equal(gen.tokens, k_tok):
+        raise AssertionError("generate(temperature) differs from its own sampling path")
+    with plain_kernels():
+        p_tok, p_margin, p_tol = sampled(c_new)
+    for b_ in range(c_slots):
+        a, c = gen.tokens[b_].tolist(), p_tok[b_].tolist()
+        if a == c:
+            continue
+        i = first_diff(a, c)
+        print(f"  request {b_}: tempered tokens equal the plain kernels' up to step {i}, "
+              f"margin {p_margin[b_, i].item():.4g} (tolerance {p_tol[b_, i].item():.4g})")
+        if p_margin[b_, i] >= p_tol[b_, i]:
+            raise AssertionError(f"tempered request {b_} diverges above the tolerance")
+    t_equal = sum(gen.tokens[b_].tolist() == p_tok[b_].tolist() for b_ in range(c_slots))
+    print(f"  {t_equal}/{c_slots} tempered streams equal the plain kernels' (smallest "
+          f"top-2 margin of logits / T + gumbel {p_margin.min().item():.4g})")
+    lm6f["temperature"] = {"equal": t_equal, "margin": p_margin.min().item(), "g_err": g_err}
+    del engine, lm_packed
+
+    # the K-replica ensemble (stoch)
+    ek, e_new, e_slots = LM_ENSEMBLE["k"], LM_ENSEMBLE["max_new"], LM_ENSEMBLE["slots"]
+    print(f"== {LM_ARCH} full width, stoch ensemble: {LM_ENSEMBLE}")
+    plan_s = compile_plan(masters, DEFAULT_POLICY, "stoch")
+    erng = np.random.default_rng(1)
+    e_prompts = [erng.integers(0, vocab, LM_ENSEMBLE["prompt_len"])
+                 for _ in range(LM_ENSEMBLE["requests"])]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = sample_replicas(masters, plan_s, prng.key(1), ek)
+    torch.cuda.synchronize()
+    e_pack_s = time.perf_counter() - t0
+    engine = ServeEngine(lm_cfg, None, ensemble=rs)
+    streams, b, steps, secs = serve_streams(engine, e_prompts, e_new, e_slots)
+    print(f"  {ek} x {n_proj} K1 at pack; {LM_ENSEMBLE['requests']} prefills + {steps - 1} "
+          f"decode steps x {ek} replicas x {n_proj} projections")
+    expect_counts(f"{LM_ARCH} ensemble", ("stoch ensemble", "stoch"),
+                  {"binarize_pack": n_proj * ek,
+                   "binary_matmul": n_proj * ek * (LM_ENSEMBLE["requests"] + steps - 1)})
+    agr = [a for r in b.completed for a in r.agreement]
+    var = [v for r in b.completed for v in r.variance]
+    if not (all(0.0 <= a <= 1.0 for a in agr) and min(var) >= 0.0):
+        raise AssertionError("ensemble agreement outside [0, 1] or a negative variance")
+    for r in b.completed:
+        one = engine.generate(r.prompt[None], r.max_new)
+        if one.tokens[0].tolist() != r.generated:
+            raise AssertionError(f"ensemble request {r.uid}'s stream differs from its "
+                                 f"one-shot generate")
+    print(f"  all {len(b.completed)} streams equal the ensemble's one-shot generate; vote "
+          f"agreement mean {statistics.fmean(agr):.3f} (min {min(agr):.3f}), variance mean "
+          f"{statistics.fmean(var):.4g}")
+    # K = 1 is the stochastic single-sample engine (rs.base is plan.pack at
+    # the same key), tokens and logprobs bit for bit
+    e_prompts4 = torch.from_numpy(np.stack(e_prompts[:e_slots])).to(dev)
+    single = ServeEngine(lm_cfg, rs.base).generate(e_prompts4, e_new)
+    one_rs = sample_replicas(masters, plan_s, prng.key(1), 1)
+    k1 = ServeEngine(lm_cfg, None, ensemble=one_rs).generate(e_prompts4, e_new)
+    if not (torch.equal(single.tokens, k1.tokens) and torch.equal(single.logprobs, k1.logprobs)):
+        raise AssertionError("the K = 1 ensemble differs from the stoch-packed engine")
+    print(f"  K = 1: tokens and logprobs equal the stoch-packed engine's bit for bit")
+    del one_rs, single, k1
+    state = engine.init_decode(e_slots, LM_ENSEMBLE["prompt_len"], e_new)
+    for slot in range(e_slots):
+        state = engine.prefill_into(state, slot, e_prompts[slot])
+    tok = torch.argmax(state.logits, dim=-1)
+    e_step = step_costs(lambda: engine.decode_step(state, tok), reps=5)
+    lm6f["ensemble"] = {"bytes": rs.tree_nbytes(), "pack_s": e_pack_s,
+                        "tok_s": b.tokens_generated / secs, "steps": steps, "seconds": secs,
+                        "step": e_step, "agreement": statistics.fmean(agr)}
+    print(f"  {ek} replicas {rs.tree_nbytes() / 1e6:.1f} MB (shared leaves once); pack "
+          f"{e_pack_s:.3f} s; {lm6f['ensemble']['tok_s']:.1f} tok/s ({steps} steps in "
+          f"{secs:.3f} s); decode step wall {e_step[0]:.3f} ms, device {fmt(e_step[1])} ms "
+          f"in {fmt_count(e_step[2])} device launches")
+    del engine, state, rs, masters
     torch.cuda.empty_cache()
 
     # 7. timing at the path shapes
@@ -1753,8 +2079,9 @@ def main() -> int:
         return (ms, plain_ms, max(t_b, t_o), t_b, t_o, lib_ms, dev_ms)
 
     print(f"== {LM_ARCH} decode shapes (M = 4 slots; a layer runs qkv, w_o, wi, wo)")
-    lm_k2_runs = [(LM_ARCH, "det"), (LM_ARCH, "stoch")]
-    lm_x = [(LM_ARCH, "xnor")]
+    lm_k2_runs = [(LM_ARCH, r) for r in ("det", "stoch", "det chunked", "det temperature",
+                                          "stoch ensemble")]
+    lm_x = [(LM_ARCH, "xnor"), (LM_ARCH, "xnor chunked")]
     lm_k2 = [k2_lm_row(4, k, n) for k, n in LM_KN]
     kernels.append({**entry(f"binary_matmul ({LM_ARCH} det/stoch decode, bf16 M=4, scaled: "
                             f"the 4 projections of a layer, summed)",
@@ -1834,6 +2161,26 @@ def main() -> int:
     print(f"  traced det: coverage {tr['coverage'] * 100:.1f}%, {tr['tok_s']:.1f} tok/s; "
           + "; ".join(f"{k} dispatch {d:.3f} + device {v:.3f} ms ({n} calls)"
                       for k, (n, d, v) in tr["split"].items()))
+    for mode in ("det", "xnor"):
+        r = lm6f[mode]
+        print(f"  chunked {mode}: {r['tok_s']:.1f} tok/s ({r['steps']} steps, {r['chunks']} "
+              f"chunks in {r['seconds']:.3f} s), median TTFT {r['ttft_ms']:.1f} ms (whole-prompt "
+              f"admission {r['whole_tok_s']:.1f} tok/s, {r['whole_ttft_ms']:.1f} ms), prefix "
+              f"{r['prefix']['hits']} hits / {r['prefix']['misses']} misses, "
+              f"{r['prefix']['tokens_skipped']} tokens skipped; {r['n_equal']}/{n_req} streams "
+              f"equal the whole-prompt ones; "
+              + "; ".join(f"{k} {w:.3f} ms wall, {fmt(d)} device, {fmt_count(n)} launches"
+                          for k, (w, d, n) in r["costs"].items()))
+    print("  traced chunked det: " + "; ".join(
+        f"{k} dispatch {d:.3f} + device {v:.3f} ms ({n} calls)"
+        for k, (n, d, v) in lm6f["det"]["split"].items()))
+    t_, e_ = lm6f["temperature"], lm6f["ensemble"]
+    print(f"  temperature: {t_['equal']}/4 streams equal the plain kernels', smallest margin "
+          f"{t_['margin']:.4g}, gumbel card vs CPU {t_['g_err']:.3g}")
+    print(f"  ensemble K={LM_ENSEMBLE['k']}: {e_['bytes'] / 1e6:.1f} MB, pack "
+          f"{e_['pack_s']:.3f} s, {e_['tok_s']:.1f} tok/s, decode step {e_['step'][0]:.3f} ms "
+          f"wall, {fmt(e_['step'][1])} device, {fmt_count(e_['step'][2])} launches, mean "
+          f"agreement {e_['agreement']:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,21 @@ the same words bit for bit, so a stochastic pack of the port at
 * ``bits(k, shape)[i]``  -> x0 ^ x1 of threefry2x32(k, (i >> 32, i mod 2^32)),
                             i the row-major flat index
 * ``uniform(k, shape)``  -> f32 with mantissa bits >> 9 of ``bits``, minus 1
+                            (then ``* (maxval - minval) + minval``, floored at
+                            ``minval``)
+* ``categorical(k, l)``  -> argmax(gumbel + l) over the last axis, the gumbel
+                            draw ``-log(-log(uniform(k, l.shape, tiny, 1)))``
+                            (jax's default "low" mode)
 
 A key is a :class:`Key` of two Python ints, so key arithmetic never touches
 a device. Words are computed on int64 tensors holding uint32 values, with
-every add, rotate and xor masked to 32 bits. This is pack-time work: the
-reference draws these words with plain ``jax.random`` calls outside any
-kernel, and plain torch on the leaf's device is its counterpart.
+every add, rotate and xor masked to 32 bits. This is pack-time and
+sampling-time work: the reference draws these words with plain
+``jax.random`` calls outside any kernel, and plain torch on the leaf's (or
+the logits') device is its counterpart. The uniform words are the
+reference's bit for bit; the gumbel draw's two ``log`` calls may differ from
+XLA's in the last ulp, so a categorical sample can differ only where the
+top two of ``logits + gumbel`` are that close.
 """
 from __future__ import annotations
 
@@ -86,7 +95,32 @@ def bits(k: Key, shape, device=None) -> torch.Tensor:
     return to_int32(_words(k, shape, device))
 
 
-def uniform(k: Key, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(k, shape, float32)`` on [0, 1)."""
+def uniform(k: Key, shape, device=None, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``: the [0, 1)
+    floats scaled as jax scales them, in f32."""
     mant = ((_words(k, shape, device) >> 9) | 0x3F800000).to(torch.int32)
-    return mant.view(torch.float32) - 1.0
+    floats = mant.view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+TINY32 = torch.finfo(torch.float32).tiny
+
+
+def gumbel(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(k, shape, float32)`` in its default "low" mode."""
+    return -torch.log(-torch.log(uniform(k, shape, device, minval=TINY32, maxval=1.0)))
+
+
+def categorical(k: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(k, logits, axis=-1)`` for f32 ``logits``:
+    int32 indices of the Gumbel-max sample over the last axis (the first
+    index where two are equal, as ``jnp.argmax``)."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes f32 logits, got {logits.dtype}")
+    g = gumbel(k, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits, dim=-1).to(torch.int32)

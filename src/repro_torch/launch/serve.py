@@ -29,6 +29,19 @@ OUT.json|.prom`` the serving metrics:
       --packed --binarize xnor --requests 16 --slots 4 --prompt-len 32 \
       --max-new 16 --trace build/trace.json --metrics-out build/metrics.prom
 
+``--prefill-chunk C`` admits prompts C tokens at a time through the fused
+decode + prefill step, ``--prefix-cache N`` keeps an N-entry LRU of prompt
+prefix snapshots (``--shared-prefix P`` gives every request the same first
+P tokens, so they hit), and ``--ensemble K`` (``--packed --binarize
+stoch``) serves K stochastic replicas from their mean logits, reporting
+vote agreement (``--abstain-threshold A`` flags requests below A):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
+      --packed --binarize det --prefill-chunk 8 --prefix-cache 32 \
+      --shared-prefix 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
+      --packed --binarize stoch --ensemble 4 --abstain-threshold 0.6
+
 Plan manifests, as the reference's serve: ``--plan OUT.json`` saves the
 compiled plan, ``--plan-from IN.json`` serves a saved one (its mode
 supersedes ``--binarize``), ``--plan-report`` prints the per-layer
@@ -39,7 +52,7 @@ and exits 1 on an error finding (classifiers):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16_cifar10 \
       --binarize xnor --override conv/3=binarized_dense --plan-report
 
-Stochastic ensemble (classifiers): ``--ensemble K`` (with ``--binarize
+Stochastic ensemble of the classifiers: ``--ensemble K`` (with ``--binarize
 stoch``) draws K packed replicas of every stochastic layer, classifies from
 the ensemble-mean logits and reports the replicas' vote agreement;
 ``--abstain-threshold A`` counts the images whose agreement is below A:
@@ -48,10 +61,9 @@ the ensemble-mean logits and reports the replicas' vote agreement;
       --binarize stoch --ensemble 8 --abstain-threshold 0.6
 
 Runs on the CUDA device unless ``--device cpu`` is given; asking for CUDA
-where there is none raises. The reference's chunked prefill, prefix cache
-and LM ensemble (ROADMAP queue 1 item 6b), mesh serving (item 7) and the
-collective audit and compiled-program analysis (item 8) are not ported:
-their flags exit naming the item.
+where there is none raises. The reference's mesh serving (ROADMAP queue 1
+item 7) and the collective audit and compiled-program analysis of a token
+arch (item 8) are not ported: their flags exit naming the item.
 """
 from __future__ import annotations
 
@@ -75,7 +87,7 @@ from repro_torch.engine import ExecutionPlan, compile_plan, format_plan_table, p
 from repro_torch.models import mnist_fc, vgg
 from repro_torch.models import transformer as T
 from repro_torch.obs import MetricsRegistry, Tracer, validate_trace
-from repro_torch.serve import SlotBatcher
+from repro_torch.serve import PrefixCache, SlotBatcher
 from repro_torch.serve.engine import ServeEngine, packed_param_bytes, stream_serve
 from repro_torch.stoch import ReplicaSet, ensemble_forward, sample_replicas
 
@@ -328,9 +340,11 @@ class LMServeResult:
     plan: ExecutionPlan | None
     dense_bytes: int
     packed_bytes: int
-    pack_seconds: float | None      # plan.pack, synced; None when not packed
+    pack_seconds: float | None      # plan.pack (or sample_replicas), synced; None when not packed
     tracer: Tracer | None
     metrics: MetricsRegistry | None
+    prefix_cache: PrefixCache | None = None
+    replicas: ReplicaSet | None = None      # the ensemble's, K >= 2
 
     @property
     def tokens(self) -> int:
@@ -354,22 +368,36 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
              max_new_skew: int = 0, seed: int = 0, device="cuda", smoke: bool = False,
              plan_out: str = "", plan_from: str = "", show_report: bool = False,
              override=(), trace: str = "", trace_fence: bool = True,
-             metrics_out: str = "") -> LMServeResult:
+             metrics_out: str = "", prefill_chunk: int = 0, prefix_cache: int = 0,
+             shared_prefix: int = 0, ensemble: int = 1,
+             abstain_threshold: float | None = None) -> LMServeResult:
     """Step-level continuous-batching serving of a token arch, as the
     reference's ``launch.serve`` token path: master weights drawn from
     ``seed`` (``torch.Generator``), packed at ``prng.key(seed + 1)`` when
     ``packed`` (the masters are dropped once packed), ``requests`` synthetic
-    prompts of ``prompt_len`` tokens from ``numpy.random.default_rng(seed)``,
-    each asking ``max_new`` tokens less up to ``max_new_skew``, served on
-    ``slots`` slots. ``trace`` writes a Chrome trace of the loop and
-    validates it; ``metrics_out`` writes the serving metrics."""
+    prompts of ``prompt_len`` tokens from ``numpy.random.default_rng(seed)``
+    (the first ``shared_prefix`` tokens the same for all), each asking
+    ``max_new`` tokens less up to ``max_new_skew``, served on ``slots``
+    slots. ``prefill_chunk`` admits prompts that many tokens at a time;
+    ``prefix_cache`` N > 0 adds an N-entry prefix cache. ``ensemble`` K >= 2
+    (with a stochastic plan) serves K replicas drawn at ``prng.key(seed +
+    1)`` (replica 0 is the single-sample pack), ``abstain_threshold``
+    flagging requests whose vote agreement falls below it. ``trace`` writes
+    a Chrome trace of the loop and validates it; ``metrics_out`` writes the
+    serving metrics."""
     arch = cb.canonical_arch(arch)
+    if (prefill_chunk or prefix_cache) and ensemble > 1:
+        raise SystemExit("--prefill-chunk/--prefix-cache are single-sample serving features; "
+                         "K-replica ensemble serving prefills whole prompts")
     cfg = cb.get_config(arch, smoke=smoke)
     if cfg.frontend:
         raise SystemExit(f"{arch} uses a stubbed frontend; serve a token arch")
     if (plan_from or override) and not packed:
         raise SystemExit("--plan-from/--override change how weights are packed; add "
                          "--packed (use --plan/--plan-report alone for a dry inspection)")
+    if ensemble > 1 and not (packed and binarize == "stoch" or plan_from):
+        raise SystemExit("--ensemble K samples K stochastic replicas: add --packed "
+                         "--binarize stoch")
     dev = resolve_device(device)
     params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
     plan = None
@@ -377,10 +405,18 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
         plan = make_plan(params, DEFAULT_POLICY, binarize=binarize, plan_out=plan_out,
                          plan_from=plan_from, show_report=show_report, report_batch=slots,
                          override=override)
-    pack_seconds = None
+    pack_seconds = replicas = None
     if packed:
+        if ensemble > 1 and plan.mode != "stoch":
+            raise SystemExit(f"--ensemble needs a stochastic plan, got mode={plan.mode} "
+                             f"(--binarize stoch)")
         t0 = time.perf_counter()
-        params = plan.pack(params, key=prng.key(seed + 1))
+        if ensemble > 1:
+            # the key the single-sample pack uses, so replica 0 is --packed alone
+            replicas = sample_replicas(params, plan, prng.key(seed + 1), ensemble)
+            params = replicas.base
+        else:
+            params = plan.pack(params, key=prng.key(seed + 1))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         pack_seconds = time.perf_counter() - t0
@@ -388,26 +424,38 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
         print("(--packed not set: serving dense master weights; the compiled plan is "
               "not applied)")
     dense_b, packed_b = packed_param_bytes(params)
-    if packed:
+    if replicas is not None:
+        packed_b = replicas.tree_nbytes()
+        print(f"ensemble K={ensemble} (stoch): {dense_b / 1e6:.1f}MB (bf16 dense, 1 copy) "
+              f"-> {packed_b / 1e6:.1f}MB ({ensemble} packed replicas, shared leaves once)")
+    elif packed:
         print(f"packed weights: {dense_b / 1e6:.1f}MB (bf16 dense) -> {packed_b / 1e6:.1f}MB "
               f"({dense_b / max(packed_b, 1):.1f}x smaller)")
     tracer = Tracer(fence=trace_fence) if trace else None
     metrics = MetricsRegistry() if metrics_out else None
-    engine = ServeEngine(cfg, params, tracer=tracer)
+    engine = ServeEngine(cfg, None if replicas is not None else params, ensemble=replicas,
+                         abstain_threshold=abstain_threshold, tracer=tracer)
+    pc = PrefixCache(max_entries=prefix_cache) if prefix_cache else None
     batcher = SlotBatcher(slots, prompt_len, tracer=tracer)
     rng = np.random.default_rng(seed)
+    shared = (rng.integers(0, cfg.vocab_size, min(shared_prefix, prompt_len))
+              if shared_prefix else None)
     for _ in range(requests):
         # per-request max_new: uniform in [max(1, max_new - skew), max_new]
         m = max_new - int(rng.integers(0, max_new_skew + 1))
-        batcher.submit(rng.integers(0, cfg.vocab_size, prompt_len), max(1, m))
+        prompt = rng.integers(0, cfg.vocab_size, prompt_len)
+        if shared is not None:
+            prompt[:shared.shape[0]] = shared
+        batcher.submit(prompt, max(1, m))
     t0 = time.perf_counter()
-    steps = stream_serve(engine, batcher, max_new_cap=max_new, metrics=metrics)
+    steps = stream_serve(engine, batcher, max_new_cap=max_new, metrics=metrics,
+                         prefill_chunk=prefill_chunk, prefix_cache=pc)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     res = LMServeResult(cfg=cfg, steps=steps, seconds=time.perf_counter() - t0,
                         engine=engine, batcher=batcher, plan=plan, dense_bytes=dense_b,
                         packed_bytes=packed_b, pack_seconds=pack_seconds, tracer=tracer,
-                        metrics=metrics)
+                        metrics=metrics, prefix_cache=pc, replicas=replicas)
     done = batcher.completed
     # throughput from tokens actually recorded, never steps * batch
     ttft = res.median_ttft if done else float("nan")
@@ -415,6 +463,19 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     print(f"served {len(done)} requests in {steps} decode steps, {res.seconds:.2f}s "
           f"({res.tokens} tokens, {res.tok_per_s:.1f} tok/s; median TTFT {ttft * 1e3:.1f} ms, "
           f"median latency {lat * 1e3:.1f} ms)")
+    if pc is not None:
+        st = pc.stats()
+        print(f"prefix cache: {st['hits']} hits / {st['misses']} misses, "
+              f"{st['tokens_skipped']} prompt tokens skipped, {st['entries']} entries "
+              f"({st['bytes'] / 1e6:.1f}MB), {st['evictions']} evictions")
+    if replicas is not None and done:
+        alla = np.array([a for r in done for a in r.agreement])
+        msg = (f"ensemble uncertainty: mean vote agreement {alla.mean():.3f} "
+               f"(min {alla.min():.3f})")
+        if abstain_threshold is not None:
+            msg += (f"; abstained {sum(1 for r in done if r.abstained)}/{len(done)} "
+                    f"requests at threshold {abstain_threshold}")
+        print(msg)
     if metrics is not None:
         h = metrics["serve_step_seconds"].summary()
         if h.get("count"):
@@ -432,10 +493,7 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
 
 #: The reference's token-arch flags whose features are not ported yet, and
 #: the ROADMAP item each waits for.
-_DEFERRED_LM_FLAGS = (("prefill_chunk", "--prefill-chunk", "queue 1 item 6b"),
-                      ("prefix_cache", "--prefix-cache", "queue 1 item 6b"),
-                      ("shared_prefix", "--shared-prefix", "queue 1 item 6b"),
-                      ("mesh", "--mesh", "queue 1 item 7"),
+_DEFERRED_LM_FLAGS = (("mesh", "--mesh", "queue 1 item 7"),
                       ("mesh_shape", "--mesh-shape", "queue 1 item 7"),
                       ("audit_collectives", "--audit-collectives", "queue 1 item 8"),
                       ("analyze", "--analyze", "queue 1 item 8"))
@@ -482,8 +540,9 @@ def main(argv=None) -> ServeResult | LMServeResult:
     ap.add_argument("--analyze", action="store_true",
                     help="lint the plan (repro_torch.analysis); exit 1 on an error finding")
     ap.add_argument("--ensemble", type=int, default=1, metavar="K",
-                    help="serve a K-replica stochastic ensemble (needs --binarize stoch): "
-                         "classify from the mean logits, report vote agreement")
+                    help="serve a K-replica stochastic ensemble (needs --binarize stoch, "
+                         "and --packed on a token arch): classify or decode from the mean "
+                         "logits, report vote agreement")
     ap.add_argument("--abstain-threshold", type=float, default=None,
                     help="count a request as abstained when its replica vote agreement "
                          "is below this (needs --ensemble >= 2)")
@@ -500,14 +559,23 @@ def main(argv=None) -> ServeResult | LMServeResult:
     ap.add_argument("--metrics-out", default="", metavar="OUT.json",
                     help="write the serving metrics here (a .prom/.txt suffix: Prometheus "
                          "text, else JSON)")
-    ap.add_argument("--prefill-chunk", type=int, default=0, help="not ported (ROADMAP)")
-    ap.add_argument("--prefix-cache", type=int, default=0, help="not ported (ROADMAP)")
-    ap.add_argument("--shared-prefix", type=int, default=0, help="not ported (ROADMAP)")
+    ap.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
+                    help="token archs: admit prompts C tokens at a time through the fused "
+                         "decode + prefill step (0 = whole prompts; single-sample only)")
+    ap.add_argument("--prefix-cache", type=int, default=0, metavar="N",
+                    help="token archs: an N-entry LRU prompt-prefix KV cache (0 = off); "
+                         "implies chunked admission")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="P",
+                    help="token archs: give every request the same first P prompt tokens "
+                         "(prefix-cache hits on the synthetic prompts)")
     ap.add_argument("--mesh", default="", help="not ported (ROADMAP)")
     ap.add_argument("--mesh-shape", default="", help="not ported (ROADMAP)")
     ap.add_argument("--audit-collectives", action="store_true", help="not ported (ROADMAP)")
     args = ap.parse_args(argv)
     arch = cb.canonical_arch(args.arch)
+    if (args.prefill_chunk or args.prefix_cache) and args.ensemble > 1:
+        raise SystemExit("--prefill-chunk/--prefix-cache are single-sample serving features; "
+                         "K-replica ensemble serving prefills whole prompts")
     if arch in ARCHS:
         if args.prefill_chunk or args.prefix_cache or args.shared_prefix:
             raise SystemExit("--prefill-chunk/--prefix-cache chunk the token-arch prompt "
@@ -531,16 +599,16 @@ def main(argv=None) -> ServeResult | LMServeResult:
     for attr, flag, item in _DEFERRED_LM_FLAGS:
         if getattr(args, attr):
             raise SystemExit(f"{flag} is not ported for the token archs yet (ROADMAP {item})")
-    if args.ensemble > 1 or args.abstain_threshold is not None:
-        raise SystemExit("--ensemble on a token arch (the LM ensemble) is not ported yet "
-                         "(ROADMAP queue 1 item 6b)")
     return serve_lm(arch=arch, packed=args.packed, binarize=args.binarize,
                     requests=16 if args.requests is None else args.requests,
                     slots=args.slots, prompt_len=args.prompt_len, max_new=args.max_new,
                     max_new_skew=args.max_new_skew, seed=args.seed, device=args.device,
                     smoke=args.smoke, plan_out=args.plan, plan_from=args.plan_from,
                     show_report=args.plan_report, override=args.override, trace=args.trace,
-                    trace_fence=not args.no_trace_fence, metrics_out=args.metrics_out)
+                    trace_fence=not args.no_trace_fence, metrics_out=args.metrics_out,
+                    prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+                    shared_prefix=args.shared_prefix, ensemble=args.ensemble,
+                    abstain_threshold=args.abstain_threshold)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ Covers the dense LM family: GQA, sliding-window attention (h2o-danube-3),
 QKV bias (qwen2.5), and the one-token decode path the serving engine runs
 against the slot-addressed cache. ``flash_attention`` is the reference's
 chunked online softmax in plain torch (the reference's is jnp, not a
-Pallas kernel), used from ``FLASH_THRESHOLD`` tokens up. Chunked-prefill
-attention (``chunk_attention``) waits for ROADMAP queue 1 item 6b.
+Pallas kernel), used from ``FLASH_THRESHOLD`` tokens up.
+``chunk_attention`` runs one slot's prefill chunk against that slot's
+cache rows (chunked prefill).
 """
 from __future__ import annotations
 
@@ -169,6 +170,70 @@ def decode_attention(cfg, params: dict, x: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bngs,bsnd->bngd", probs, v_cache.to(x.dtype))
     return apply_linear(params["w_o"], out.reshape(b, 1, cfg.q_dim)), k_cache, v_cache
+
+
+def chunk_attention(cfg, params: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, slot: int, offset: int):
+    """Chunked-prefill attention: C prompt tokens of one slot against the
+    slot-addressed cache. x: (1, C, D); caches (n_slots, S_cache, KV, hd),
+    written in place; ``offset`` is the number of prompt tokens already in
+    the slot. Returns (out, k_cache, v_cache).
+
+    The chunk's queries attend over the slot's pre-write cache rows plus the
+    chunk's own K/V under one softmax: cache lanes are masked to the real
+    pre-offset tokens (by token age for ring caches), chunk lanes causally
+    within the chunk (and the window). The chunk's K/V are written only
+    after attention, since writing first would evict ring tokens still
+    inside earlier in-chunk queries' windows; ring caches therefore need
+    C <= S_cache, and linear caches offset + C <= S_cache (where the
+    reference's ``dynamic_update_slice`` would clamp the start)."""
+    c = x.shape[1]
+    s_cache = k_cache.shape[1]
+    positions = offset + torch.arange(c, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv_rope(cfg, params, x, positions)           # (1, C, H/KV, hd)
+    k_ctx, v_ctx = k_cache[slot:slot + 1], v_cache[slot:slot + 1]
+
+    # grouped attention without expanding the cache, as decode_attention:
+    # q (1, C, KV, G, hd) against (1, S + C, KV, hd)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(1, c, cfg.n_kv_heads, groups, cfg.head_dim)
+    scale = cfg.head_dim ** -0.5
+    k_all = torch.cat([k_ctx.to(x.dtype), k.to(x.dtype)], dim=1)
+    v_all = torch.cat([v_ctx.to(x.dtype), v.to(x.dtype)], dim=1)
+    logits = torch.einsum("bcngd,bsnd->bngcs", qg, k_all).to(torch.float32) * scale
+
+    qi = torch.arange(c, device=x.device)
+    si = torch.arange(s_cache, device=x.device)
+    p_q = offset + qi
+    if cfg.sliding_window:
+        # ring slot s holds token t_s = (offset-1) - ((offset-1-s) % S); a
+        # negative t_s was never written for this prefix
+        t_s = (offset - 1) - ((offset - 1 - si) % s_cache)
+        ctx_valid = (t_s[None, :] >= 0) & (p_q[:, None] - t_s[None, :] < cfg.sliding_window)
+    else:
+        ctx_valid = (si[None, :] < offset).expand(c, s_cache)
+    chunk_valid = qi[None, :] <= qi[:, None]
+    if cfg.sliding_window:
+        chunk_valid &= (qi[:, None] - qi[None, :]) < cfg.sliding_window
+    valid = torch.cat([ctx_valid, chunk_valid], dim=1)          # (C, S + C)
+    logits = torch.where(valid[None, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bngcs,bsnd->bcngd", probs, v_all).reshape(1, c, cfg.q_dim)
+
+    # post-attention write of the chunk's K/V into the slot's rows
+    if cfg.sliding_window:
+        if c > s_cache:
+            raise ValueError(f"a ring cache of {s_cache} rows takes chunks of at most "
+                             f"{s_cache} tokens, got {c}")
+        rows = (offset + torch.arange(c, device=x.device)) % s_cache
+    else:
+        if offset + c > s_cache:
+            raise ValueError(f"chunk of {c} tokens at offset {offset} runs past the "
+                             f"{s_cache}-row cache")
+        rows = torch.arange(offset, offset + c, device=x.device)
+    k_cache[slot].index_copy_(0, rows, k[0].to(k_cache.dtype))
+    v_cache[slot].index_copy_(0, rows, v[0].to(v_cache.dtype))
+    return apply_linear(params["w_o"], out), k_cache, v_cache
 
 
 def cache_length(cfg, seq_len: int) -> int:

@@ -11,9 +11,10 @@ tensor, a ``PackedLinear`` (K2) or an ``XnorLinear`` (K3 + K4).
 
 The decode cache is slot-addressed and long-lived: ``decode_step`` and
 ``cache_insert`` write its tensors in place, where the reference donates
-them to a jitted call, and return the cache dict. The MoE, SSM, hybrid and
-frontend families and chunked prefill (``prefill_chunk``) wait for ROADMAP
-queue 1 item 6b and raise ``NotImplementedError``.
+them to a jitted call, and return the cache dict; ``prefill_chunk``
+advances one slot's prefill by a chunk the same way. The MoE, SSM, hybrid
+and frontend families wait for ROADMAP queue 1 item 6b and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -166,9 +167,25 @@ def cache_keep(cfg, old: dict, new: dict, keep: torch.Tensor) -> dict:
     return out
 
 
-def prefill_chunk(cfg, params, cache, tokens, slot, offset):
-    """Chunked prefill of one slot; waits for ROADMAP queue 1 item 6b."""
-    raise NotImplementedError(f"prefill_chunk (chunked prefill) is not ported yet ({_ITEM_6B})")
+def prefill_chunk(cfg, params: dict, cache: dict, tokens: torch.Tensor, slot: int,
+                  offset: int):
+    """Advances one slot's prefill by a chunk of C prompt tokens: tokens
+    (1, C), ``offset`` the prompt tokens already in the slot. Attention
+    reads the slot's pre-write rows, masked to what a whole-prompt prefill
+    would see, and writes the chunk's K/V in place (``A.chunk_attention``).
+    Returns (last-token logits (1, V), cache) with a new ``pos`` whose
+    ``pos[slot]`` is ``offset + C``, set absolutely; the old ``pos`` tensor
+    is left as it was."""
+    require_dense(cfg)
+    x = _embed_in(cfg, params, tokens)
+    c = x.shape[1]
+    pos = cache["pos"].clone()
+    pos[slot] = offset + c
+    for i in range(cfg.n_layers):
+        kc, vc = cache["k"][i], cache["v"][i]
+        x = _block(cfg, layer_params(params["layers"], i), x,
+                   lambda p, h: A.chunk_attention(cfg, p, h, kc, vc, slot, offset)[0])
+    return _head_out(cfg, params, x[:, -1:])[:, -1], dict(cache, pos=pos)
 
 
 def decode_step(cfg, params: dict, cache: dict, tokens_or_embeds: torch.Tensor):

@@ -34,8 +34,8 @@ class Request:
     t_first: Optional[float] = None   # wall time of the first recorded token
     t_done: Optional[float] = None    # wall time of the last recorded token
     # Per-token ensemble uncertainty (only filled under K-replica serving,
-    # which the port's LM engine does not run yet): replica vote agreement and mean logit variance aligned
-    # with ``generated``; ``abstained`` latches once any recorded token's
+    # ``ServeEngine(ensemble=...)``): replica vote agreement and mean logit
+    # variance aligned with ``generated``; ``abstained`` latches once any recorded token's
     # agreement fell below the engine's abstain threshold.
     agreement: list[float] = dataclasses.field(default_factory=list)
     variance: list[float] = dataclasses.field(default_factory=list)

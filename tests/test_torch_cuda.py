@@ -934,3 +934,89 @@ def test_lm_trace_splits_dispatch_and_device_on_the_card(cuda, tmp_path):
     assert info["root"] == "stream_serve" and info["coverage"] >= 0.95
     names = [e["name"] for e in res.tracer.events]
     assert names.count("device") == names.count("dispatch") > 0
+
+
+
+def _smoke_lm(device, mode):
+    """starcoder2's SMOKE config packed in ``mode`` on ``device``, and its prompts:
+    6 of 8 tokens, the first 6 shared."""
+    from repro_torch.configs import base as cb
+
+    cfg = cb.get_config("starcoder2_3b", smoke=True)
+    params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    packed = compile_plan(params, DEFAULT_POLICY, mode).pack(params, key=prng.key(1))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 8)).astype(np.int32)
+    prompts[:, :6] = prompts[0, :6]
+    return cfg, params, packed, prompts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "xnor"])
+def test_lm_chunked_prefix_streams_on_the_card(cuda, mode):
+    """Chunked prefill with a prefix cache on the SMOKE config: every stream
+    equals the engine's whole-prompt generate, the shared prefix hits, and
+    each decode and each chunk runs the 8 projections once (a fused step
+    both), so the launches are 8 x (decode steps + chunks)."""
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import PrefixCache, ServeEngine, SlotBatcher, stream_serve
+
+    cfg, _, packed, prompts = _smoke_lm(cuda, mode)
+    eng, pc, reg = ServeEngine(cfg, packed), PrefixCache(), MetricsRegistry()
+    b = SlotBatcher(2, 8)
+    for p in prompts:
+        b.submit(p, 3)
+    counter = binary_matmul if mode == "det" else xnor_matmul
+    before = counter.launches
+    steps = stream_serve(eng, b, prefill_chunk=3, prefix_cache=pc, metrics=reg)
+    chunks = reg["serve_prefill_chunks_total"].value
+    assert counter.launches - before == 8 * (steps - 1 + chunks)
+    assert pc.hits >= 1 and chunks > 0 and len(b.completed) == 6
+    for r in b.completed:
+        assert eng.generate(r.prompt[None], r.max_new).tokens[0].tolist() == r.generated
+
+
+@pytest.mark.cuda
+def test_lm_ensemble_counters_on_the_card(cuda):
+    """A K = 2 ensemble of the SMOKE config: K1 packs 8 leaves a replica, K2
+    runs 8 x K a prefill and a decode step, and the stream equals the
+    ensemble's generate."""
+    from repro_torch.serve import ServeEngine, SlotBatcher, stream_serve
+
+    cfg, params, _, prompts = _smoke_lm(cuda, "stoch")
+    plan = compile_plan(params, DEFAULT_POLICY, "stoch")
+    before = binarize_pack.launches
+    rs = sample_replicas(params, plan, prng.key(1), 2)
+    assert binarize_pack.launches - before == 8 * 2
+    eng = ServeEngine(cfg, None, ensemble=rs)
+    b = SlotBatcher(2, 8)
+    for p in prompts[:3]:
+        b.submit(p, 3)
+    before = binary_matmul.launches
+    steps = stream_serve(eng, b)
+    assert binary_matmul.launches - before == 8 * 2 * (3 + steps - 1)
+    want = eng.generate(prompts[:3], 3)
+    for r in b.completed:
+        assert r.generated == want.tokens[r.uid].tolist()
+        assert all(0.0 <= a <= 1.0 for a in r.agreement)
+
+
+@pytest.mark.cuda
+def test_temperature_words_on_the_card_equal_the_cpu(cuda):
+    """The uniform words under categorical, drawn on the card, equal the
+    CPU's bit for bit; the gumbel values differ only by the devices' log
+    (up to 1.0e-4 measured for u near 1, bounded by ``atol``), and the
+    draws agree wherever the margin clears twice that."""
+    tiny, atol = torch.finfo(torch.float32).tiny, 2.0 ** -10
+    for seed in range(4):
+        key = prng.key(seed)
+        u_gpu = prng.uniform(key, (4, 49152), cuda, minval=tiny, maxval=1.0)
+        u_cpu = prng.uniform(key, (4, 49152), minval=tiny, maxval=1.0)
+        assert torch.equal(u_gpu.cpu().view(torch.int32), u_cpu.view(torch.int32))
+        g_gpu, g_cpu = prng.gumbel(key, (4, 49152), cuda).cpu(), prng.gumbel(key, (4, 49152))
+        torch.testing.assert_close(g_gpu, g_cpu, rtol=0, atol=atol)
+        lg = torch.from_numpy(np.random.default_rng(seed).standard_normal((4, 49152))
+                              .astype(np.float32))
+        top2 = torch.topk(lg + g_cpu, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * atol
+        got = prng.categorical(key, lg.to(cuda)).cpu()
+        assert torch.equal(got[clear], prng.categorical(key, lg)[clear])

@@ -102,7 +102,8 @@ _LM_SLICE = ("repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.ob
              "repro_torch.configs.base", "repro_torch.configs.starcoder2_3b",
              "repro_torch.configs.jamba_1_5_large", "repro_torch.models.attention",
              "repro_torch.models.mlp", "repro_torch.models.transformer",
-             "repro_torch.serve.batcher", "repro_torch.serve.engine")
+             "repro_torch.serve.batcher", "repro_torch.serve.engine",
+             "repro_torch.serve.prefix_cache")
 
 
 def test_port_imports_no_jax_and_no_reference():

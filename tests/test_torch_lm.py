@@ -149,13 +149,6 @@ def test_other_families_raise_naming_the_roadmap(arch):
         T.init_cache(cfg, 1, 8, device="cpu")
 
 
-def test_prefill_chunk_raises_naming_the_roadmap(models):
-    _, cfg, _, mp = models.masters("starcoder2_3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-        T.prefill_chunk(cfg, mp, T.init_cache(cfg, 1, 8, device="cpu"),
-                        torch.zeros((1, 4), dtype=torch.int32), 0, 0)
-
-
 def test_port_init_has_the_reference_tree(models):
     """The port's own init draws from a torch.Generator, so its values
     differ, but its tree (paths, shapes, dtypes) is the reference's, so

@@ -10,8 +10,9 @@ regressions and the packed-bytes report. Beyond the mirror, the port's
 greedy ``stream_serve`` streams equal the reference's on the same prompts
 and weights (carried with ``interop.from_jax_tree``), each test printing
 the smallest top-2 logit margin it met (``-s``), so a near tie shows; the
-CLI serves a token arch on the CPU; and every deferred feature raises
-naming ROADMAP.
+CLI serves a token arch on the CPU, chunked prefill, the prefix cache and
+the LM ensemble included; and every feature still deferred raises naming
+ROADMAP.
 """
 import json
 
@@ -69,29 +70,14 @@ class TestServeEngine:
             torch.testing.assert_close(out.logprobs[:, i], lp, rtol=2e-3, atol=2e-3)
             seq = torch.cat([seq, nxt[:, None]], dim=1)
 
-    @pytest.mark.parametrize("call", [
-        lambda e: e.generate(np.zeros((1, 4), np.int32), 2, temperature=0.7),
-        lambda e: e.prefill_chunk_into(None, 0, [1], 0),
-        lambda e: e.fused_step(None, [0], [False], 0, [1], 0),
-        lambda e: e.capture_slot(None, 0),
-        lambda e: e.splice_into(None, 0, {}),
-        lambda e: stream_serve(e, SlotBatcher(1, 4), temperature=0.5),
-        lambda e: stream_serve(e, SlotBatcher(1, 4), prefill_chunk=2),
-        lambda e: stream_serve(e, SlotBatcher(1, 4), prefix_cache=object()),
-    ])
-    def test_deferred_features_raise_naming_the_roadmap(self, call):
-        _, _, engine = _engine()
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-            call(engine)
-
     def test_deferred_engine_options_raise(self):
-        cfg, params, _ = _engine()
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            ServeEngine(cfg, params, ensemble=object())
+        cfg, params, engine = _engine()
         with pytest.raises(NotImplementedError, match="item 7"):
             ServeEngine(cfg, params, mesh=object())
         with pytest.raises(NotImplementedError, match="item 6b"):
             ServeEngine(cb.get_config("mamba2_130m", smoke=True), params)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            stream_serve(engine, SlotBatcher(1, 4), sentinel=object())
 
 
 class TestContinuousDecode:
@@ -294,17 +280,92 @@ def test_cli_classifier_metrics(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--prefill-chunk", "4"], "item 6b"),
-    (["--prefix-cache", "8"], "item 6b"),
-    (["--shared-prefix", "2"], "item 6b"),
     (["--mesh", "data,model"], "item 7"),
     (["--audit-collectives"], "item 8"),
     (["--analyze", "--packed"], "item 8"),
-    (["--ensemble", "2", "--packed", "--binarize", "stoch"], "item 6b"),
 ])
 def test_cli_deferred_token_flags_exit_naming_the_roadmap(argv, match):
     with pytest.raises(SystemExit, match=match):
         serve.main(LM_SMOKE + argv)
+
+
+def test_cli_chunked_prefix_serve_and_metrics(tmp_path, capsys):
+    """``--prefill-chunk --prefix-cache --shared-prefix`` on the CPU: the
+    two requests admitted together miss, the three after them hit the
+    shared 6-token prefix (two chunks), and the serve_prefix_* series land
+    in the metrics."""
+    mjson = str(tmp_path / "m.json")
+    res = serve.main(LM_SMOKE + ["--packed", "--requests", "5", "--prompt-len", "8",
+                                 "--prefill-chunk", "3", "--prefix-cache", "16",
+                                 "--shared-prefix", "6", "--metrics-out", mjson])
+    out = capsys.readouterr().out
+    assert "prefix cache: 3 hits / 2 misses, 18 prompt tokens skipped" in out
+    assert res.prefix_cache.hits == 3 and len(res.batcher.completed) == 5
+    with open(mjson) as f:
+        d = json.load(f)
+    assert d["serve_prefix_hits_total"]["value"] == 3
+    assert d["serve_prefix_misses_total"]["value"] == 2
+    assert d["serve_prefix_tokens_skipped_total"]["value"] == 18
+    assert d["serve_prefix_bytes"]["value"] == res.prefix_cache.nbytes > 0
+    assert d["serve_prefill_chunks_total"]["value"] > 0
+    want = {r.uid: r.generated for r in res.batcher.completed}
+    for r in res.batcher.completed:
+        assert res.engine.generate(r.prompt[None], r.max_new).tokens[0].tolist() == want[r.uid]
+
+
+def test_cli_lm_ensemble_serve_and_metrics(tmp_path, capsys):
+    prom = str(tmp_path / "m.prom")
+    res = serve.main(LM_SMOKE + ["--packed", "--binarize", "stoch", "--ensemble", "2",
+                                 "--abstain-threshold", "0.9", "--metrics-out", prom])
+    out = capsys.readouterr().out
+    assert "ensemble K=2 (stoch): " in out and "ensemble uncertainty: mean vote agreement" in out
+    assert "requests at threshold 0.9" in out
+    assert res.replicas.k == 2 and res.engine._replicas is res.replicas
+    assert res.packed_bytes == res.replicas.tree_nbytes()
+    text = open(prom).read()
+    assert "# TYPE serve_vote_agreement summary" in text
+    assert f"serve_vote_agreement_count {res.tokens}" in text
+    n_abst = sum(r.abstained for r in res.batcher.completed)
+    assert (f"serve_abstain_total {n_abst}" in text) == (n_abst > 0)
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["--packed", "--prefill-chunk", "4", "--prefix-cache", "8", "--shared-prefix", "2"],
+     "prefix cache: "),
+    (["--packed", "--binarize", "stoch", "--ensemble", "2"], "ensemble K="),
+])
+def test_cli_summary_lines_equal_the_reference(argv, flag, capsys, monkeypatch):
+    """The prefix-cache counts and the ensemble's bytes depend on the
+    prompts and shapes only, so the lines equal the reference's."""
+    from repro.launch import serve as jserve
+
+    serve.main(LM_SMOKE + argv)
+    mine = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(flag)]
+    monkeypatch.setattr("sys.argv", ["serve"] + argv + [
+        a for a in LM_SMOKE if a not in ("--device", "cpu")])
+    jserve.main()
+    ref = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(flag)]
+    assert mine == ref and len(mine) == 1
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--packed", "--binarize", "stoch", "--ensemble", "2", "--prefill-chunk", "2"],
+     "single-sample serving features"),
+    (["--packed", "--binarize", "stoch", "--ensemble", "2", "--prefix-cache", "4"],
+     "single-sample serving features"),
+    (["--binarize", "stoch", "--ensemble", "2"], "add --packed --binarize stoch"),
+    (["--packed", "--binarize", "det", "--ensemble", "2"], "add --packed --binarize stoch"),
+])
+def test_cli_rejects_the_lm_combinations_the_reference_rejects(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        serve.main(LM_SMOKE + argv)
+
+
+def test_cli_ensemble_needs_a_stochastic_plan(tmp_path):
+    plan = str(tmp_path / "xnor.json")
+    serve.main(LM_SMOKE + ["--binarize", "xnor", "--plan", plan])
+    with pytest.raises(SystemExit, match="needs a stochastic plan, got mode=xnor"):
+        serve.main(LM_SMOKE + ["--packed", "--plan-from", plan, "--ensemble", "2"])
 
 
 @pytest.mark.parametrize("argv,match", [
