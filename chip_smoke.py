@@ -154,12 +154,39 @@ agreement in [0, 1] and variance >= 0, a K = 1 ensemble's tokens and
 logprobs equal to the stoch-packed engine's bit for bit; replica bytes,
 pack seconds, tok/s and the decode step's wall and device ms.
 
+Since the MoE family (phase 6g, about three minutes more): the
+expert-batched K2 (``binary_matmul_batched``: all 64 experts of a
+projection in one launch) against its plain version at Moonlight's expert
+shapes (``MOE_K2``, f32 and bf16, scaled and not, and a ragged shape),
+each expert's output bit for bit the 2-D K2 on its slices and two calls
+bit-identical, and K2 at Moonlight's attention shapes; then
+Moonlight-16B-A3B at full width, cut to ``MOE_LAYERS`` = 16 of its 48
+layers (the f32 masters of all 48 would not fit the card), served in det
+and stoch through ``launch.serve.serve_lm(n_layers=16)`` with
+``LM_SERVE``: counters exact (3,104 K1 at pack time; 32 K2 and 48
+expert-batched K2 per prefill and decode step), every served slice equal
+to a plain pack (stoch: two expert slices against a CPU pack at their split
+keys), the first four requests' logits against the plain kernels at every
+step (the plain run decoding the kernel run's tokens on its routing, with
+the routing flips counted and held to ``MOE_ROUTE_TIE``; within
+``LM_LOGIT_TOL``; greedy tokens equal up to a near tie), every stream equal
+to one-shot ``generate``, the dropped fraction at the prefill and decode
+capacity, pack s, MB, tok/s, TTFT, the decode step's wall ms, device ms and
+launches, and peak GB; and a chunked det serve with the prefix cache
+(``MOE_CHUNK``): counters exact, its streams equal to the same chunked
+admission without the cache bit for bit, and against the whole-prompt
+streams, where a request may part only if its whole-prompt prefill
+dropped assignments (a chunk of 8 tokens never overflows an expert), its
+routing met a near tie, or its logits did. Phase 7 times the
+expert-batched K2 at the expert shapes beside ``torch.bmm``.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -260,6 +287,35 @@ LM_CHUNK = dict(requests=16, slots=4, prompt_len=32, max_new=16, prefill_chunk=8
 LM_REPEAT_OF = 2
 LM_TEMPERATURE, LM_TEMPERATURE_KEY = 0.8, 5
 LM_ENSEMBLE = dict(k=4, requests=8, slots=4, prompt_len=32, max_new=8)
+# The MoE family (phase 6g): Moonlight-16B-A3B at its full CONFIG width
+# (d_model 2048, 16 heads of 128, 64 experts of GLU d_ff 1408, top-6, vocab
+# 163840, bf16 activations) at MOE_LAYERS of its 48 layers: its f32 masters
+# are 2.28 GB a layer (the experts' 553.6 M weights and attention's 16.8 M)
+# and 2.68 GB for the embedding and head, ~112 GB at 48 layers against the
+# card's 80 GB. A prefill or decode step runs 2 K2 (attention) and 3
+# expert-batched K2 (w_gate, w_up, w_down over all 64 experts) a layer; the
+# pack runs K1 once per attention layer and once per expert slice.
+MOE_ARCH = "moonshot_v1_16b_a3b"
+MOE_LAYERS = 16
+MOE_MODES = ("det", "stoch")
+# the expert-batched K2 at the expert shapes, (E, M, K, N): M = 8 rows, the
+# capacity of a decode step's 4 tokens (and of a 32-token prefill)
+MOE_K2 = [(64, 8, 2048, 1408), (64, 8, 1408, 2048)]
+# (K, N) of a layer's attention projections, on the 2-D K2: w_qkv, w_o
+MOE_ATTN_KN = [(2048, 6144), (2048, 2048)]
+# A token whose router scores two experts within rounding of each other may
+# route to either in two runs whose hidden states differ in their last bits
+# (the kernels' f32 sum order against the plain versions'). Such a flip is
+# accepted where the expert taken in place of the token's own k-th one
+# scores at most MOE_ROUTE_TIE below it in router logits (log
+# probabilities): 1/8, several times what a few bf16 ulps of the hidden
+# state move an O(1) router logit.
+MOE_ROUTE_TIE = 0.125
+# chunked admission with the prefix cache (det): 8 requests sharing a
+# 16-token prompt prefix, chunks of 8 (a chunk's 8 x 6 assignments never
+# overflow an expert's 8 rows; a whole 32-token prompt's 192 may)
+MOE_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
+                 prefix_cache=16, shared_prefix=16)
 
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
 VGG_XNOR_CONVS = [((4, 16, 16, 64), 128), ((4, 16, 16, 128), 128),
@@ -299,7 +355,9 @@ def main() -> int:
     from repro_torch.engine import ExecutionPlan, compile_plan
     from repro_torch.engine.plan import tree_leaves_with_path, tree_map
     from repro_torch.kernels import _build
-    from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
+    from repro_torch.kernels.binary_matmul import (binary_matmul, binary_matmul_batched,
+                                                   binary_matmul_batched_plain,
+                                                   binary_matmul_plain)
     from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
     from repro_torch.launch.serve import build_model, serve_classifier
     from repro_torch.models import mnist_fc, vgg
@@ -326,6 +384,7 @@ def main() -> int:
     counters = {"binarize_pack": (binarize_pack, "launches"),
                 "binarize_pack_on_chip": (binarize_pack, "launches_on_chip"),
                 "binary_matmul": (binary_matmul, "launches"),
+                "binary_matmul_batched": (binary_matmul_batched, "launches"),
                 "sign_pack": (sign_pack, "launches"),
                 "sign_pack_fused": (sign_pack, "launches_fused"),
                 "xnor_matmul": (xnor_matmul, "launches"), "patch_pack": (patch_pack, "launches"),
@@ -342,6 +401,7 @@ def main() -> int:
                   lambda w, bits=None, *, stochastic: binarize_pack_plain(
                       w, bits, stochastic=stochastic)),
                  (kops_mod, "_binary_matmul", binary_matmul_plain),
+                 (kops_mod, "_binary_matmul_batched", binary_matmul_batched_plain),
                  (xops_mod, "_sign_pack", sign_pack_plain),
                  (xops_mod, "_bn_sign_pack", bn_sign_pack_plain),
                  (xops_mod, "_bn_sign", bn_sign_plain),
@@ -1745,6 +1805,415 @@ def main() -> int:
     del engine, state, rs, masters
     torch.cuda.empty_cache()
 
+    # 6g. the MoE family: the expert-batched K2 at Moonlight's expert shapes,
+    # then Moonlight-16B-A3B at full width (MOE_LAYERS of its 48 layers)
+    # served in det and stoch
+    from repro_torch.models import moe as moe_mod
+
+    print("== expert-batched K2 vs plain at Moonlight's expert shapes (E = 64 experts, M = 8 "
+          "rows: the decode capacity) and a ragged shape, f32 and bf16, scaled and not: "
+          "within tolerance, each expert bit for bit a 2-D K2 call on its slices, two calls "
+          "bit-identical")
+    moe_k2_in = {}
+    for e_, m, k, n in MOE_K2 + [(3, 5, 100, 70)]:
+        x32 = torch.randn(e_, m, k, generator=g, device=dev)
+        wp = torch.stack([binarize_pack(torch.randn(k, n, generator=g, device=dev),
+                                        stochastic=False) for _ in range(e_)])
+        scale = torch.rand(e_, n, generator=g, device=dev) + 0.5
+        moe_k2_in[(e_, m, k, n)] = (x32, wp, scale)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            x = x32.to(dtype)
+            for s in (None, scale):
+                got = binary_matmul_batched(x, wp, s)
+                want = binary_matmul_batched_plain(x, wp, s)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tag = (f"{e_}x{m}x{k}x{n} {str(dtype)[6:]} "
+                       f"{'scaled' if s is not None else 'unscaled'}")
+                print(f"  {tag}: max_abs_err {err:.3e} (|want| max {want.abs().max().item():.3e})")
+                torch.testing.assert_close(got, want, **tol, msg=f"batched K2 {tag}")
+                loop = torch.stack([binary_matmul(x[i], wp[i], None if s is None else s[i])
+                                    for i in range(e_)])
+                if not torch.equal(got, loop):
+                    raise AssertionError(f"batched K2 {tag}: differs from the 2-D K2 loop")
+                if not torch.equal(binary_matmul_batched(x, wp, s), got):
+                    raise AssertionError(f"batched K2 {tag}: two calls differ")
+                if e_ == 64 and dtype == torch.bfloat16 and s is not None:
+                    errs["k2_moe"] = max(errs.get("k2_moe", 0.0), err)
+    print("  every case equal to the 2-D loop and bit-identical over two calls")
+    for k, n in MOE_ATTN_KN:
+        x = torch.randn(4, k, generator=g, device=dev).to(torch.bfloat16)
+        wp = binarize_pack(torch.randn(k, n, generator=g, device=dev), stochastic=False)
+        scale = torch.rand(n, generator=g, device=dev) + 0.5
+        got, want = binary_matmul(x, wp, scale), binary_matmul_plain(x, wp, scale)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"  K2 at {MOE_ARCH}'s attention 4x{k}x{n} bf16 scaled: max_abs_err {err:.3e}")
+        torch.testing.assert_close(got, want, **F32_TOL, msg=f"K2 {MOE_ARCH} 4x{k}x{n}")
+        errs["k2_moe_attn"] = max(errs.get("k2_moe_attn", 0.0), err)
+
+    moe_cfg = dataclasses.replace(cb.get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    n_exp_proj = 3 * MOE_LAYERS                   # expert projections a model call
+    n_attn_proj = 2 * MOE_LAYERS                  # attention projections a model call
+    k1_moe = MOE_LAYERS * (2 + 3 * moe_cfg.n_experts)
+
+
+    @contextlib.contextmanager
+    def record_moe(into: list):
+        """Records (tokens, dropped fraction) of every MoE layer the model runs
+        (a host read a layer: for measuring, never inside a timed run)."""
+        orig = moe_mod.moe_ffn
+
+        def rec(cfg, params, x):
+            y, aux = orig(cfg, params, x)
+            into.append((x.shape[0] * x.shape[1], float(aux["dropped_frac"])))
+            return y, aux
+
+        moe_mod.moe_ffn = rec
+        try:
+            yield
+        finally:
+            moe_mod.moe_ffn = orig
+
+
+    def flipped(probs, own, other):
+        """(tokens whose k experts in ``other`` differ from their ``own``, the
+        largest router-logit gap at such a token: log p of its own k-th expert
+        less log p of an expert ``other`` took in its place, from ``probs``)."""
+        own_s, other_s = own.sort(-1).values, other.sort(-1).values
+        rows = (own_s != other_s).any(-1)
+        if not rows.any():
+            return 0, 0.0
+        lp = torch.log(probs[rows])
+        kth = lp.gather(1, own[rows]).amin(-1)
+        taken = lp.gather(1, other[rows])
+        outside = ~(other[rows][:, :, None] == own[rows][:, None, :]).any(-1)
+        return int(rows.sum()), (kth[:, None] - taken).masked_fill(~outside, 0.0).max().item()
+
+
+    @contextlib.contextmanager
+    def moe_routing(record=None, replay=None, flips=None):
+        """Every MoE layer call's routing: appended to ``record`` as (probs,
+        experts); or, with ``replay`` (a record of the same calls), each call
+        takes the recorded experts in place of its own top k (weights
+        renormalised from its own probabilities) and appends ``flipped`` of
+        its own choice against the replayed one to ``flips``."""
+        orig = moe_mod.route
+        calls = iter(replay or ())
+
+        def hooked(cfg, router, xt):
+            probs, w, e = orig(cfg, router, xt)
+            if record is not None:
+                record.append((probs, e))
+            if replay is not None:
+                e_r = next(calls)[1]
+                flips.append(flipped(probs, e, e_r))
+                w, e = probs.gather(1, e_r), e_r
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            return probs, w, e
+
+        moe_mod.route = hooked
+        try:
+            yield
+        finally:
+            moe_mod.route = orig
+
+
+    def moe_greedy(params, prompts, max_new, forced=None):
+        """(B, max_new, V) f32: each step's logits of greedy generation, or of
+        decoding the tokens ``forced`` (B, max_new) in place of the argmax."""
+        out = []
+        with torch.inference_mode():
+            lg, cache = T.prefill(moe_cfg, params, prompts, max_len=prompts.shape[1] + max_new)
+            for i in range(max_new):
+                out.append(lg.to(torch.float32))
+                if i < max_new - 1:
+                    tok = (torch.argmax(lg, dim=-1) if forced is None else forced[:, i])
+                    lg, cache = T.decode_step(moe_cfg, params, cache, tok.to(torch.int32)[:, None])
+        return torch.stack(out, 1)
+
+
+    moe_rows = {}
+    for mode in MOE_MODES:
+        print(f"== serve {MOE_ARCH} full width, {MOE_LAYERS} of its 48 layers (d_model "
+              f"{moe_cfg.d_model}, {moe_cfg.n_experts} experts of d_ff {moe_cfg.d_ff}, top-"
+              f"{moe_cfg.experts_per_token}, vocab {moe_cfg.vocab_size}, {moe_cfg.dtype}) --packed "
+              f"--binarize {mode}: {LM_SERVE}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        reset_counts()
+        res = serve_lm(arch=MOE_ARCH, n_layers=MOE_LAYERS, packed=True, binarize=mode,
+                       device="cuda", **LM_SERVE)
+        calls = LM_SERVE["requests"] + res.steps - 1      # prefills + decode steps
+        print(f"  {LM_SERVE['requests']} prefills + {res.steps - 1} decode steps x ({n_attn_proj} "
+              f"K2 + {n_exp_proj} expert-batched K2), {k1_moe} K1 at pack time")
+        got = launch_counts()
+        want = {name: 0 for name in counters}
+        want.update(binarize_pack=k1_moe, binary_matmul=n_attn_proj * calls,
+                    binary_matmul_batched=n_exp_proj * calls)
+        print(f"  launches {got}")
+        if got != want:
+            raise AssertionError(f"{MOE_ARCH} {mode}: expected launches {want}")
+        for name, count in got.items():
+            launches[name][(MOE_ARCH, mode)] = count
+        run_mode[(MOE_ARCH, mode)] = mode
+        peak = torch.cuda.max_memory_allocated() - live
+        engine = res.engine
+        done = sorted(res.batcher.completed, key=lambda r: r.uid)
+        if len(done) != LM_SERVE["requests"] or res.tokens != 16 * LM_SERVE["max_new"]:
+            raise AssertionError(f"{MOE_ARCH} {mode}: served {len(done)} requests, "
+                                 f"{res.tokens} tokens")
+
+        # the served words against a plain pack of the same masters at key(seed + 1)
+        masters = T.init_lm(moe_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        plan = compile_plan(masters, DEFAULT_POLICY, mode)
+        with plain_kernels():
+            plain = plan.pack(masters, key=prng.key(1))
+        n_slices = 0
+        for (path, a), (_, b) in zip(tree_leaves_with_path(engine.params),
+                                     tree_leaves_with_path(plain)):
+            if hasattr(a, "packed"):
+                if type(a) is not type(b) or not torch.equal(a.packed, b.packed):
+                    raise AssertionError(f"{MOE_ARCH} {mode}: served {path} differs from the "
+                                         f"plain pack")
+                n_slices += a.packed[..., 0, 0].numel()
+        stoch_note = ""
+        if mode == "stoch":
+            # the threefry twin on the card against the CPU: two expert slices
+            row = plan["layers/moe/w_down"]
+            e_ = moe_cfg.n_experts
+            keys = prng.split(prng.fold_in(prng.key(1), row.index), MOE_LAYERS * e_)
+            served = engine.params["layers"]["moe"]["w_down"].packed
+            for layer, expert in ((0, 0), (MOE_LAYERS - 1, e_ - 1)):
+                cpu = kops_mod.binarize_and_pack(
+                    masters["layers"]["moe"]["w_down"][layer, expert].cpu(),
+                    keys[layer * e_ + expert], stochastic=True)
+                if not torch.equal(served[layer, expert].cpu(), cpu):
+                    raise AssertionError(f"{MOE_ARCH} stoch: w_down layer {layer} expert "
+                                         f"{expert} words differ from the CPU's")
+            stoch_note = (f"; w_down (layer 0, expert 0) and (layer {MOE_LAYERS - 1}, expert "
+                          f"{e_ - 1}) equal a CPU pack at their split keys")
+        del masters, plain
+        torch.cuda.empty_cache()
+        print(f"  {n_slices} served (K, N) slices (K1) == plain pack{stoch_note}")
+
+        # greedy logits of the first 4 requests against the plain kernels. The
+        # plain run decodes the kernel run's tokens on the kernel run's routing:
+        # a token whose router scores two experts within rounding of each other
+        # may route to either, and another expert in a top 6 moves the logits
+        # further than the kernels' rounding does; such flips are counted and
+        # held to MOE_ROUTE_TIE, and each step's argmax may part only at a near
+        # tie of the plain logits
+        prompts = torch.from_numpy(np.stack([r.prompt for r in done[:4]])).to(dev)
+        routes, flips = [], []
+        with moe_routing(record=routes):
+            k_lg = moe_greedy(engine.params, prompts, LM_SERVE["max_new"])
+        k_tok = k_lg.argmax(-1)
+        with plain_kernels(), moe_routing(replay=routes, flips=flips):
+            p_lg = moe_greedy(engine.params, prompts, LM_SERVE["max_new"], forced=k_tok)
+        n_flip = sum(n for n, _ in flips)
+        gap = max(gp for _, gp in flips)
+        n_routed = sum(int(e.shape[0]) for _, e in routes)
+        print(f"  routing: {n_flip} of {n_routed} token routings (tokens x layers) of the plain "
+              f"kernels differ from the kernels' (the plain run takes the kernels'); largest "
+              f"router-logit gap at a flip {gap:.4g} (near-tie bound {MOE_ROUTE_TIE})")
+        if gap >= MOE_ROUTE_TIE:
+            raise AssertionError(f"{MOE_ARCH} {mode}: a routing flip at a gap of {gap}")
+        del routes
+        tol = LM_LOGIT_TOL * p_lg.abs().amax(dim=-1)           # (4, steps)
+        err = (k_lg - p_lg).abs().amax(dim=-1)
+        print(f"  logits vs the plain kernels, largest over the {LM_SERVE['max_new']} steps: "
+              f"max_abs_err per request {[round(e, 5) for e in err.amax(-1).tolist()]} "
+              f"(tolerance {[round(t, 5) for t in tol.amin(-1).tolist()]} at the least)")
+        if (err > tol).any():
+            raise AssertionError(f"{MOE_ARCH} {mode}: logits differ from the plain kernels")
+        margin = top2_margin(p_lg)
+        parted = (k_tok != p_lg.argmax(-1)) & (margin >= tol)
+        if parted.any():
+            raise AssertionError(f"{MOE_ARCH} {mode}: a greedy token differs from the plain "
+                                 f"kernels' at a top-2 margin above the tolerance")
+        print(f"  greedy tokens equal the plain kernels' at {int((k_tok == p_lg.argmax(-1)).sum())} "
+              f"of {k_tok.numel()} steps, the rest at a near tie (smallest top-2 margin "
+              f"{margin.min().item():.4g})")
+        err0 = err.amax(-1)
+
+        # every stream equals the one-shot generate of its request
+        for r in done:
+            one = engine.generate(r.prompt[None], r.max_new).tokens[0].tolist()
+            if one != r.generated:
+                raise AssertionError(f"{MOE_ARCH} {mode}: request {r.uid}'s stream differs "
+                                     f"from its one-shot generate")
+        print(f"  all {len(done)} streams equal the one-shot generate of their request")
+
+        # the dropped fraction at the decode capacity (4 slots) and at the
+        # prefill capacity (one 32-token prompt)
+        state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
+        drops_prefill, drops_decode = [], []
+        with record_moe(drops_prefill):
+            for slot in range(4):
+                state = engine.prefill_into(state, slot, done[slot].prompt)
+        tok = torch.argmax(state.logits, dim=-1)
+        with record_moe(drops_decode):
+            state = engine.decode_step(state, tok)
+        cap_p = moe_mod.capacity(moe_cfg, drops_prefill[0][0])
+        cap_d = moe_mod.capacity(moe_cfg, drops_decode[0][0])
+        dp = statistics.mean(d for _, d in drops_prefill)
+        dd = statistics.mean(d for _, d in drops_decode)
+        print(f"  dropped fraction: prefill ({drops_prefill[0][0]} tokens, capacity {cap_p}) "
+              f"{dp:.5g} mean over {len(drops_prefill)} layer calls (max "
+              f"{max(d for _, d in drops_prefill):.5g}); decode ({drops_decode[0][0]} tokens, "
+              f"capacity {cap_d}) {dd:.5g} (the reference's 1 - mean(keep), with its rounding)")
+
+        # decode step: wall (synced), device time and launches (profiler)
+        step_wall = []
+        for _ in range(LM_SERVE["max_new"] - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = engine.decode_step(state, tok)
+            torch.cuda.synchronize()
+            step_wall.append(time.perf_counter() - t0)
+        step_ms = statistics.median(step_wall) * 1e3
+        step_state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
+
+        def one_step():
+            engine.decode_step(step_state, tok)
+
+        step_kern = profiled(one_step, reps=5)
+        step_dev = step_kern and sum(step_kern.values())
+        step_n = kernels_per_rep(one_step, reps=5)
+        top = sorted((step_kern or {}).items(), key=lambda kv: -kv[1])[:4]
+        moe_rows[mode] = {
+            "pack_s": res.pack_seconds, "dense_mb": res.dense_bytes / 1e6,
+            "served_mb": res.packed_bytes / 1e6, "tok_s": res.tok_per_s,
+            "ttft_ms": res.median_ttft * 1e3, "latency_ms": res.median_latency * 1e3,
+            "step_ms": step_ms, "step_device_ms": step_dev, "step_launches": step_n,
+            "peak_gb": peak / 1e9, "seconds": res.seconds, "steps": res.steps,
+            "max_abs_err": err0.max().item(), "drop_prefill": dp, "drop_decode": dd,
+            "flips": (n_flip, n_routed, gap)}
+        print(f"  pack {res.pack_seconds:.3f} s; {res.dense_bytes / 1e6:.1f} MB bf16 dense -> "
+              f"{res.packed_bytes / 1e6:.1f} MB served; {res.tok_per_s:.1f} tok/s, median TTFT "
+              f"{res.median_ttft * 1e3:.1f} ms, median latency {res.median_latency * 1e3:.1f} ms; "
+              f"decode step {step_ms:.3f} ms median (synced), device {fmt(step_dev)} ms in "
+              f"{fmt_count(step_n)} device launches (torch.profiler, 5 steps); peak allocated "
+              f"{peak / 1e9:.2f} GB above the {live / 1e9:.2f} GB earlier phases hold; top: "
+              + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
+
+        if mode == "det":
+            # chunked admission with the prefix cache, from the same engine:
+            # streams against its whole-prompt streams. A chunk of 8 tokens
+            # drops no assignment (8 x top-6 over 64 experts of capacity 8);
+            # a whole 32-token prompt may (capacity 8 for 192 assignments), so
+            # a request whose whole-prompt prefill dropped one may part.
+            c_ = MOE_CHUNK
+            rng = np.random.default_rng(0)
+            shared = rng.integers(0, moe_cfg.vocab_size, c_["shared_prefix"])
+            cprompts = []
+            for _ in range(c_["requests"]):
+                p_ = rng.integers(0, moe_cfg.vocab_size, c_["prompt_len"])
+                p_[:len(shared)] = shared
+                cprompts.append(p_)
+            whole, _, _, _ = serve_streams(engine, cprompts, c_["max_new"], c_["slots"])
+            no_prefix, _, _, _ = serve_streams(engine, cprompts, c_["max_new"], c_["slots"],
+                                               prefill_chunk=c_["prefill_chunk"])
+            pc = PrefixCache(max_entries=c_["prefix_cache"])
+            reg = MetricsRegistry()
+            reset_counts()
+            streams, cb_, csteps, csecs = serve_streams(
+                engine, cprompts, c_["max_new"], c_["slots"], prefill_chunk=c_["prefill_chunk"],
+                prefix_cache=pc, metrics=reg)
+            chunks = int(reg["serve_prefill_chunks_total"].value)
+            got = launch_counts()
+            ccalls = csteps - 1 + chunks
+            want = {name: 0 for name in counters}
+            want.update(binary_matmul=n_attn_proj * ccalls, binary_matmul_batched=n_exp_proj * ccalls)
+            print(f"  chunked det ({c_}): {csteps - 1} decode steps + {chunks} chunks; launches "
+                  f"{got}; prefix cache {pc.stats()}")
+            if got != want:
+                raise AssertionError(f"{MOE_ARCH} det chunked: expected launches {want}")
+            for name, count in got.items():
+                launches[name][(MOE_ARCH, "det chunked")] = count
+            run_mode[(MOE_ARCH, "det chunked")] = "det"
+            if pc.stats()["hits"] < 1:
+                raise AssertionError(f"{MOE_ARCH} det chunked: no prefix hit")
+            # a prefix hit splices the rows its chunks would compute: the streams
+            # equal the same chunked admission without the cache, bit for bit
+            if streams != no_prefix:
+                raise AssertionError(f"{MOE_ARCH} det chunked: the prefix cache changed a stream")
+            print(f"  all {len(cprompts)} streams equal the chunked serve's without the prefix "
+                  f"cache")
+            lg = moe_greedy(engine.params, torch.from_numpy(np.stack(cprompts)).to(dev),
+                            c_["max_new"])
+            tol = LM_LOGIT_TOL * lg.abs().amax(dim=-1)
+            margin = top2_margin(lg)
+
+            def path_routes(prompt, forced, chunk):
+                """Routing records of one request's greedy path on one slot:
+                its prompt prefilled whole (chunk 0) or by chunks, then the
+                ``forced`` tokens decoded; each prefill layer's records joined
+                along the tokens."""
+                rec = []
+                st_ = engine.init_decode(1, c_["prompt_len"], c_["max_new"])
+                with moe_routing(record=rec):
+                    if chunk:
+                        for off in range(0, len(prompt), chunk):
+                            st_ = engine.prefill_chunk_into(st_, 0, prompt[off:off + chunk], off)
+                    else:
+                        st_ = engine.prefill_into(st_, 0, prompt)
+                    for t_ in forced:
+                        st_ = engine.decode_step(st_, torch.tensor([t_], device=dev))
+                n_pre = moe_cfg.n_layers * (len(prompt) // chunk if chunk else 1)
+                pre = [(torch.cat([rec[c * moe_cfg.n_layers + l_][0] for c in
+                                   range(n_pre // moe_cfg.n_layers)]),
+                        torch.cat([rec[c * moe_cfg.n_layers + l_][1] for c in
+                                   range(n_pre // moe_cfg.n_layers)]))
+                       for l_ in range(moe_cfg.n_layers)]
+                return pre + rec[n_pre:]
+
+            n_equal = n_dropped = n_flipped = 0
+            for uid, p_ in enumerate(cprompts):
+                drops = []
+                with record_moe(drops):
+                    T.prefill(moe_cfg, engine.params, torch.from_numpy(p_[None]).to(dev))
+                dropped = any(d > 0 for _, d in drops)
+                n_dropped += dropped
+                if streams[uid] == whole[uid]:
+                    n_equal += 1
+                    continue
+                i = first_diff(streams[uid], whole[uid])
+                note = (f"  request {uid}: chunked stream equals the whole-prompt one up to step "
+                        f"{i} (top-2 margin {margin[uid, i].item():.4g}, tolerance "
+                        f"{tol[uid, i].item():.4g})")
+                if dropped:       # the whole prompt ran a different FFN: no tie to look for
+                    print(f"{note}; its whole-prompt prefill dropped assignments")
+                    continue
+                rw = path_routes(p_, whole[uid][:i], 0)
+                rc = path_routes(p_, whole[uid][:i], c_["prefill_chunk"])
+                fl = [flipped(pw, ew, ec) for (pw, ew), (_, ec) in zip(rw, rc)]
+                n_fl, gap_fl = sum(n for n, _ in fl), max(gp for _, gp in fl)
+                n_flipped += n_fl > 0
+                print(f"{note}; no drop; {n_fl} token routings differ between the chunked and "
+                      f"whole paths up to there (largest router-logit gap {gap_fl:.4g})")
+                if gap_fl >= MOE_ROUTE_TIE:
+                    raise AssertionError(f"{MOE_ARCH} det: request {uid}: a routing flip at a "
+                                         f"gap of {gap_fl}")
+                if not n_fl and margin[uid, i] >= tol[uid, i]:
+                    raise AssertionError(f"{MOE_ARCH} det: request {uid}'s chunked stream "
+                                         f"diverges with no drop, no routing flip and a margin "
+                                         f"above the tolerance")
+            moe_rows["chunked"] = {"tok_s": cb_.tokens_generated / csecs, "steps": csteps,
+                                   "chunks": chunks, "n_equal": n_equal, "n_req": len(cprompts),
+                                   "n_dropped": n_dropped, "n_flipped": n_flipped,
+                                   "prefix": pc.stats(),
+                                   "ttft_ms": statistics.median(r.ttft for r in cb_.completed) * 1e3}
+            print(f"  {n_equal}/{len(cprompts)} chunked streams equal the whole-prompt streams; "
+                  f"{n_dropped} whole-prompt prefills dropped assignments, {n_flipped} differing "
+                  f"streams met a routing flip; "
+                  f"{moe_rows['chunked']['tok_s']:.1f} tok/s, median TTFT "
+                  f"{moe_rows['chunked']['ttft_ms']:.1f} ms")
+        del res, engine, state, step_state, k_lg, p_lg
+        torch.cuda.empty_cache()
+
     # 7. timing at the path shapes
     print("== timing (kernel_ms: CUDA events around 200 back-to-back wrapper calls, K1 "
           "cold with L2 flushed before each call, as at pack time; device_ms: the "
@@ -2101,6 +2570,47 @@ def main() -> int:
                             total(launches["xnor_matmul"], lm_x), errs["k4"], lm_k4),
                     "device_ms_per_shape": [r[6] for r in lm_k4]})
 
+    def k2_moe_row(e_, m, k, n):
+        x = torch.randn(e_, m, k, generator=g, device=dev).to(torch.bfloat16)
+        wk = torch.randn(e_, k, n, generator=g, device=dev)
+        wp = torch.stack([binarize_pack(w_, stochastic=False) for w_ in wk])
+        scale = wk.abs().mean(dim=1)
+        del wk
+        wl = torch.stack([unpack_bits(w_) for w_ in wp]).to(torch.bfloat16)  # library operand
+        ms = time_warm(lambda: binary_matmul_batched(x, wp, scale))
+        dev_ms = device_ms(lambda: binary_matmul_batched(x, wp, scale), "binary_matmul_kernel")
+        plain_ms = time_warm(lambda: binary_matmul_batched_plain(x, wp, scale), iters=20)
+        lib_ms = time_warm(lambda: torch.bmm(x, wl).float() * scale[:, None, :])
+        nbytes = e_ * (m * k * 2 + (k // 32) * n * 4 + n * 4 + m * n * 4)
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_o = 2.0 * e_ * m * k * n / PEAK_BF16_FLOP_PER_S * 1e3
+        print(f"  expert-batched K2 scaled {e_}x{m}x{k}x{n} bf16: kernel_ms {ms:.4f}, device_ms "
+              f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (torch.bmm on "
+              f"unpacked +-1 times scale), bound_ms {max(t_b, t_o):.5f} "
+              f"({'bytes' if t_b >= t_o else 'operations'}, {nbytes} B)")
+        return (ms, plain_ms, max(t_b, t_o), t_b, t_o, lib_ms, dev_ms)
+
+    print(f"== {MOE_ARCH} decode shapes (4 slots: the experts' capacity 8; a layer runs w_qkv "
+          f"and w_o on K2, w_gate, w_up and w_down on the expert-batched K2)")
+    moe_runs = [(MOE_ARCH, r) for r in ("det", "stoch", "det chunked")]
+    moe_k2 = [k2_moe_row(*MOE_K2[0]), k2_moe_row(*MOE_K2[0]), k2_moe_row(*MOE_K2[1])]
+    kernels.append({**entry(f"binary_matmul_batched ({MOE_ARCH} det/stoch decode, bf16, 64 "
+                            f"experts x 8 rows, scaled: w_gate, w_up, w_down of a layer, "
+                            f"summed)", "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul_batched"], moe_runs),
+                            errs["k2_moe"], moe_k2),
+                    "replaces_note": "vmapped over the experts at src/repro/models/moe.py:29-32",
+                    "device_ms_per_shape": [r[6] for r in moe_k2]})
+    moe_attn = [k2_lm_row(4, k, n) for k, n in MOE_ATTN_KN]
+    kernels.append({**entry(f"binary_matmul ({MOE_ARCH} det/stoch decode, bf16 M=4, scaled: "
+                            f"w_qkv and w_o of a layer, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul"], moe_runs), errs["k2_moe_attn"],
+                            moe_attn),
+                    "device_ms_per_shape": [r[6] for r in moe_attn]})
+
     print("== xnor conv layers as a whole (K5, then K4 with the border correction and "
           "epilogue in its flush) against F.conv2d on +-1 f32, TF32 off; device kernels "
           "a layer launches, counted by torch.profiler")
@@ -2181,6 +2691,22 @@ def main() -> int:
           f"{e_['pack_s']:.3f} s, {e_['tok_s']:.1f} tok/s, decode step {e_['step'][0]:.3f} ms "
           f"wall, {fmt(e_['step'][1])} device, {fmt_count(e_['step'][2])} launches, mean "
           f"agreement {e_['agreement']:.3f}")
+    print(f"== {MOE_ARCH} serving summary (full width, {MOE_LAYERS} of 48 layers, {LM_SERVE})")
+    for mode in MOE_MODES:
+        r = moe_rows[mode]
+        print(f"  {mode}: pack {r['pack_s']:.3f} s, {r['dense_mb']:.1f} -> {r['served_mb']:.1f} "
+              f"MB, {r['tok_s']:.1f} tok/s ({r['steps']} steps in {r['seconds']:.3f} s), median "
+              f"TTFT {r['ttft_ms']:.1f} ms, median latency {r['latency_ms']:.1f} ms, decode "
+              f"step {r['step_ms']:.3f} ms (device {fmt(r['step_device_ms'])} ms, "
+              f"{fmt_count(r['step_launches'])} launches), peak {r['peak_gb']:.2f} GB, logits "
+              f"vs plain kernels {r['max_abs_err']:.4g}, dropped fraction prefill "
+              f"{r['drop_prefill']:.5g} / decode {r['drop_decode']:.3g}, routing flips "
+              f"{r['flips'][0]}/{r['flips'][1]} (largest gap {r['flips'][2]:.4g})")
+    r = moe_rows["chunked"]
+    print(f"  chunked det: {r['tok_s']:.1f} tok/s ({r['steps']} steps, {r['chunks']} chunks), "
+          f"median TTFT {r['ttft_ms']:.1f} ms, prefix {r['prefix']['hits']} hits / "
+          f"{r['prefix']['misses']} misses; {r['n_equal']}/{r['n_req']} streams equal the "
+          f"whole-prompt ones, {r['n_dropped']} whole-prompt prefills dropped assignments")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

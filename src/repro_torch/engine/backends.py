@@ -6,12 +6,15 @@ Priority order (highest wins among eligible), as in the reference:
   xnor_conv (40) > xnor (30) > packed (20) > packed_conv (15)
     > binarized_dense (10) > dense (0)
 
-* ``packed`` binarizes a (K, N) projection, or each layer of a stacked
-  (L, K, N) one (Eq. 1, or Eq. 2 with words from the pack key,
-  ``core.prng``), and bitpacks it with K1, then serves it with K2.
+* ``packed`` binarizes a (K, N) projection, or each (K, N) slice of a
+  stacked (L, K, N) or (L, E, K, N) one (Eq. 1, or Eq. 2 with words from
+  the pack key, ``core.prng``), and bitpacks it with K1, then serves it
+  with K2; a layer's MoE experts (E, K/32, N) in one expert-batched K2
+  launch.
 * ``xnor`` packs the same way (Eq. 1) and serves with K3 (sign + pack the
   activations) and K4 (XNOR-popcount matmul). It takes ``SignWords`` too:
   the model then runs the producer's bias, batch norm and sign inside K3.
+  It serves no MoE experts, as the reference does not.
 * ``xnor_conv`` packs a conv kernel in the per-tap layout with K1 (its
   ``XnorConv`` leaf keeps the per-tap weight sums the border correction
   reads) and serves with K5 (patch packing) and K4, whose flush adds the
@@ -201,10 +204,23 @@ def _apply_dense(w: torch.Tensor, x: torch.Tensor, *, stride=None, padding=None)
 
 
 def _apply_packed(w: PackedLinear, x: torch.Tensor) -> torch.Tensor:
+    """x @ w; a layer's experts (words (E, K/32, N), x (E, C, K)) in one
+    expert-batched launch."""
+    if w.packed.ndim == 3:
+        return ops.binary_matmul_batched(x, w.packed, w.scale).to(x.dtype)
     return ops.binary_matmul(x, w.packed, w.scale).to(x.dtype)
 
 
+#: Why an MoE layer's experts have no xnor datapath: a fact of the reference.
+XNOR_EXPERTS_ABSENT = (
+    "xnor MoE experts: the reference's models/moe.py _expert_matmul "
+    "(src/repro/models/moe.py:22-34) takes no XnorLinear (its decode fails on an "
+    "xnor-packed MoE tree), so the MoE family serves in det and stoch only")
+
+
 def _apply_xnor(w: XnorLinear, x: torch.Tensor | SignWords) -> torch.Tensor:
+    if w.packed.ndim == 3:
+        raise NotImplementedError(XNOR_EXPERTS_ABSENT)
     if isinstance(x, SignWords):     # signs packed by the producer's fused K3
         if x.k != w.k:
             raise ValueError(f"sign words cover k={x.k}, the leaf k={w.k}")

@@ -1,8 +1,12 @@
 // K2: out (M, N) f32 = x (M, K) @ unpack(w (ceil(K/32), N) int32)[:K] [* scale],
-// with bit 1 -> +1 and bit 0 -> -1, summed in f32.
+// with bit 1 -> +1 and bit 0 -> -1, summed in f32; in its expert-batched mode
+// the same for each of E experts in one launch: x (E, M, K), w (E, ceil(K/32),
+// N), scale (E, N), out (E, M, N).
 //
 // Replaces the TPU kernel binary_matmul_pallas
-// (src/repro/kernels/binary_matmul.py: _bmm_kernel and _bmm_scaled_kernel).
+// (src/repro/kernels/binary_matmul.py: _bmm_kernel and _bmm_scaled_kernel),
+// and, batched, the reference MoE's jax.vmap of it over the experts
+// (src/repro/models/moe.py: _expert_matmul).
 //
 // Bound on this card: the f32 operations on CUDA cores (2*M*K*N at
 // 67 TFLOP/s, the data sheet's non-tensor f32 rate); the packed weights are
@@ -33,6 +37,12 @@
 // N and K are masked here (rows
 // and activations past the edge stage as 0, words past N load as 0, and
 // nothing past the edge is stored), so no caller pads.
+//
+// Expert-batched mode: grid.z is E x kSplit, expert blockIdx.z / kSplit. A
+// cluster is kSplit consecutive blocks along z, so its blocks share one
+// expert and block_rank() stays the K slice: each expert's sums are reduced
+// in the same fixed order as a 2-D call on its slices (bit for bit equal to
+// a loop of 2-D calls, and two calls equal). The 2-D entry point is E = 1.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -66,6 +76,11 @@ binary_matmul_kernel(const T* __restrict__ x, const int32_t* __restrict__ w,
   const int warp = threadIdx.x >> 5;
   const int64_t n = static_cast<int64_t>(blockIdx.x) * 32 + lane;
   const int64_t k32_total = (K + 31) / 32;
+  const int64_t expert = blockIdx.z / kSplit;
+  x += expert * M * K;
+  w += expert * k32_total * N;
+  if (scale != nullptr) scale += expert * N;
+  out += expert * M * N;
   const int64_t per = (k32_total + kSplit - 1) / kSplit;
   const int64_t kw_begin = split * per;
   const int64_t kw_end = kw_begin + per < k32_total ? kw_begin + per : k32_total;
@@ -150,16 +165,18 @@ void launch(dim3 grid, cudaStream_t s, bool stride, const T* x, const int32_t* w
 
 }  // namespace
 
-// x: (M, K) f32 or bf16 (dtype: BnnDtype), the compute dtype; w: (ceil(K/32), N)
-// int32; scale: (N,) f32 or null; out: (M, N) f32. All row-major, contiguous.
-// M >= 1, K >= 1, N >= 1.
-extern "C" int bnn_binary_matmul(const void* x, const void* w, const void* scale,
-                                 void* out, int64_t M, int64_t K, int64_t N,
-                                 int dtype, void* stream) {
+// x: (E, M, K) f32 or bf16 (dtype: BnnDtype), the compute dtype; w: (E,
+// ceil(K/32), N) int32; scale: (E, N) f32 or null; out: (E, M, N) f32. All
+// row-major, contiguous. E >= 1 with E * kSplit <= 65535 (grid.z), M >= 1,
+// K >= 1, N >= 1.
+extern "C" int bnn_binary_matmul_batched(const void* x, const void* w, const void* scale,
+                                         void* out, int64_t E, int64_t M, int64_t K,
+                                         int64_t N, int dtype, void* stream) {
   const int64_t groups = (M + kRows - 1) / kRows;
   const bool stride = groups > 65535;
   const dim3 grid(static_cast<unsigned>((N + 31) / 32),
-                  static_cast<unsigned>(stride ? 65535 : groups), kSplit);
+                  static_cast<unsigned>(stride ? 65535 : groups),
+                  static_cast<unsigned>(E * kSplit));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* wp = static_cast<const int32_t*>(w);
   const float* sp = static_cast<const float*>(scale);
@@ -171,4 +188,13 @@ extern "C" int bnn_binary_matmul(const void* x, const void* w, const void* scale
     launch<float>(grid, s, stride, static_cast<const float*>(x), wp, sp, op, M, K, N);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// x: (M, K) f32 or bf16 (dtype: BnnDtype), the compute dtype; w: (ceil(K/32), N)
+// int32; scale: (N,) f32 or null; out: (M, N) f32. All row-major, contiguous.
+// M >= 1, K >= 1, N >= 1.
+extern "C" int bnn_binary_matmul(const void* x, const void* w, const void* scale,
+                                 void* out, int64_t M, int64_t K, int64_t N,
+                                 int dtype, void* stream) {
+  return bnn_binary_matmul_batched(x, w, scale, out, 1, M, K, N, dtype, stream);
 }

@@ -13,6 +13,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.packing import PACK
 from repro_torch.kernels.binary_matmul import binary_matmul as _binary_matmul
+from repro_torch.kernels.binary_matmul import binary_matmul_batched as _binary_matmul_batched
 from repro_torch.kernels.stoch_binarize import binarize_pack
 
 _BLOCK = 256    # the reference's block_k = block_n, which sets its draw's shape
@@ -29,6 +30,17 @@ def binary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
         x = x.to(torch.bfloat16)
     out = _binary_matmul(x.reshape(-1, k).contiguous(), w_packed, scale)
     return out.reshape(*lead, w_packed.shape[-1])
+
+
+def binary_matmul_batched(x: torch.Tensor, w_packed: torch.Tensor,
+                          scale: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`binary_matmul` for each expert of an MoE layer in one launch:
+    x (E, C, K) @ unpack(w_packed (E, ceil(K/32), N)) [* scale (E, N)] ->
+    (E, C, N) f32, with :func:`binary_matmul`'s compute-dtype rule (the
+    reference's ``jax.vmap`` of ``ops.binary_matmul`` over the experts)."""
+    if x.dtype != torch.float32:
+        x = x.to(torch.bfloat16)
+    return _binary_matmul_batched(x.contiguous(), w_packed, scale)
 
 
 def _ceil_to(x: int, m: int) -> int:

@@ -28,6 +28,19 @@ def binary_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
     return out
 
 
+def binary_matmul_batched_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                              scale: torch.Tensor | None = None, *,
+                              compute_dtype=torch.float32) -> torch.Tensor:
+    """:func:`binary_matmul_ref` for each of E experts: x (E, M, K) @
+    unpack(w_packed (E, K/32, N))[:, :K] [* scale (E, N)] -> (E, M, N) f32."""
+    k = x.shape[-1]
+    w = packing.unpack_bits(w_packed.movedim(0, 1), dtype=torch.float32)[:k].movedim(1, 0)
+    out = torch.matmul(x.to(compute_dtype).to(torch.float32), w)
+    if scale is not None:
+        out = out * scale.to(torch.float32)[:, None, :]
+    return out
+
+
 def det_binarize_pack_ref(w: torch.Tensor) -> torch.Tensor:
     """Sign-binarize (Eq. 1, ``core.binarize.SIGN_MIN``), then bitpack."""
     return packing.pack_bits(deterministic_binarize(w))

@@ -1,7 +1,8 @@
 """Serving driver: fixed-batch inference of the paper's nets (the MNIST FC
 net and VGG-16 on CIFAR-10), and step-level continuous-batching serving of
-the dense LM family, with binary weights, and in ``xnor`` mode binary
-activations too.
+the dense and MoE LM families, with binary weights, and in ``xnor`` mode
+binary activations too (not for MoE experts, which the reference serves in
+``det`` and ``stoch`` only).
 
 The master weights are compiled into an execution plan (``repro_torch.engine``)
 and packed with K1. Per batch, ``det``/``stoch`` run the hidden projections
@@ -16,11 +17,15 @@ dense. Prints the weight bytes before and after packing, ms/batch and img/s.
       --binarize xnor --slots 4 --requests 64
 
 Token archs (``serve_lm``; the dense family: starcoder2_3b, qwen2_5_32b,
-h2o_danube_3_4b, deepseek_coder_33b) stream requests through
+h2o_danube_3_4b, deepseek_coder_33b; the MoE family: moonshot_v1_16b_a3b,
+grok_1_314b, whose expert projections run on the expert-batched K2) stream
+requests through
 ``serve.engine.stream_serve``: a persistent slot-addressed KV cache,
 per-step slot refill, per-request ``max_new``, tok/s from tokens actually
-recorded. ``--packed`` serves the plan's packed leaves (every attention and
-MLP projection: K2, or K3 + K4 in ``xnor``); without it the dense masters.
+recorded. ``--packed`` serves the plan's packed leaves (every attention,
+MLP and expert projection: K2, or K3 + K4 in ``xnor``); without it the
+dense masters. ``--binarize xnor`` on an MoE arch exits naming the
+reference's gap (``engine.backends.XNOR_EXPERTS_ABSENT``).
 ``--trace OUT.json`` writes a Chrome trace of the loop (dispatch vs device
 spans; ``--no-trace-fence`` drops the device fence) and ``--metrics-out
 OUT.json|.prom`` the serving metrics:
@@ -84,6 +89,7 @@ from repro_torch.core import prng
 from repro_torch.core.policy import DEFAULT_POLICY, make_paper_policy
 from repro_torch.data import synthetic as syn
 from repro_torch.engine import ExecutionPlan, compile_plan, format_plan_table, plan_report
+from repro_torch.engine.backends import XNOR_EXPERTS_ABSENT
 from repro_torch.models import mnist_fc, vgg
 from repro_torch.models import transformer as T
 from repro_torch.obs import MetricsRegistry, Tracer, validate_trace
@@ -370,7 +376,8 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
              override=(), trace: str = "", trace_fence: bool = True,
              metrics_out: str = "", prefill_chunk: int = 0, prefix_cache: int = 0,
              shared_prefix: int = 0, ensemble: int = 1,
-             abstain_threshold: float | None = None) -> LMServeResult:
+             abstain_threshold: float | None = None,
+             n_layers: int | None = None) -> LMServeResult:
     """Step-level continuous-batching serving of a token arch, as the
     reference's ``launch.serve`` token path: master weights drawn from
     ``seed`` (``torch.Generator``), packed at ``prng.key(seed + 1)`` when
@@ -384,12 +391,15 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     1)`` (replica 0 is the single-sample pack), ``abstain_threshold``
     flagging requests whose vote agreement falls below it. ``trace`` writes
     a Chrome trace of the loop and validates it; ``metrics_out`` writes the
-    serving metrics."""
+    serving metrics. ``n_layers`` cuts the config's depth, its widths kept
+    (a card that cannot hold every layer's f32 masters)."""
     arch = cb.canonical_arch(arch)
     if (prefill_chunk or prefix_cache) and ensemble > 1:
         raise SystemExit("--prefill-chunk/--prefix-cache are single-sample serving features; "
                          "K-replica ensemble serving prefills whole prompts")
     cfg = cb.get_config(arch, smoke=smoke)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if cfg.frontend:
         raise SystemExit(f"{arch} uses a stubbed frontend; serve a token arch")
     if (plan_from or override) and not packed:
@@ -406,6 +416,8 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
                          plan_from=plan_from, show_report=show_report, report_batch=slots,
                          override=override)
     pack_seconds = replicas = None
+    if cfg.n_experts and packed and plan.mode == "xnor":
+        raise SystemExit(f"{arch}: {XNOR_EXPERTS_ABSENT}")
     if packed:
         if ensemble > 1 and plan.mode != "stoch":
             raise SystemExit(f"--ensemble needs a stochastic plan, got mode={plan.mode} "
@@ -504,7 +516,7 @@ def main(argv=None) -> ServeResult | LMServeResult:
     ap.add_argument("--arch", default="mnist_fc",
                     help=f"{' | '.join(ARCHS)}, or a token arch: "
                          f"{' | '.join(a for a in cb.ARCH_IDS if a not in ARCHS)} "
-                         f"(the dense family runs)")
+                         f"(the dense and MoE families run; MoE in det and stoch)")
     ap.add_argument("--binarize", default="det", choices=["det", "stoch", "xnor"])
     ap.add_argument("--packed", action="store_true",
                     help="token archs: serve the plan's packed leaves (without it, the "

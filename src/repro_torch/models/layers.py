@@ -288,9 +288,16 @@ def embed_init(generator: torch.Generator, shape, *, device,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm over the last axis, computed in f32, with the weight
-    ``1 + scale``; returns x's dtype."""
+    ``1 + scale``; returns x's dtype.
+
+    The mean of squares is summed in f64 and rounded to f32 once, so a row's
+    norm does not depend on how many rows share the call: torch's f32
+    reduction picks its summation order by the tensor's shape, and a norm
+    one ulp off can flip an MoE layer's near-tie expert, so a served stream
+    would differ from the same request decoded alone."""
     x32 = x.to(torch.float32)
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x.to(torch.float64)), dim=-1,
+                     keepdim=True).to(torch.float32)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 

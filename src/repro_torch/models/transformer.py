@@ -1,7 +1,7 @@
-"""Decoder stack of the dense LM family (the reference's
-``repro/models/transformer.py``, its ``uniform`` template without MoE):
-every layer attention + FFN, for starcoder2, qwen2.5, h2o-danube-3 and
-deepseek-coder.
+"""Decoder stack of the LM families (the reference's
+``repro/models/transformer.py``, its ``uniform`` template): every layer
+attention + FFN, dense (starcoder2, qwen2.5, h2o-danube-3, deepseek-coder)
+or MoE (moonshot / Moonlight, grok: ``models.moe`` on every layer).
 
 Layers are stacked on a leading axis, as the reference stacks them for
 ``lax.scan``: the forward passes loop over layer ``i`` and slice every
@@ -12,8 +12,8 @@ tensor, a ``PackedLinear`` (K2) or an ``XnorLinear`` (K3 + K4).
 The decode cache is slot-addressed and long-lived: ``decode_step`` and
 ``cache_insert`` write its tensors in place, where the reference donates
 them to a jitted call, and return the cache dict; ``prefill_chunk``
-advances one slot's prefill by a chunk the same way. The MoE, SSM, hybrid
-and frontend families wait for ROADMAP queue 1 item 6b and raise
+advances one slot's prefill by a chunk the same way. The SSM, hybrid and
+frontend families wait for ROADMAP queue 1 item 6b and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -25,24 +25,27 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import embed_lookup, lm_init, rms_norm
 
 _ITEM_6B = "ROADMAP queue 1 item 6b"
 
 
-def require_dense(cfg) -> None:
-    """Raises unless ``cfg`` is of the dense family, the one the port runs."""
-    if cfg.family != "dense" or cfg.n_experts or cfg.frontend:
+def require_uniform(cfg) -> None:
+    """Raises unless ``cfg`` runs the uniform template on tokens (the dense
+    and MoE families), the one the port runs."""
+    if cfg.family == "ssm" or cfg.is_hybrid or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet ({_ITEM_6B}); "
-            f"the port runs the dense family")
+            f"the port runs the dense and MoE families")
 
 
 def init_lm(cfg, generator: torch.Generator, *, device) -> dict:
     """Master weights drawn from ``generator`` (which must live on
     ``device``), f32, in the reference's tree: ``embed``, ``final_norm``,
-    ``lm_head`` and the stacked ``layers``."""
-    require_dense(cfg)
+    ``lm_head`` and the stacked ``layers``: ``moe`` in place of ``mlp``
+    when every layer is an MoE layer, as in the reference."""
+    require_uniform(cfg)
     n = cfg.n_layers
     params: dict[str, Any] = {
         "embed": {"embedding": lm_init(generator, (cfg.vocab_size, cfg.d_model),
@@ -56,8 +59,13 @@ def init_lm(cfg, generator: torch.Generator, *, device) -> dict:
         "attn": A.init_attn(generator, cfg, lm_init, device=device, n_layers=n),
         "ln1": {"scale": torch.zeros((n, cfg.d_model), device=device)},
         "ln2": {"scale": torch.zeros((n, cfg.d_model), device=device)},
-        "mlp": M.init_mlp(generator, cfg, lm_init, device=device, n_layers=n),
     }
+    if cfg.n_experts and cfg.moe_every == 1:
+        params["layers"]["moe"] = MOE.init_moe(generator, cfg, lm_init, device=device,
+                                               n_layers=n)
+    else:
+        params["layers"]["mlp"] = M.init_mlp(generator, cfg, lm_init, device=device,
+                                             n_layers=n)
     return params
 
 
@@ -86,21 +94,34 @@ def _head_out(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
-def _block(cfg, lp: dict, x: torch.Tensor, attend) -> torch.Tensor:
-    """One pre-norm layer: x + attn(norm x), then + mlp(norm x)."""
+def _block(cfg, lp: dict, x: torch.Tensor, attend, aux: list | None = None) -> torch.Tensor:
+    """One pre-norm layer: x + attn(norm x), then + ffn(norm x), the FFN an
+    MoE layer's where the layer has ``moe`` (its aux dict appended to
+    ``aux`` when given), else the MLP."""
     x = x + attend(lp["attn"], rms_norm(x, lp["ln1"]["scale"]))
-    return x + M.mlp(cfg, lp["mlp"], rms_norm(x, lp["ln2"]["scale"]))
+    h = rms_norm(x, lp["ln2"]["scale"])
+    if "moe" in lp:
+        y, moe_aux = MOE.moe_ffn(cfg, lp["moe"], h)
+        if aux is not None:
+            aux.append(moe_aux)
+        return x + y
+    return x + M.mlp(cfg, lp["mlp"], h)
 
 
 def forward(cfg, params: dict, tokens_or_embeds: torch.Tensor):
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux)."""
-    require_dense(cfg)
+    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux), aux's
+    ``lb_loss`` the MoE layers' load-balance losses summed (0 when dense)."""
+    require_uniform(cfg)
     x = _embed_in(cfg, params, tokens_or_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux: list[dict] = []
     for i in range(cfg.n_layers):
         x = _block(cfg, layer_params(params["layers"], i), x,
-                   lambda p, h: A.attention(cfg, p, h, positions))
-    return _head_out(cfg, params, x), {"lb_loss": torch.zeros((), device=x.device)}
+                   lambda p, h: A.attention(cfg, p, h, positions), aux)
+    lb = torch.zeros((), device=x.device)
+    for a in aux:
+        lb = lb + a["lb_loss"]
+    return _head_out(cfg, params, x), {"lb_loss": lb}
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +131,7 @@ def forward(cfg, params: dict, tokens_or_embeds: torch.Tensor):
 def init_cache(cfg, batch: int, context_len: int, dtype=None, *, device) -> dict:
     """Zeroed decode cache for a context of ``context_len`` tokens:
     ``pos`` (B,) int32 and ``k``/``v`` (L, B, S_kv, KV, hd)."""
-    require_dense(cfg)
+    require_uniform(cfg)
     dtype = dtype or cfg.activation_dtype
     s_kv = A.cache_length(cfg, context_len)
     shape = (cfg.n_layers, batch, s_kv, cfg.n_kv_heads, cfg.head_dim)
@@ -122,7 +143,7 @@ def init_cache(cfg, batch: int, context_len: int, dtype=None, *, device) -> dict
 def cache_slot_axes(cfg) -> dict[str, int]:
     """Slot (batch) axis of every decode-cache entry: each request owns one
     index along these axes for its lifetime."""
-    require_dense(cfg)
+    require_uniform(cfg)
     return {"pos": 0, "k": 1, "v": 1}
 
 
@@ -176,7 +197,7 @@ def prefill_chunk(cfg, params: dict, cache: dict, tokens: torch.Tensor, slot: in
     Returns (last-token logits (1, V), cache) with a new ``pos`` whose
     ``pos[slot]`` is ``offset + C``, set absolutely; the old ``pos`` tensor
     is left as it was."""
-    require_dense(cfg)
+    require_uniform(cfg)
     x = _embed_in(cfg, params, tokens)
     c = x.shape[1]
     pos = cache["pos"].clone()
@@ -192,7 +213,7 @@ def decode_step(cfg, params: dict, cache: dict, tokens_or_embeds: torch.Tensor):
     """One decode step for the whole batch: tokens (B, 1) ->
     (logits (B, V), cache), the cache's K/V written in place and ``pos``
     advanced by one."""
-    require_dense(cfg)
+    require_uniform(cfg)
     x = _embed_in(cfg, params, tokens_or_embeds)
     pos = cache["pos"]
     for i in range(cfg.n_layers):
@@ -221,7 +242,7 @@ def prefill(cfg, params: dict, tokens_or_embeds: torch.Tensor, max_len: int | No
     """Prefill ``s`` context tokens -> (last-token logits (B, V), cache),
     the cache sized for ``max_len`` positions (default ``s + 1``, so one
     decode step fits)."""
-    require_dense(cfg)
+    require_uniform(cfg)
     x = _embed_in(cfg, params, tokens_or_embeds)
     bsz, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)

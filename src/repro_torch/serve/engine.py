@@ -174,7 +174,7 @@ class ServeEngine:
         if mesh is not None or plan is not None:
             raise _not_ported("mesh-placed serving (ServeEngine(mesh=..., plan=...))",
                               "ROADMAP queue 1 item 7")
-        T.require_dense(cfg)
+        T.require_uniform(cfg)
         self.cfg = cfg
         self.abstain_threshold = abstain_threshold
         self.tracer = tracer if tracer is not None else NULL_TRACER

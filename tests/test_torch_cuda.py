@@ -20,7 +20,8 @@ from repro_torch.core.policy import DEFAULT_POLICY, make_paper_policy
 from repro_torch.engine import ExecutionPlan, compile_plan
 from repro_torch.engine.plan import tree_leaves_with_path, tree_map
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.binary_matmul import binary_matmul, binary_matmul_plain
+from repro_torch.kernels.binary_matmul import (binary_matmul, binary_matmul_batched,
+                                               binary_matmul_batched_plain, binary_matmul_plain)
 from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
@@ -1020,3 +1021,66 @@ def test_temperature_words_on_the_card_equal_the_cpu(cuda):
         clear = (top2[:, 0] - top2[:, 1]) > 2 * atol
         got = prng.categorical(key, lg.to(cuda)).cpu()
         assert torch.equal(got[clear], prng.categorical(key, lg)[clear])
+
+
+def _batched_inputs(e, m, k, n, dtype, scaled, device):
+    rng = np.random.default_rng(e * m + k + n)
+    x = torch.from_numpy(rng.normal(size=(e, m, k)).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.normal(size=(e, k, n)).astype(np.float32)).to(device)
+    wp = torch.stack([binarize_pack(wi, stochastic=False) for wi in w])
+    scale = (torch.from_numpy(rng.uniform(0.5, 2.0, (e, n)).astype(np.float32)).to(device)
+             if scaled else None)
+    return x, wp, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n", [(64, 8, 2048, 1408), (64, 8, 1408, 2048),
+                                     (3, 5, 100, 70), (2, 33, 784, 65), (1, 4, 512, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_batched_k2_matches_plain_and_the_2d_loop(cuda, e, m, k, n, dtype, scaled):
+    """The expert-batched K2 at Moonlight's expert shapes (64 experts, the
+    decode capacity 8) and ragged ones: within tolerance of its plain
+    version, each expert bit for bit the 2-D K2 on its slices, two calls
+    bit-identical, one launch a call."""
+    x, wp, scale = _batched_inputs(e, m, k, n, dtype, scaled, cuda)
+    before = (binary_matmul_batched.launches, binary_matmul.launches)
+    got = binary_matmul_batched(x, wp, scale)
+    assert (binary_matmul_batched.launches - before[0], binary_matmul.launches - before[1]) \
+        == (1, 0)
+    torch.testing.assert_close(got, binary_matmul_batched_plain(x, wp, scale),
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+    loop = torch.stack([binary_matmul(x[i], wp[i], None if scale is None else scale[i])
+                        for i in range(e)])
+    assert torch.equal(got, loop)
+    assert torch.equal(binary_matmul_batched(x, wp, scale), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode", [("moonshot_v1_16b_a3b", "det"),
+                                       ("grok_1_314b", "stoch")])
+def test_moe_serve_on_the_card(cuda, arch, mode):
+    """An MoE SMOKE config (2 layers, f32) served on the card: 2 attention
+    K2 and one batched K2 an expert projection per layer, per prefill and
+    decode step; the streams equal one-shot generate, and the logits the
+    same forward with the plain kernels."""
+    before = (binary_matmul.launches, binary_matmul_batched.launches)
+    res = serve.serve_lm(arch=arch, smoke=True, packed=True, binarize=mode, requests=5,
+                         slots=2, prompt_len=8, max_new=3, device="cuda")
+    calls = 2 * (5 + res.steps - 1)               # layers x model calls
+    n_exp = 3 if res.cfg.mlp_type == "glu" else 2
+    assert (binary_matmul.launches - before[0],
+            binary_matmul_batched.launches - before[1]) == (2 * calls, n_exp * calls)
+    eng = res.engine
+    for r in res.batcher.completed:
+        assert eng.generate(r.prompt[None], r.max_new).tokens[0].tolist() == r.generated
+    prompts = torch.from_numpy(np.stack([r.prompt for r in res.batcher.completed])).to(cuda)
+    logits = T.forward(res.cfg, eng.params, prompts)[0]
+    saved = (ops._binary_matmul, ops._binary_matmul_batched)
+    ops._binary_matmul, ops._binary_matmul_batched = (binary_matmul_plain,
+                                                      binary_matmul_batched_plain)
+    try:
+        plain = T.forward(res.cfg, eng.params, prompts)[0]
+    finally:
+        ops._binary_matmul, ops._binary_matmul_batched = saved
+    torch.testing.assert_close(logits, plain, **F32_TOL)

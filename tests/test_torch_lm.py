@@ -139,14 +139,41 @@ def test_registry_names_and_aliases():
     assert cb.get_config("starcoder2-3b").name == "starcoder2-3b"
 
 
-@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "grok_1_314b", "mamba2_130m",
-                                  "jamba_1_5_large", "musicgen_large", "internvl2_76b"])
+@pytest.mark.parametrize("arch", ["mamba2_130m", "jamba_1_5_large", "musicgen_large",
+                                  "internvl2_76b"])
 def test_other_families_raise_naming_the_roadmap(arch):
     cfg = cb.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
         T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
         T.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "grok_1_314b"])
+def test_moe_families_init_and_serve(arch):
+    """The MoE family runs: its init has stacked ``layers/moe`` (router
+    (L, D, E), experts (L, E, ...)) in place of ``mlp``, and a packed det
+    engine serves greedy tokens equal to the stepwise forward's."""
+    from repro_torch.serve import ServeEngine
+
+    cfg = cb.get_config(arch, smoke=True)
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    moe = params["layers"]["moe"]
+    assert "mlp" not in params["layers"]
+    assert moe["router"].shape == (cfg.n_layers, cfg.d_model, cfg.n_experts)
+    up = moe["w_up" if cfg.mlp_type == "glu" else "wi"]
+    assert up.shape == (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff)
+    assert T.init_cache(cfg, 2, 8, device="cpu")["k"].shape[0] == cfg.n_layers
+    packed = compile_plan(params, DEFAULT_POLICY, "det").pack(params)
+    prompts = torch.from_numpy(_tokens(cfg, (2, 6)))
+    out = ServeEngine(cfg, packed).generate(prompts, max_new=3)
+    seq = prompts
+    for i in range(3):
+        logits, aux = T.forward(cfg, packed, seq)
+        assert float(aux["lb_loss"]) > 0.0
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        assert torch.equal(nxt, out.tokens[:, i])
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
 
 
 def test_port_init_has_the_reference_tree(models):
