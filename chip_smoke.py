@@ -157,9 +157,12 @@ pack seconds, tok/s and the decode step's wall and device ms.
 Since the MoE family (phase 6g, about three minutes more): the
 expert-batched K2 (``binary_matmul_batched``: all 64 experts of a
 projection in one launch) against its plain version at Moonlight's expert
-shapes (``MOE_K2``, f32 and bf16, scaled and not, and a ragged shape),
-each expert's output bit for bit the 2-D K2 on its slices and two calls
-bit-identical, and K2 at Moonlight's attention shapes; then
+shapes (``MOE_K2``, f32 and bf16, scaled and not, a ragged shape and K past
+2048), with every row live and routed (``rows``, the per-expert counts
+``moe_ffn`` hands it: all experts empty, one full, a decode step's 4
+tokens x top-6, counts past M), each expert's live rows bit for bit the
+2-D K2 on its slices, the rows past its count +0, two calls bit-identical
+and one launch a call, and K2 at Moonlight's attention shapes; then
 Moonlight-16B-A3B at full width, cut to ``MOE_LAYERS`` = 16 of its 48
 layers (the f32 masters of all 48 would not fit the card), served in det
 and stoch through ``launch.serve.serve_lm(n_layers=16)`` with
@@ -177,8 +180,11 @@ launches, and peak GB; and a chunked det serve with the prefix cache
 admission without the cache bit for bit, and against the whole-prompt
 streams, where a request may part only if its whole-prompt prefill
 dropped assignments (a chunk of 8 tokens never overflows an expert), its
-routing met a near tie, or its logits did. Phase 7 times the
-expert-batched K2 at the expert shapes beside ``torch.bmm``.
+routing met a near tie, or its logits did. The det serve's decode step
+records each layer's counts; phase 7 times the expert-batched K2 at the
+expert shapes with every row live and at that served routing, beside
+``torch.bmm``, with the routed bound (the live experts' words) and the
+all-expert one.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -187,6 +193,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -1811,36 +1818,60 @@ def main() -> int:
     from repro_torch.models import moe as moe_mod
 
     print("== expert-batched K2 vs plain at Moonlight's expert shapes (E = 64 experts, M = 8 "
-          "rows: the decode capacity) and a ragged shape, f32 and bf16, scaled and not: "
-          "within tolerance, each expert bit for bit a 2-D K2 call on its slices, two calls "
-          "bit-identical")
-    moe_k2_in = {}
-    for e_, m, k, n in MOE_K2 + [(3, 5, 100, 70)]:
+          "rows: the decode capacity), a ragged shape and K past 2048 (several word rows a "
+          "chain, M in two row chunks), f32 and bf16, scaled and not, all rows live and "
+          "routed (rows = per-expert counts: all empty, one expert full, a decode step's 4 "
+          "tokens x top-6, past M): within tolerance, each expert's live rows bit for bit a "
+          "2-D K2 call on its slices and the rows past its count +0 [* scale], two calls "
+          "bit-identical, one launch a call")
+    cpu_g = torch.Generator().manual_seed(0)
+    for e_, m, k, n in MOE_K2 + [(3, 5, 100, 70), (2, 9, 16500, 36)]:
         x32 = torch.randn(e_, m, k, generator=g, device=dev)
         wp = torch.stack([binarize_pack(torch.randn(k, n, generator=g, device=dev),
                                         stochastic=False) for _ in range(e_)])
         scale = torch.rand(e_, n, generator=g, device=dev) + 0.5
-        moe_k2_in[(e_, m, k, n)] = (x32, wp, scale)
+        top = torch.stack([torch.randperm(e_, generator=cpu_g)[:min(6, e_)] for _ in range(4)])
+        one = torch.zeros(e_, dtype=torch.int64)
+        one[e_ // 2] = m
+        routings = {None: None, "all empty": torch.zeros(e_, dtype=torch.int64),
+                    "one full": one,
+                    "decode 4 x top-6": torch.bincount(top.reshape(-1), minlength=e_),
+                    "past M": torch.randint(m + 1, 3 * m + 1, (e_,), generator=cpu_g)}
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             x = x32.to(dtype)
             for s in (None, scale):
-                got = binary_matmul_batched(x, wp, s)
-                want = binary_matmul_batched_plain(x, wp, s)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                tag = (f"{e_}x{m}x{k}x{n} {str(dtype)[6:]} "
-                       f"{'scaled' if s is not None else 'unscaled'}")
-                print(f"  {tag}: max_abs_err {err:.3e} (|want| max {want.abs().max().item():.3e})")
-                torch.testing.assert_close(got, want, **tol, msg=f"batched K2 {tag}")
                 loop = torch.stack([binary_matmul(x[i], wp[i], None if s is None else s[i])
                                     for i in range(e_)])
-                if not torch.equal(got, loop):
-                    raise AssertionError(f"batched K2 {tag}: differs from the 2-D K2 loop")
-                if not torch.equal(binary_matmul_batched(x, wp, s), got):
-                    raise AssertionError(f"batched K2 {tag}: two calls differ")
-                if e_ == 64 and dtype == torch.bfloat16 and s is not None:
-                    errs["k2_moe"] = max(errs.get("k2_moe", 0.0), err)
-    print("  every case equal to the 2-D loop and bit-identical over two calls")
+                for route, counts in routings.items():
+                    rows = None if counts is None else counts.to(dev)
+                    n_before = binary_matmul_batched.launches
+                    got = binary_matmul_batched(x, wp, s, rows)
+                    if binary_matmul_batched.launches - n_before != 1:
+                        raise AssertionError("batched K2: not one launch a call")
+                    want = binary_matmul_batched_plain(x, wp, s, rows)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    tag = (f"{e_}x{m}x{k}x{n} {str(dtype)[6:]} "
+                           f"{'scaled' if s is not None else 'unscaled'} "
+                           f"{'all rows' if route is None else route}")
+                    print(f"  {tag}: max_abs_err {err:.3e} (|want| max "
+                          f"{want.abs().max().item():.3e})")
+                    torch.testing.assert_close(got, want, **tol, msg=f"batched K2 {tag}")
+                    live = [m] * e_ if counts is None else counts.clamp(max=m).tolist()
+                    for i, c in enumerate(live):
+                        if not torch.equal(got[i, :c], loop[i, :c]):
+                            raise AssertionError(f"batched K2 {tag}: expert {i}'s live rows "
+                                                 f"differ from the 2-D K2 loop")
+                        if (got[i, c:] != 0).any() or torch.signbit(got[i, c:]).any():
+                            raise AssertionError(f"batched K2 {tag}: expert {i}'s rows past "
+                                                 f"its count are not +0")
+                    if not torch.equal(binary_matmul_batched(x, wp, s, rows), got):
+                        raise AssertionError(f"batched K2 {tag}: two calls differ")
+                    if e_ == 64 and dtype == torch.bfloat16 and s is not None:
+                        errs["k2_moe"] = max(errs.get("k2_moe", 0.0), err)
+        del x32, wp, scale
+    print("  every case's live rows equal to the 2-D loop, the rest +0, bit-identical over "
+          "two calls")
     for k, n in MOE_ATTN_KN:
         x = torch.randn(4, k, generator=g, device=dev).to(torch.bfloat16)
         wp = binarize_pack(torch.randn(k, n, generator=g, device=dev), stochastic=False)
@@ -1874,6 +1905,23 @@ def main() -> int:
             yield
         finally:
             moe_mod.moe_ffn = orig
+
+
+    @contextlib.contextmanager
+    def record_rows(into: list):
+        """Records the rows (per-expert counts) every expert-batched K2 call
+        gets, as a copy."""
+        orig = kops_mod._binary_matmul_batched
+
+        def rec(x, w_packed, scale=None, rows=None):
+            into.append(rows.clone())
+            return orig(x, w_packed, scale, rows)
+
+        kops_mod._binary_matmul_batched = rec
+        try:
+            yield
+        finally:
+            kops_mod._binary_matmul_batched = orig
 
 
     def flipped(probs, own, other):
@@ -2054,8 +2102,18 @@ def main() -> int:
             for slot in range(4):
                 state = engine.prefill_into(state, slot, done[slot].prompt)
         tok = torch.argmax(state.logits, dim=-1)
-        with record_moe(drops_decode):
+        decode_rows = []
+        with record_moe(drops_decode), record_rows(decode_rows):
             state = engine.decode_step(state, tok)
+        if mode == "det":
+            # the served decode routing, one count vector a layer (its three
+            # projections share it), for phase 7's timing
+            moe_decode_rows = decode_rows[::3]
+            cap4 = moe_mod.capacity(moe_cfg, 4)
+            print(f"  decode step routing: {len(moe_decode_rows)} layers, live experts a "
+                  f"layer {[int((r > 0).sum()) for r in moe_decode_rows]} (of "
+                  f"{moe_cfg.n_experts}), live rows a layer "
+                  f"{[int(r.clamp(max=cap4).sum()) for r in moe_decode_rows]}")
         cap_p = moe_mod.capacity(moe_cfg, drops_prefill[0][0])
         cap_d = moe_mod.capacity(moe_cfg, drops_decode[0][0])
         dp = statistics.mean(d for _, d in drops_prefill)
@@ -2083,19 +2141,23 @@ def main() -> int:
         step_dev = step_kern and sum(step_kern.values())
         step_n = kernels_per_rep(one_step, reps=5)
         top = sorted((step_kern or {}).items(), key=lambda kv: -kv[1])[:4]
+        step_k2b = step_kern and sum(v for name, v in step_kern.items()
+                                     if "binary_matmul_batched_kernel" in name)
         moe_rows[mode] = {
             "pack_s": res.pack_seconds, "dense_mb": res.dense_bytes / 1e6,
             "served_mb": res.packed_bytes / 1e6, "tok_s": res.tok_per_s,
             "ttft_ms": res.median_ttft * 1e3, "latency_ms": res.median_latency * 1e3,
             "step_ms": step_ms, "step_device_ms": step_dev, "step_launches": step_n,
-            "peak_gb": peak / 1e9, "seconds": res.seconds, "steps": res.steps,
+            "step_k2b_ms": step_k2b, "peak_gb": peak / 1e9, "seconds": res.seconds,
+            "steps": res.steps,
             "max_abs_err": err0.max().item(), "drop_prefill": dp, "drop_decode": dd,
             "flips": (n_flip, n_routed, gap)}
         print(f"  pack {res.pack_seconds:.3f} s; {res.dense_bytes / 1e6:.1f} MB bf16 dense -> "
               f"{res.packed_bytes / 1e6:.1f} MB served; {res.tok_per_s:.1f} tok/s, median TTFT "
               f"{res.median_ttft * 1e3:.1f} ms, median latency {res.median_latency * 1e3:.1f} ms; "
               f"decode step {step_ms:.3f} ms median (synced), device {fmt(step_dev)} ms in "
-              f"{fmt_count(step_n)} device launches (torch.profiler, 5 steps); peak allocated "
+              f"{fmt_count(step_n)} device launches (torch.profiler, 5 steps), of which "
+              f"expert-batched K2 {fmt(step_k2b)} ms; peak allocated "
               f"{peak / 1e9:.2f} GB above the {live / 1e9:.2f} GB earlier phases hold; top: "
               + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
 
@@ -2570,38 +2632,82 @@ def main() -> int:
                             total(launches["xnor_matmul"], lm_x), errs["k4"], lm_k4),
                     "device_ms_per_shape": [r[6] for r in lm_k4]})
 
-    def k2_moe_row(e_, m, k, n):
+    def k2_moe_row(e_, m, k, n, routings=None):
+        """The expert-batched K2 at (E, M, K, N), bf16, scaled: all rows live,
+        or cycling through ``routings`` (per-expert counts, one a call) with
+        x zero past each count as the dispatch buffer holds it, so that
+        torch.bmm on the whole (E, M, K) computes the same function. The
+        bound counts what the inputs need: the live experts' words and
+        scales, the live rows of x and the whole output, averaged over the
+        routings; beside it the all-expert bound."""
         x = torch.randn(e_, m, k, generator=g, device=dev).to(torch.bfloat16)
         wk = torch.randn(e_, k, n, generator=g, device=dev)
         wp = torch.stack([binarize_pack(w_, stochastic=False) for w_ in wk])
         scale = wk.abs().mean(dim=1)
         del wk
         wl = torch.stack([unpack_bits(w_) for w_ in wp]).to(torch.bfloat16)  # library operand
-        ms = time_warm(lambda: binary_matmul_batched(x, wp, scale))
-        dev_ms = device_ms(lambda: binary_matmul_batched(x, wp, scale), "binary_matmul_kernel")
-        plain_ms = time_warm(lambda: binary_matmul_batched_plain(x, wp, scale), iters=20)
+        if routings is None:
+            calls = [(x, None)]
+        else:
+            rows_ = [r.to(dev) for r in routings]
+            calls = [(x * (torch.arange(m, device=dev) < r[:, None])[:, :, None], r)
+                     for r in rows_]
+        cyc = itertools.cycle(calls)
+
+        def kern():
+            xi, r = next(cyc)
+            return binary_matmul_batched(xi, wp, scale, r)
+
+        def plain():
+            xi, r = next(cyc)
+            return binary_matmul_batched_plain(xi, wp, scale, r)
+
+        ms = time_warm(kern)
+        dev_ms = device_ms(kern, "binary_matmul_batched_kernel", reps=max(20, 2 * len(calls)))
+        plain_ms = time_warm(plain, iters=20)
         lib_ms = time_warm(lambda: torch.bmm(x, wl).float() * scale[:, None, :])
-        nbytes = e_ * (m * k * 2 + (k // 32) * n * 4 + n * 4 + m * n * 4)
+        live_e = [e_ if r is None else int((r > 0).sum()) for _, r in calls]
+        live_m = [e_ * m if r is None else int(r.clamp(max=m).sum()) for _, r in calls]
+        words = (k + 31) // 32 * n * 4
+        nbytes = statistics.fmean(le * (words + n * 4) + lm * k * 2 + e_ * m * n * 4
+                                  for le, lm in zip(live_e, live_m))
+        all_b = e_ * (m * k * 2 + words + n * 4 + m * n * 4)
         t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_o = 2.0 * e_ * m * k * n / PEAK_BF16_FLOP_PER_S * 1e3
-        print(f"  expert-batched K2 scaled {e_}x{m}x{k}x{n} bf16: kernel_ms {ms:.4f}, device_ms "
-              f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (torch.bmm on "
-              f"unpacked +-1 times scale), bound_ms {max(t_b, t_o):.5f} "
-              f"({'bytes' if t_b >= t_o else 'operations'}, {nbytes} B)")
-        return (ms, plain_ms, max(t_b, t_o), t_b, t_o, lib_ms, dev_ms)
+        t_o = 2.0 * statistics.fmean(live_m) * k * n / PEAK_BF16_FLOP_PER_S * 1e3
+        t_all = max(all_b / PEAK_BYTES_PER_S, 2.0 * e_ * m * k * n / PEAK_BF16_FLOP_PER_S) * 1e3
+        what = ("all rows live" if routings is None else
+                f"the served decode routing over {len(calls)} layers, live experts "
+                f"{min(live_e)}-{max(live_e)} (mean {statistics.fmean(live_e):.2f}), live rows "
+                f"{min(live_m)}-{max(live_m)}")
+        print(f"  expert-batched K2 scaled {e_}x{m}x{k}x{n} bf16, {what}: kernel_ms {ms:.4f}, "
+              f"device_ms {fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} "
+              f"(torch.bmm on unpacked +-1 times scale, all {e_}x{m} rows), bound_ms "
+              f"{max(t_b, t_o):.5f} ({'bytes' if t_b >= t_o else 'operations'}, {nbytes:.0f} B; "
+              f"all experts {t_all:.5f}, {all_b} B)")
+        return (ms, plain_ms, max(t_b, t_o), t_b, t_o, lib_ms, dev_ms, t_all,
+                statistics.fmean(live_e))
 
     print(f"== {MOE_ARCH} decode shapes (4 slots: the experts' capacity 8; a layer runs w_qkv "
-          f"and w_o on K2, w_gate, w_up and w_down on the expert-batched K2)")
+          f"and w_o on K2, w_gate, w_up and w_down on the expert-batched K2), each expert "
+          f"shape all rows live and at the decode routing a served det step produced")
     moe_runs = [(MOE_ARCH, r) for r in ("det", "stoch", "det chunked")]
-    moe_k2 = [k2_moe_row(*MOE_K2[0]), k2_moe_row(*MOE_K2[0]), k2_moe_row(*MOE_K2[1])]
-    kernels.append({**entry(f"binary_matmul_batched ({MOE_ARCH} det/stoch decode, bf16, 64 "
-                            f"experts x 8 rows, scaled: w_gate, w_up, w_down of a layer, "
-                            f"summed)", "src/repro_torch/kernels/csrc/binary_matmul.cu",
+    moe_shapes = [MOE_K2[0], MOE_K2[0], MOE_K2[1]]
+    moe_k2_all = [k2_moe_row(*sh) for sh in moe_shapes]
+    moe_k2 = [k2_moe_row(*sh, routings=moe_decode_rows) for sh in moe_shapes]
+    kernels.append({**entry(f"binary_matmul_batched ({MOE_ARCH} det/stoch decode at the "
+                            f"served routing, bf16, 64 experts x 8 rows, scaled: w_gate, "
+                            f"w_up, w_down of a layer, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
                             "src/repro/kernels/binary_matmul.py:125",
                             total(launches["binary_matmul_batched"], moe_runs),
                             errs["k2_moe"], moe_k2),
                     "replaces_note": "vmapped over the experts at src/repro/models/moe.py:29-32",
-                    "device_ms_per_shape": [r[6] for r in moe_k2]})
+                    "device_ms_per_shape": [r[6] for r in moe_k2],
+                    "live_experts_mean": moe_k2[0][8],
+                    "bound_ms_all_experts": sum(r[7] for r in moe_k2),
+                    "all_rows_live": {
+                        key: v for key, v in entry("", "", "", 0, 0.0, moe_k2_all).items()
+                        if key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}})
     moe_attn = [k2_lm_row(4, k, n) for k, n in MOE_ATTN_KN]
     kernels.append({**entry(f"binary_matmul ({MOE_ARCH} det/stoch decode, bf16 M=4, scaled: "
                             f"w_qkv and w_o of a layer, summed)",
@@ -2697,7 +2803,8 @@ def main() -> int:
         print(f"  {mode}: pack {r['pack_s']:.3f} s, {r['dense_mb']:.1f} -> {r['served_mb']:.1f} "
               f"MB, {r['tok_s']:.1f} tok/s ({r['steps']} steps in {r['seconds']:.3f} s), median "
               f"TTFT {r['ttft_ms']:.1f} ms, median latency {r['latency_ms']:.1f} ms, decode "
-              f"step {r['step_ms']:.3f} ms (device {fmt(r['step_device_ms'])} ms, "
+              f"step {r['step_ms']:.3f} ms (device {fmt(r['step_device_ms'])} ms, expert-"
+              f"batched K2 {fmt(r['step_k2b_ms'])} ms of it, "
               f"{fmt_count(r['step_launches'])} launches), peak {r['peak_gb']:.2f} GB, logits "
               f"vs plain kernels {r['max_abs_err']:.4g}, dropped fraction prefill "
               f"{r['drop_prefill']:.5g} / decode {r['drop_decode']:.3g}, routing flips "

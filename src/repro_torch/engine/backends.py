@@ -203,11 +203,12 @@ def _apply_dense(w: torch.Tensor, x: torch.Tensor, *, stride=None, padding=None)
     return conv2d_nhwc(x, w.to(x.dtype), stride, pads)
 
 
-def _apply_packed(w: PackedLinear, x: torch.Tensor) -> torch.Tensor:
+def _apply_packed(w: PackedLinear, x: torch.Tensor, rows=None) -> torch.Tensor:
     """x @ w; a layer's experts (words (E, K/32, N), x (E, C, K)) in one
-    expert-batched launch."""
+    expert-batched launch, which computes only each expert's first
+    ``rows[e]`` rows (all C if None)."""
     if w.packed.ndim == 3:
-        return ops.binary_matmul_batched(x, w.packed, w.scale).to(x.dtype)
+        return ops.binary_matmul_batched(x, w.packed, w.scale, rows).to(x.dtype)
     return ops.binary_matmul(x, w.packed, w.scale).to(x.dtype)
 
 
@@ -218,7 +219,7 @@ XNOR_EXPERTS_ABSENT = (
     "xnor-packed MoE tree), so the MoE family serves in det and stoch only")
 
 
-def _apply_xnor(w: XnorLinear, x: torch.Tensor | SignWords) -> torch.Tensor:
+def _apply_xnor(w: XnorLinear, x: torch.Tensor | SignWords, rows=None) -> torch.Tensor:
     if w.packed.ndim == 3:
         raise NotImplementedError(XNOR_EXPERTS_ABSENT)
     if isinstance(x, SignWords):     # signs packed by the producer's fused K3

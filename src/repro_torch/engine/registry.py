@@ -144,9 +144,11 @@ def spec_for_serving_leaf(leaf: Any) -> Optional[BackendSpec]:
     return None
 
 
-def apply_linear(w: Any, x: Any) -> Any:
-    """x @ w through whichever backend produced ``w``."""
-    return backend_for_leaf(w, "linear").apply(w, x)
+def apply_linear(w: Any, x: Any, rows: Any = None) -> Any:
+    """x @ w through whichever backend produced ``w``; ``rows``, an MoE
+    expert leaf's live rows per expert, goes to backends that take it."""
+    spec = backend_for_leaf(w, "linear")
+    return spec.apply(w, x) if rows is None else spec.apply(w, x, rows=rows)
 
 
 def apply_conv2d(w: Any, x: Any, *, stride=(1, 1), padding="SAME") -> Any:

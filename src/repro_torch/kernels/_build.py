@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
     lib.bnn_binarize_pack.restype = i32
     lib.bnn_binary_matmul.argtypes = [vp, vp, vp, vp, i64, i64, i64, i32, vp]
     lib.bnn_binary_matmul.restype = i32
-    lib.bnn_binary_matmul_batched.argtypes = [vp, vp, vp, vp, i64, i64, i64, i64, i32, vp]
+    lib.bnn_binary_matmul_batched.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, vp]
     lib.bnn_binary_matmul_batched.restype = i32
     lib.bnn_sign_pack.argtypes = [vp] * 6 + [ctypes.c_float, vp, i64, i64, i32, vp]
     lib.bnn_sign_pack.restype = i32

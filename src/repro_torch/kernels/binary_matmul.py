@@ -7,11 +7,15 @@ the order of the f32 sum differs between kernel and plain version. K need
 not be a multiple of 32: ``w_packed`` has ceil(K/32) word rows and the bits
 past K are ignored.
 
-``binary_matmul_batched(x, w_packed, scale)`` is the expert-batched mode:
-x (E, M, K) against E packed weights (E, ceil(K/32), N) [* (E, N) scales]
--> (E, M, N) f32 in one launch, each expert's output equal bit for bit to
-a 2-D call on its slices (the reference's ``jax.vmap`` of its kernel over
-an MoE layer's experts).
+``binary_matmul_batched(x, w_packed, scale, rows)`` is the expert-batched
+mode: x (E, M, K) against E packed weights (E, ceil(K/32), N) [* (E, N)
+scales] -> (E, M, N) f32 in one launch, each expert's output equal bit for
+bit to a 2-D call on its slices (the reference's ``jax.vmap`` of its kernel
+over an MoE layer's experts). ``rows`` (E,) int64 gives each expert's
+live rows, the prefix ``[0, min(rows[e], M))``: the rows past it
+are +0 [* scale], what the product gives on the zero rows an MoE dispatch
+buffer holds there, and the kernel reads no word of an expert with none.
+``None``: every row is live.
 
 A CPU tensor runs the plain version in ``kernels.ref``; a CUDA tensor
 launches ``csrc/binary_matmul.cu`` or raises. ``binary_matmul.launches``
@@ -25,8 +29,7 @@ from repro_torch.core.packing import PACK
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SPLIT = 8              # blocks per cluster along grid.z (csrc: kSplit)
-_GRID_Z = 65535
+_GRID_Y = 65535         # the batched launch's experts, one per grid.y
 
 
 def _check_operands(x: torch.Tensor, w_packed: torch.Tensor, scale, lead: tuple) -> None:
@@ -79,34 +82,43 @@ binary_matmul.launches = 0
 
 
 def binary_matmul_batched_plain(x: torch.Tensor, w_packed: torch.Tensor,
-                                scale: torch.Tensor | None = None) -> torch.Tensor:
+                                scale: torch.Tensor | None = None,
+                                rows: torch.Tensor | None = None) -> torch.Tensor:
     """The plain torch version of :func:`binary_matmul_batched`, on any device."""
-    return ref.binary_matmul_batched_ref(x, w_packed, scale, compute_dtype=x.dtype)
+    return ref.binary_matmul_batched_ref(x, w_packed, scale, rows, compute_dtype=x.dtype)
 
 
 def binary_matmul_batched(x: torch.Tensor, w_packed: torch.Tensor,
-                          scale: torch.Tensor | None = None) -> torch.Tensor:
+                          scale: torch.Tensor | None = None,
+                          rows: torch.Tensor | None = None) -> torch.Tensor:
     """(E, M, K) f32/bf16 @ unpack((E, ceil(K/32), N) int32) [* (E, N) f32]
-    -> (E, M, N) f32, one launch for all E experts."""
+    -> (E, M, N) f32, one launch for all E experts; expert e's rows from
+    ``rows[e]`` on are +0 [* scale]."""
     if x.ndim != 3 or w_packed.ndim != 3 or x.shape[0] != w_packed.shape[0]:
         raise ValueError(f"x must be (E, M, K) and w_packed (E, K/32, N), got "
                          f"{tuple(x.shape)} and {tuple(w_packed.shape)}")
     e, m, k = x.shape
     n = w_packed.shape[2]
     _check_operands(x, w_packed, scale, (e,))
-    if e * _SPLIT > _GRID_Z:
-        raise ValueError(f"E={e} experts: the launch puts E x {_SPLIT} blocks on grid.z "
-                         f"(at most {_GRID_Z})")
-    tensors = [x, w_packed] + ([] if scale is None else [scale])
+    if rows is not None:
+        if rows.shape != (e,):
+            raise ValueError(f"rows must have shape {(e,)}, got {tuple(rows.shape)}")
+        if rows.dtype != torch.int64:
+            raise TypeError(f"rows must be int64, got {rows.dtype}")
+    if e > _GRID_Y:
+        raise ValueError(f"E={e} experts: the launch puts one expert on each grid.y "
+                         f"(at most {_GRID_Y})")
+    tensors = [x, w_packed] + [t for t in (scale, rows) if t is not None]
     if _build.kernel_device("binary_matmul_batched", tensors) == "cpu":
-        return binary_matmul_batched_plain(x, w_packed, scale)
+        return binary_matmul_batched_plain(x, w_packed, scale, rows)
     out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
     if m == 0 or e == 0:
         return out
     lib = _build.library()
     code = lib.bnn_binary_matmul_batched(
         x.data_ptr(), w_packed.data_ptr(),
-        None if scale is None else scale.data_ptr(), out.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if rows is None else rows.data_ptr(), out.data_ptr(),
         e, m, k, n, _DTYPES[x.dtype], _build.stream(x.device))
     _build.check(code, "binary_matmul_batched")
     binary_matmul_batched.launches += 1

@@ -33,14 +33,17 @@ def binary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 def binary_matmul_batched(x: torch.Tensor, w_packed: torch.Tensor,
-                          scale: torch.Tensor | None = None) -> torch.Tensor:
+                          scale: torch.Tensor | None = None,
+                          rows: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`binary_matmul` for each expert of an MoE layer in one launch:
     x (E, C, K) @ unpack(w_packed (E, ceil(K/32), N)) [* scale (E, N)] ->
     (E, C, N) f32, with :func:`binary_matmul`'s compute-dtype rule (the
-    reference's ``jax.vmap`` of ``ops.binary_matmul`` over the experts)."""
+    reference's ``jax.vmap`` of ``ops.binary_matmul`` over the experts).
+    ``rows`` (E,) int64: each expert's live rows, a prefix of its C (the
+    rows past it come out +0 [* scale]); None: all C."""
     if x.dtype != torch.float32:
         x = x.to(torch.bfloat16)
-    return _binary_matmul_batched(x.contiguous(), w_packed, scale)
+    return _binary_matmul_batched(x.contiguous(), w_packed, scale, rows)
 
 
 def _ceil_to(x: int, m: int) -> int:

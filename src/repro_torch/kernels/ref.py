@@ -29,13 +29,20 @@ def binary_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 def binary_matmul_batched_ref(x: torch.Tensor, w_packed: torch.Tensor,
-                              scale: torch.Tensor | None = None, *,
+                              scale: torch.Tensor | None = None,
+                              rows: torch.Tensor | None = None, *,
                               compute_dtype=torch.float32) -> torch.Tensor:
     """:func:`binary_matmul_ref` for each of E experts: x (E, M, K) @
-    unpack(w_packed (E, K/32, N))[:, :K] [* scale (E, N)] -> (E, M, N) f32."""
+    unpack(w_packed (E, K/32, N))[:, :K] [* scale (E, N)] -> (E, M, N) f32.
+    With ``rows`` (E,), expert e's output rows from ``rows[e]`` on are +0
+    [* scale], what the product gives on the zero rows an MoE dispatch
+    buffer holds there."""
     k = x.shape[-1]
     w = packing.unpack_bits(w_packed.movedim(0, 1), dtype=torch.float32)[:k].movedim(1, 0)
     out = torch.matmul(x.to(compute_dtype).to(torch.float32), w)
+    if rows is not None:
+        live = torch.arange(x.shape[1], device=x.device) < rows[:, None]     # (E, M)
+        out = torch.where(live[:, :, None], out, 0.0)
     if scale is not None:
         out = out * scale.to(torch.float32)[:, None, :]
     return out

@@ -172,12 +172,14 @@ def bn_sign(x: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor, shift: tor
     return xops.bn_sign(x, bias, scale, shift, mean, var)
 
 
-def apply_linear(w, x, bias: torch.Tensor | None = None) -> torch.Tensor:
+def apply_linear(w, x, bias: torch.Tensor | None = None, *,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w (+ bias); the leaf type of ``w`` selects its backend. ``x`` is a
-    tensor, or :class:`SignWords` where ``takes_sign_words(w)`` holds."""
+    tensor, or :class:`SignWords` where ``takes_sign_words(w)`` holds.
+    ``rows`` (E,): for an MoE expert leaf, each expert's live rows of x."""
     from repro_torch.engine import registry
 
-    out = registry.apply_linear(w, x)
+    out = registry.apply_linear(w, x, rows)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -6,7 +6,9 @@ position in its expert, scattered into an (E, capacity, D) buffer, so only
 the active rows are computed (E x C rows, E x C ~ tokens x k). Expert
 weights are stacked (E, ...); a packed expert leaf runs all E experts in
 one expert-batched K2 launch (``kernels.ops.binary_matmul_batched``), the
-reference's ``jax.vmap`` of its kernel. The router stays full precision
+reference's ``jax.vmap`` of its kernel, handed the per-expert counts so
+that it computes only the filled rows (a prefix of each expert's C) and
+reads no word of an expert without one. The router stays full precision
 and routes in f32 (its product rounded once from f64: :func:`route`).
 
 Three orders are kept as the reference's, so routing and combine agree
@@ -26,14 +28,16 @@ import torch.nn.functional as F
 from repro_torch.models.layers import apply_linear
 
 
-def _expert_matmul(w, xe: torch.Tensor, dtype) -> torch.Tensor:
+def _expert_matmul(w, xe: torch.Tensor, dtype, rows: torch.Tensor) -> torch.Tensor:
     """Batched over experts: (E, C, a) x (E, a, b) -> (E, C, b) in
     ``dtype``. ``w`` is a master tensor (a plain batched product) or a
     serving leaf, applied through its backend (``PackedLinear``: the
-    expert-batched K2)."""
+    expert-batched K2, which computes expert e's first ``rows[e]`` rows and
+    gives +0 [* scale] past them, as the product does on the buffer's zero
+    rows)."""
     if isinstance(w, torch.Tensor):
         return torch.einsum("eca,eab->ecb", xe, w.to(dtype))
-    return apply_linear(w, xe).to(dtype)
+    return apply_linear(w, xe, rows=rows).to(dtype)
 
 
 def init_moe(generator: torch.Generator, cfg, init_fn, *, device, n_layers: int) -> dict:
@@ -115,14 +119,17 @@ def moe_ffn(cfg, params: dict, x: torch.Tensor):
     xe = buf[: e * cap].view(e, cap, d)
 
     # --- expert FFN (batched over E; dense or bitpacked weights) ---
+    # expert e's filled rows are the first counts[e] (clamped to cap by the
+    # kernel); the rest of the buffer is zero, and so is every row past them
+    # in each projection's output
     if "w_gate" in params:
-        g = _expert_matmul(params["w_gate"], xe, x.dtype)
-        u = _expert_matmul(params["w_up"], xe, x.dtype)
-        ye = _expert_matmul(params["w_down"], F.silu(g) * u, x.dtype)
+        g = _expert_matmul(params["w_gate"], xe, x.dtype, counts)
+        u = _expert_matmul(params["w_up"], xe, x.dtype, counts)
+        ye = _expert_matmul(params["w_down"], F.silu(g) * u, x.dtype, counts)
     else:
-        h = _expert_matmul(params["wi"], xe, x.dtype)
+        h = _expert_matmul(params["wi"], xe, x.dtype, counts)
         # jax.nn.gelu's default is the tanh approximation
-        ye = _expert_matmul(params["wo"], F.gelu(h, approximate="tanh"), x.dtype)
+        ye = _expert_matmul(params["wo"], F.gelu(h, approximate="tanh"), x.dtype, counts)
 
     # --- combine ---
     # a dropped assignment reads its expert's last row, weighted 0

@@ -1056,6 +1056,63 @@ def test_batched_k2_matches_plain_and_the_2d_loop(cuda, e, m, k, n, dtype, scale
     assert torch.equal(binary_matmul_batched(x, wp, scale), got)
 
 
+def _routings(e, m, seed):
+    """Per-expert row counts: every expert empty, one expert full, a decode
+    step's 4 tokens x top-6 distinct experts (a seeded draw), and counts
+    past M (the kernel clamps them)."""
+    g = torch.Generator().manual_seed(seed)
+    top = torch.stack([torch.randperm(e, generator=g)[:min(6, e)] for _ in range(4)])
+    one = torch.zeros(e, dtype=torch.int64)
+    one[e // 2] = m
+    return {"all empty": torch.zeros(e, dtype=torch.int64), "one full": one,
+            "decode 4 x top-6": torch.bincount(top.reshape(-1), minlength=e),
+            "past M": torch.randint(m + 1, 3 * m + 1, (e,), generator=g)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n", [(64, 8, 2048, 1408), (64, 8, 1408, 2048),
+                                     (3, 5, 100, 70), (2, 9, 16500, 36)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_batched_k2_routed_matches_the_2d_loop(cuda, e, m, k, n, dtype, scaled):
+    """The expert-batched K2 with ``rows`` (the MoE layer's counts): each
+    expert's live rows bit for bit the 2-D K2 on its slices, the rows past
+    its count +0 [* scale], two calls bit-identical, one launch a call; at
+    Moonlight's expert shapes, a ragged one, and K past 2048 (a chain of
+    several word rows, staged in two rounds at K = 16500) with M in two row
+    chunks (8 + 1)."""
+    x, wp, scale = _batched_inputs(e, m, k, n, dtype, scaled, cuda)
+    loop = torch.stack([binary_matmul(x[i], wp[i], None if scale is None else scale[i])
+                        for i in range(e)])
+    for name, counts in _routings(e, m, seed=e + k).items():
+        rows = counts.to(cuda)
+        before = (binary_matmul_batched.launches, binary_matmul.launches)
+        got = binary_matmul_batched(x, wp, scale, rows)
+        assert (binary_matmul_batched.launches - before[0],
+                binary_matmul.launches - before[1]) == (1, 0), name
+        for i, c in enumerate(counts.clamp(max=m).tolist()):
+            assert torch.equal(got[i, :c], loop[i, :c]), (name, i)
+            assert (got[i, c:] == 0).all() and not torch.signbit(got[i, c:]).any(), (name, i)
+        torch.testing.assert_close(got, binary_matmul_batched_plain(x, wp, scale, rows),
+                                   **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+        assert torch.equal(binary_matmul_batched(x, wp, scale, rows), got), name
+
+
+@pytest.mark.cuda
+def test_batched_k2_reads_words_off_16_byte_alignment(cuda):
+    """Words whose rows are not 16-byte aligned (a contiguous view one word
+    into its storage) take the kernel's scalar loads: equal to the aligned
+    copy's output."""
+    x, wp, scale = _batched_inputs(4, 8, 2048, 1408, torch.bfloat16, True, cuda)
+    store = torch.empty(wp.numel() + 1, dtype=torch.int32, device=cuda)
+    off = store[1:].view(wp.shape)
+    off.copy_(wp)
+    rows = torch.tensor([8, 1, 0, 5], device=cuda)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(binary_matmul_batched(x, off, scale, rows),
+                       binary_matmul_batched(x, wp, scale, rows))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,mode", [("moonshot_v1_16b_a3b", "det"),
                                        ("grok_1_314b", "stoch")])

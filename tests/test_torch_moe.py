@@ -18,8 +18,10 @@ GELU experts), dense masters and det / stoch packed:
   ``decode_step``s and ``prefill_chunk`` hold 1e-4.
 
 The expert-batched K2's plain version equals a loop of the 2-D one, and
-xnor-packed experts are refused on both sides: the port names the
-reference's gap, whose own decode fails on that tree.
+with ``rows`` (the per-expert counts ``moe_ffn`` hands it) keeps each
+expert's live rows and gives +0 past them; xnor-packed experts are refused
+on both sides: the port names the reference's gap, whose own decode fails
+on that tree.
 """
 import dataclasses
 
@@ -168,9 +170,49 @@ def test_batched_k2_rejects_bad_operands():
         binary_matmul_batched(x, torch.zeros((2, 3, 8), dtype=torch.int32))
     with pytest.raises(ValueError, match=r"scale must be float32 of shape \(2, 8\)"):
         binary_matmul_batched(x, w, torch.zeros(8))
-    with pytest.raises(ValueError, match="grid.z"):
-        binary_matmul_batched(torch.zeros((8192, 1, 32)),
-                              torch.zeros((8192, 1, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="grid.y"):
+        binary_matmul_batched(torch.zeros((65536, 1, 32)),
+                              torch.zeros((65536, 1, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_k2_rows_keep_the_live_rows_and_zero_the_rest(dtype, scaled):
+    """With ``rows``, expert e's first min(rows[e], M) rows equal the
+    product without ``rows`` bit for bit and the rest are +0 [* scale],
+    though x is nonzero there: counts 0, < M, = M and > M (clamped),
+    through the wrapper and ``ops``."""
+    rng = np.random.default_rng(3)
+    e, m, k, n = 4, 5, 100, 70
+    counts = [0, 2, m, m + 3]
+    packed = torch.stack([ops.binarize_and_pack(torch.from_numpy(wi))
+                          for wi in rng.normal(size=(e, k, n)).astype(np.float32)])
+    x = torch.from_numpy(rng.normal(size=(e, m, k)).astype(np.float32)).to(dtype)
+    s = (torch.from_numpy(rng.uniform(0.5, 1.5, size=(e, n)).astype(np.float32))
+         if scaled else None)
+    full = binary_matmul_batched(x, packed, s)
+    rows = torch.tensor(counts)
+    got = binary_matmul_batched(x, packed, s, rows)
+    assert got.shape == (e, m, n) and got.dtype == torch.float32
+    for i, c in enumerate(counts):
+        live = min(c, m)
+        assert torch.equal(got[i, :live], full[i, :live])
+        assert (got[i, live:] == 0).all() and not torch.signbit(got[i, live:]).any()
+    assert torch.equal(binary_matmul_batched_plain(x, packed, s, rows), got)
+    assert torch.equal(ops.binary_matmul_batched(x, packed, s, rows), got)
+
+
+def test_batched_k2_rejects_bad_rows():
+    x = torch.zeros((2, 3, 64))
+    w = torch.zeros((2, 2, 8), dtype=torch.int32)
+    for bad in (torch.zeros(3, dtype=torch.int64), torch.zeros((2, 1), dtype=torch.int64)):
+        with pytest.raises(ValueError, match=r"rows must have shape \(2,\)"):
+            binary_matmul_batched(x, w, None, bad)
+    for bad in (torch.zeros(2), torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(TypeError, match="rows must be int64"):
+            binary_matmul_batched(x, w, None, bad)
+    with pytest.raises(ValueError, match="must share a device"):
+        binary_matmul_batched(x, w, None, torch.zeros(2, dtype=torch.int64, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +292,29 @@ def test_moe_ffn_matches_the_reference(models, arch, mode):
         aux = _check_moe(jcfg, cfg, _layer(jp["layers"]["moe"], i),
                          T.layer_params(mp["layers"]["moe"], i), x)
         assert float(aux["dropped_frac"]) == 0.0      # SMOKE's capacity factor 8
+
+
+def test_moe_ffn_hands_the_expert_k2_its_counts(models, monkeypatch):
+    """A packed layer's three expert projections each get the layer's
+    per-expert assignment counts as ``rows``, int64 on x's device, before
+    the capacity cut (the kernel clamps them)."""
+    _, cfg, _, pp, _, _ = models.get("moonshot_v1_16b_a3b", "det", capacity_factor=0.05)
+    seen = []
+
+    def spy(x, w_packed, scale=None, rows=None):
+        seen.append(rows)
+        return binary_matmul_batched_plain(x, w_packed, scale, rows)
+
+    monkeypatch.setattr(ops, "_binary_matmul_batched", spy)
+    layer = T.layer_params(pp["layers"]["moe"], 0)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(4, 16, cfg.d_model))
+                         .astype(np.float32))
+    MOE.moe_ffn(cfg, layer, x)
+    _, _, topk_e = MOE.route(cfg, layer["router"], x.reshape(64, cfg.d_model))
+    want = torch.bincount(topk_e.reshape(-1), minlength=cfg.n_experts)
+    assert len(seen) == 3 and want.max() > MOE.capacity(cfg, 64)
+    for rows in seen:
+        assert rows.dtype == torch.int64 and torch.equal(rows, want)
 
 
 @pytest.mark.parametrize("mode", ["dense", "det"])
