@@ -186,6 +186,26 @@ expert shapes with every row live and at that served routing, beside
 ``torch.bmm``, with the routed bound (the live experts' words) and the
 all-expert one.
 
+Since the SSM family (phase 6h, about a minute and a half more): K2 at
+mamba2-130m's projection shapes (768 x 3352, the first ragged N on an LM
+path, and 1536 x 768) in bf16 at M = 4 and 200, scaled and not, K3 on its
+inputs and K4 at N = 3352 and 768 (exact); then mamba2-130m at its full
+CONFIG width (all 24 layers, d_model 768, d_inner 1536, state 128, bf16
+activations) served in det, stoch and xnor through ``serve_lm`` with
+``LM_SERVE``: counters exact (48 K1 at pack time; 48 K2, or 48 K3 + 48 K4,
+per prefill and decode step), every served leaf equal to a plain pack, the
+first four requests' greedy logits against the plain kernels (first step
+within ``LM_LOGIT_TOL``, xnor bit for bit, tokens equal up to a near tie),
+a ``SSM_LONG_PROMPT`` = 200-token prefill (two SSD chunks, the second
+padded) against the plain kernels (logits within ``LM_LOGIT_TOL``; xnor's
+logits, final states and conv windows bit for bit; 48 projection
+launches), every stream equal to one-shot ``generate``, pack s, MB, tok/s,
+TTFT, the decode step's wall ms, device ms and launches with K2/K3/K4's
+share of the device time; and a chunked det serve with the prefix cache
+(``SSM_CHUNK``): counters exact, at least one hit, streams against the
+whole-prompt ones up to a near tie. Phase 7 times K1, K2, K3 and K4 at
+mamba2's shapes.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -322,6 +342,22 @@ MOE_ROUTE_TIE = 0.125
 # 16-token prompt prefix, chunks of 8 (a chunk's 8 x 6 assignments never
 # overflow an expert's 8 rows; a whole 32-token prompt's 192 may)
 MOE_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
+                 prefix_cache=16, shared_prefix=16)
+
+# The SSM family (phase 6h): mamba2-130m at its full CONFIG width (24 layers,
+# d_model 768, d_inner 1536, state 128, 24 heads of 64, vocab 50280, bf16
+# activations; f32 masters ~0.5 GB, so no depth cut) through serve_lm with
+# LM_SERVE in det, stoch and xnor. A prefill or decode step runs each layer's
+# in_proj and out_proj once: 48 K2, or 48 K3 + 48 K4; the pack runs K1 once
+# a layer and projection. The SSD between them is plain torch (the
+# reference's is jnp outside any Pallas kernel).
+SSM_ARCH = "mamba2_130m"
+# (K, N) of a layer's projections: in_proj (N = 2 d_inner + 2 state + heads,
+# the first ragged N on an LM path: 26 x 128 + 24) and out_proj
+SSM_KN = [(768, 3352), (1536, 768)]
+# a prefill past one SSD chunk of 128 that is not a multiple of it (padded)
+SSM_LONG_PROMPT = 200
+SSM_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
                  prefix_cache=16, shared_prefix=16)
 
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
@@ -517,6 +553,8 @@ def main() -> int:
                 return sum(hits)
         return None
 
+    t_start = time.perf_counter()
+    phase_start = {"1-2": t_start}   # phase -> perf_counter at its start
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -550,6 +588,7 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"{tag} differs from its plain version")
 
+    phase_start["3"] = time.perf_counter()
     # 3. K1 against its plain version
     print("== K1 binarize_pack vs plain (exact)")
     for (k, n), dtype in [((2048, 2048), torch.float32), ((784, 2048), torch.float32),
@@ -596,7 +635,8 @@ def main() -> int:
     print("== threefry twin (core.prng): words on the card vs the CPU, and stochastic "
           "packs on the card vs the CPU at the same key (exact)")
     tk = prng.split(prng.fold_in(prng.key(1), 2), 1)[0]
-    for shape in [(2048, 2048), (1024, 2048), (300, 500)]:
+    # (2100, 2100): one whole chunk of the card's prng.WORDS_CHUNK and a ragged one
+    for shape in [(2048, 2048), (1024, 2048), (2100, 2100), (300, 500)]:
         exact(f"twin bits {shape}", prng.bits(tk, shape, dev).cpu(), prng.bits(tk, shape))
     exact("twin uniform (3, 3, 64, 64)", prng.uniform(tk, (3, 3, 64, 64), dev).cpu(),
           prng.uniform(tk, (3, 3, 64, 64)))
@@ -642,21 +682,27 @@ def main() -> int:
     print("  every case bit-identical over 4 calls")
     print(f"== K2 at {LM_ARCH}'s projection shapes, bf16 (decode M=4, prefill M=32), scaled: "
           f"f32 tolerance (products with +-1 are exact, both sides sum in f32)")
-    for m in (4, 32):
-        for k, n in LM_KN:
-            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-            wp = binarize_pack(torch.randn(k, n, generator=g, device=dev), stochastic=False)
-            scale = torch.rand(n, generator=g, device=dev) + 0.5
-            got, want = binary_matmul(x, wp, scale), binary_matmul_plain(x, wp, scale)
+    lm_k2_cases = [(m, k, n, "k2_lm") for m in (4, 32) for k, n in LM_KN]
+    lm_k2_cases += [(m, k, n, "k2_ssm") for m in (4, SSM_LONG_PROMPT) for k, n in SSM_KN]
+    for m, k, n, key_ in lm_k2_cases:
+        if key_ == "k2_ssm" and (m, k) == (4, SSM_KN[0][0]):
+            print(f"== K2 at {SSM_ARCH}'s projection shapes, bf16 (decode M=4, a "
+                  f"{SSM_LONG_PROMPT}-token prefill), scaled; in_proj's N = {SSM_KN[0][1]} "
+                  f"is ragged against the 128-column tiles")
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        wp = binarize_pack(torch.randn(k, n, generator=g, device=dev), stochastic=False)
+        scale = torch.rand(n, generator=g, device=dev) + 0.5
+        for s_ in (scale, None) if key_ == "k2_ssm" else (scale,):
+            got, want = binary_matmul(x, wp, s_), binary_matmul_plain(x, wp, s_)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            print(f"  {m}x{k}x{n} bf16 scaled: max_abs_err {err:.3e} (|want| max "
-                  f"{want.abs().max().item():.3e})")
+            print(f"  {m}x{k}x{n} bf16 {'scaled' if s_ is not None else 'unscaled'}: "
+                  f"max_abs_err {err:.3e} (|want| max {want.abs().max().item():.3e})")
             torch.testing.assert_close(got, want, **F32_TOL, msg=f"K2 LM {m}x{k}x{n}")
-            if not torch.equal(binary_matmul(x, wp, scale), got):
+            if not torch.equal(binary_matmul(x, wp, s_), got):
                 raise AssertionError(f"K2 LM {m}x{k}x{n}: two calls differ")
             if m == 4:
-                errs["k2_lm"] = max(errs.get("k2_lm", 0.0), err)
+                errs[key_] = max(errs.get(key_, 0.0), err)
 
     # 5. K3, K4, K5 against their plain versions, exact
     def acts(shape, dtype=torch.float32):
@@ -676,6 +722,10 @@ def main() -> int:
     for (m, k) in [(4, 3072), (4, 12288), (32, 3072), (32, 12288)]:
         x = acts((m, k), torch.bfloat16)
         exact(f"K3 {LM_ARCH} input {m}x{k} bf16", sign_pack(x), sign_pack_plain(x))
+    for m in (4, SSM_LONG_PROMPT):
+        for k, _ in SSM_KN:
+            x = acts((m, k), torch.bfloat16)
+            exact(f"K3 {SSM_ARCH} input {m}x{k} bf16", sign_pack(x), sign_pack_plain(x))
 
     print("== K3 with the producer prologue (bias, eval batch norm, Eq.-1 sign) vs its "
           "plain chain (exact; BN outputs 0.0, -0.0, NaN, 0 * inf, +-2^-149 planted, and "
@@ -768,6 +818,8 @@ def main() -> int:
                  (4096, 72, 256, 2304, "large M")]
     k4_cases += [(m, k // 32, n, k, f"{LM_ARCH} {'decode' if m == 4 else 'prefill'} {k}x{n}")
                  for m in (4, 32) for k, n in LM_KN]
+    k4_cases += [(m, k // 32, n, k, f"{SSM_ARCH} {'decode' if m == 4 else 'prefill'} {k}x{n}")
+                 for m in (4, SSM_LONG_PROMPT) for k, n in SSM_KN]
     for m, wds, n, k, what in k4_cases:
         a, w = words((m, wds)), words((wds, n))
         for s in (None, torch.rand(n, generator=g, device=dev) + 0.5):
@@ -881,6 +933,7 @@ def main() -> int:
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_start["6"] = time.perf_counter()
     # 6. the main path: serve both nets in every mode
     launches = {name: {} for name in counters}
     run_mode = {}        # (net, run) -> the plan mode it served
@@ -1008,6 +1061,7 @@ def main() -> int:
         print(f"  {tag}: logits vs the plain kernels on the card, max_abs_err {err:.3e}")
         torch.testing.assert_close(res.last_logits, plain, **F32_TOL)
 
+    phase_start["6b"] = time.perf_counter()
     # 6b. the plan manifests
     golden_dir = Path(__file__).resolve().parent / "benchmarks" / "golden_plans"
     plan_dir = Path(__file__).resolve().parent / "build" / "plans"
@@ -1069,6 +1123,7 @@ def main() -> int:
             raise AssertionError(f"mnist_fc {mode}: a leaf packed with_scale=False has a scale")
         plain_forward_close("no scale", res, mode == "xnor")
 
+    phase_start["6c"] = time.perf_counter()
     # 6c. the stochastic ensemble
     for arch, per_batch, packs in ENSEMBLES:
         k = ENSEMBLE_K
@@ -1119,6 +1174,7 @@ def main() -> int:
               f"{res.abstained}/{res.requests} at 0.6; {k} replicas {res.packed_bytes} B "
               f"(shared leaves once) vs {res.dense_bytes} B bf16 dense, one copy")
 
+    phase_start["6d"] = time.perf_counter()
     # 6d. Alg.-1 training on the card
     from repro_torch.core import binarize as B
     from repro_torch.ft.failures import FailureInjector
@@ -1311,6 +1367,7 @@ def main() -> int:
     print(f"  the CLI took {time.perf_counter() - t0:.2f} s in all")
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
+    phase_start["6e"] = time.perf_counter()
     # 6e. the dense LM serve: StarCoder2-3B at full width in det, stoch, xnor
     import cProfile
     import pstats
@@ -1329,14 +1386,15 @@ def main() -> int:
         """(B, max_new, V) f32: each step's logits of greedy generation from
         ``prompts``, the computation ``engine.generate`` runs."""
         out = []
+        cfg_ = engine.cfg
         with torch.inference_mode():
-            lg, cache = T.prefill(lm_cfg, engine.params, prompts,
+            lg, cache = T.prefill(cfg_, engine.params, prompts,
                                   max_len=prompts.shape[1] + max_new)
             for i in range(max_new):
                 out.append(lg.to(torch.float32))
                 if i < max_new - 1:
                     tok = torch.argmax(lg, dim=-1).to(torch.int32)
-                    lg, cache = T.decode_step(lm_cfg, engine.params, cache, tok[:, None])
+                    lg, cache = T.decode_step(cfg_, engine.params, cache, tok[:, None])
         return torch.stack(out, 1)
 
     def top2_margin(logits):
@@ -1530,6 +1588,7 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
 
+    phase_start["6f"] = time.perf_counter()
     # 6f. the rest of the dense LM serve engine at StarCoder2-3B's full width,
     # from the masters 6e served (seed 0): chunked prefill with the prefix
     # cache (det, xnor), temperature sampling (det), the K-replica ensemble
@@ -1812,6 +1871,7 @@ def main() -> int:
     del engine, state, rs, masters
     torch.cuda.empty_cache()
 
+    phase_start["6g"] = time.perf_counter()
     # 6g. the MoE family: the expert-batched K2 at Moonlight's expert shapes,
     # then Moonlight-16B-A3B at full width (MOE_LAYERS of its 48 layers)
     # served in det and stoch
@@ -2276,6 +2336,220 @@ def main() -> int:
         del res, engine, state, step_state, k_lg, p_lg
         torch.cuda.empty_cache()
 
+    phase_start["6h"] = time.perf_counter()
+    # 6h. the SSM family: mamba2-130m at its full CONFIG width (all 24 layers)
+    # served in det, stoch and xnor; a chunked det serve with the prefix
+    # cache; a 200-token prefill (two SSD chunks, padded) against the plain
+    # kernels
+    ssm_cfg = cb.get_config(SSM_ARCH)
+    n_ssm_proj = 2 * ssm_cfg.n_layers              # in_proj and out_proj a model call
+    ssm_kern_names = ("binary_matmul", "sign_pack", "xnor_")
+    ssm_rows = {}
+
+    def ssm_want(mode, calls):
+        return {name: n_ssm_proj * calls for name in
+                (("sign_pack", "xnor_matmul") if mode == "xnor" else ("binary_matmul",))}
+
+    def logits_against_plain(tag, mode, k_lg, p_lg):
+        """The kernel run's logits against the plain kernels' on the same
+        card: within LM_LOGIT_TOL of the largest |logit| (xnor bit for
+        bit). Returns the largest |difference|."""
+        tol = LM_LOGIT_TOL * p_lg.abs().amax(dim=-1)
+        err = (k_lg - p_lg).abs().amax(dim=-1)
+        if (err > tol).any() or (mode == "xnor" and not torch.equal(k_lg, p_lg)):
+            raise AssertionError(f"{tag}: logits differ from the plain kernels (max_abs_err "
+                                 f"{err.max().item():.4g}, tolerance {tol.min().item():.4g})")
+        return err.max().item()
+
+    for mode in LM_MODES:
+        print(f"== serve {SSM_ARCH} full width ({ssm_cfg.n_layers} layers, d_model "
+              f"{ssm_cfg.d_model}, d_inner {ssm_cfg.d_inner}, state {ssm_cfg.ssm_state}, "
+              f"{ssm_cfg.ssm_heads} heads of {ssm_cfg.ssm_head_dim}, vocab {ssm_cfg.vocab_size}, "
+              f"{ssm_cfg.dtype}) --packed --binarize {mode}: {LM_SERVE}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        reset_counts()
+        res = serve_lm(arch=SSM_ARCH, packed=True, binarize=mode, device="cuda", **LM_SERVE)
+        peak = torch.cuda.max_memory_allocated() - live
+        calls = LM_SERVE["requests"] + res.steps - 1      # prefills + decode steps
+        print(f"  {LM_SERVE['requests']} prefills + {res.steps - 1} decode steps x "
+              f"{n_ssm_proj} projections, {n_ssm_proj} K1 at pack time")
+        got = launch_counts()
+        want = {name: 0 for name in counters}
+        want.update(binarize_pack=n_ssm_proj, **ssm_want(mode, calls))
+        print(f"  launches {got}")
+        if got != want:
+            raise AssertionError(f"{SSM_ARCH} {mode}: expected launches {want}")
+        for name, count in got.items():
+            launches[name][(SSM_ARCH, mode)] = count
+        run_mode[(SSM_ARCH, mode)] = mode
+        engine = res.engine
+        done = sorted(res.batcher.completed, key=lambda r: r.uid)
+        if len(done) != LM_SERVE["requests"] or res.tokens != 16 * LM_SERVE["max_new"]:
+            raise AssertionError(f"{SSM_ARCH} {mode}: served {len(done)} requests, "
+                                 f"{res.tokens} tokens")
+
+        # the served words against a plain pack of the same masters at key(seed + 1)
+        masters = T.init_lm(ssm_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        with plain_kernels():
+            plain = compile_plan(masters, DEFAULT_POLICY, mode).pack(masters, key=prng.key(1))
+        n_checked = 0
+        for (path, a), (_, b) in zip(tree_leaves_with_path(engine.params),
+                                     tree_leaves_with_path(plain)):
+            if hasattr(a, "packed"):
+                if type(a) is not type(b) or not torch.equal(a.packed, b.packed):
+                    raise AssertionError(f"{SSM_ARCH} {mode}: served {path} differs from the "
+                                         f"plain pack")
+                n_checked += a.packed.shape[0]
+        del masters, plain
+        print(f"  {n_checked} served per-layer leaves (K1) == plain pack")
+
+        # greedy logits against the plain kernels, first 4 requests; then a
+        # 200-token prefill: two SSD chunks of 128, the second padded
+        prompts = torch.from_numpy(np.stack([r.prompt for r in done[:4]])).to(dev)
+        k_lg = lm_greedy(engine, prompts, LM_SERVE["max_new"])
+        with plain_kernels():
+            p_lg = lm_greedy(engine, prompts, LM_SERVE["max_new"])
+        err_first = logits_against_plain(f"{SSM_ARCH} {mode}", mode, k_lg[:, :1], p_lg[:, :1])
+        if mode == "xnor" and not torch.equal(k_lg, p_lg):
+            raise AssertionError(f"{SSM_ARCH} xnor: greedy logits differ from the plain kernels")
+        margin = top2_margin(p_lg)
+        tol = LM_LOGIT_TOL * p_lg.abs().amax(dim=-1)
+        same = k_lg.argmax(-1) == p_lg.argmax(-1)
+        for b in range(prompts.shape[0]):
+            bad = (~same[b]).nonzero()
+            if len(bad):
+                i = bad[0].item()
+                print(f"  request {b}: tokens equal the plain kernels' up to step {i}, where "
+                      f"the plain run's top-2 margin is {margin[b, i].item():.4g}")
+                if margin[b, i] >= tol[b, i]:
+                    raise AssertionError(f"{SSM_ARCH} {mode}: request {b} diverges from the "
+                                         f"plain kernels with a top-2 margin above tolerance")
+        long_prompt = torch.from_numpy(np.random.default_rng(7).integers(
+            0, ssm_cfg.vocab_size, (2, SSM_LONG_PROMPT)).astype(np.int32)).to(dev)
+        before = launch_counts()
+        with torch.inference_mode():
+            k_long, k_cache = T.prefill(ssm_cfg, engine.params, long_prompt)
+            after = launch_counts()
+            with plain_kernels():
+                p_long, p_cache = T.prefill(ssm_cfg, engine.params, long_prompt)
+        n_long = {name: after[name] - before[name] for name in after if after[name] != before[name]}
+        if n_long != ssm_want(mode, 1):
+            raise AssertionError(f"{SSM_ARCH} {mode}: a {SSM_LONG_PROMPT}-token prefill "
+                                 f"launched {n_long}")
+        err_long = logits_against_plain(f"{SSM_ARCH} {mode} {SSM_LONG_PROMPT}-token prefill",
+                                        mode, k_long.float(), p_long.float())
+        # the final states: bit for bit in xnor (integer popcounts, then the
+        # same ops on the same card); in det and stoch they carry K2's f32
+        # sum order through 24 bf16 layers, and are reported
+        st_err = ((k_cache["ssm"] - p_cache["ssm"]).abs().max()
+                  / p_cache["ssm"].abs().max()).item()
+        if mode == "xnor" and not (torch.equal(k_cache["ssm"], p_cache["ssm"])
+                                   and torch.equal(k_cache["conv"], p_cache["conv"])):
+            raise AssertionError(f"{SSM_ARCH} xnor: the {SSM_LONG_PROMPT}-token prefill's "
+                                 f"state differs from the plain kernels' ({st_err:.4g})")
+        print(f"  logits vs the plain kernels: first step max_abs_err {err_first:.4g}, "
+              f"{int(same.sum())}/{same.numel()} greedy tokens equal (smallest top-2 margin "
+              f"{margin.min().item():.4g}); a {SSM_LONG_PROMPT}-token prefill ({n_long}): "
+              f"logits {err_long:.4g}, final state {st_err:.3g} of its largest |value|")
+        del k_lg, p_lg, k_cache, p_cache
+
+        # every stream equals the one-shot generate of its request
+        for r in done:
+            one = engine.generate(r.prompt[None], r.max_new).tokens[0].tolist()
+            if one != r.generated:
+                raise AssertionError(f"{SSM_ARCH} {mode}: request {r.uid}'s stream differs "
+                                     f"from its one-shot generate")
+        print(f"  all {len(done)} streams equal the one-shot generate of their request")
+
+        # decode step: wall, device time, launches; the kernels' share of it
+        state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
+        for slot in range(4):
+            state = engine.prefill_into(state, slot, done[slot].prompt)
+        tok = torch.argmax(state.logits, dim=-1)
+        step_ms = synced_ms(lambda: engine.decode_step(state, tok), LM_SERVE["max_new"] - 1)
+        step_kern = profiled(lambda: engine.decode_step(state, tok), reps=5)
+        step_dev = step_kern and sum(step_kern.values())
+        step_n = kernels_per_rep(lambda: engine.decode_step(state, tok), reps=5)
+        kern_dev = step_kern and sum(v for k_, v in step_kern.items()
+                                     if any(s in k_ for s in ssm_kern_names))
+        top = sorted((step_kern or {}).items(), key=lambda kv: -kv[1])[:4]
+        ssm_rows[mode] = {
+            "pack_s": res.pack_seconds, "dense_mb": res.dense_bytes / 1e6,
+            "served_mb": res.packed_bytes / 1e6, "tok_s": res.tok_per_s,
+            "ttft_ms": res.median_ttft * 1e3, "latency_ms": res.median_latency * 1e3,
+            "step_ms": step_ms, "step_device_ms": step_dev, "step_launches": step_n,
+            "step_kernel_ms": kern_dev, "peak_gb": peak / 1e9, "seconds": res.seconds,
+            "steps": res.steps, "max_abs_err": err_first, "long_err": err_long,
+            "long_state_err": st_err}
+        share = (f"{100 * kern_dev / step_dev:.1f}%" if step_dev else "not measured")
+        print(f"  pack {res.pack_seconds:.3f} s; {res.dense_bytes / 1e6:.1f} MB bf16 dense -> "
+              f"{res.packed_bytes / 1e6:.1f} MB served; {res.tok_per_s:.1f} tok/s, median TTFT "
+              f"{res.median_ttft * 1e3:.1f} ms, median latency {res.median_latency * 1e3:.1f} ms; "
+              f"decode step {step_ms:.3f} ms median (synced), device {fmt(step_dev)} ms in "
+              f"{fmt_count(step_n)} device launches, K2/K3/K4 {fmt(kern_dev)} ms of it "
+              f"({share}; the rest the SSD's plain ops, the norms and the head); peak allocated "
+              f"{peak / 1e9:.2f} GB; top: " + "; ".join(f"{k_[:50]} {v:.4f}" for k_, v in top))
+        del res, engine, state
+
+    # chunked prefill with the prefix cache (det) against whole-prompt admission
+    print(f"== serve {SSM_ARCH} full width --packed --binarize det, chunked prefill and the "
+          f"prefix cache: {SSM_CHUNK}")
+    masters = T.init_lm(ssm_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine = ServeEngine(ssm_cfg, compile_plan(masters, DEFAULT_POLICY, "det").pack(
+        masters, key=prng.key(1)))
+    del masters
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, ssm_cfg.vocab_size, SSM_CHUNK["shared_prefix"])
+    sprompts = [np.concatenate([shared, rng.integers(0, ssm_cfg.vocab_size,
+                                                     SSM_CHUNK["prompt_len"] - len(shared))])
+                for _ in range(SSM_CHUNK["requests"])]
+    s_new, s_slots = SSM_CHUNK["max_new"], SSM_CHUNK["slots"]
+    whole, _, _, _ = serve_streams(engine, sprompts, s_new, s_slots)
+    pc, reg = PrefixCache(max_entries=SSM_CHUNK["prefix_cache"]), MetricsRegistry()
+    reset_counts()
+    streams, sb, ssteps, ssecs = serve_streams(engine, sprompts, s_new, s_slots,
+                                               prefill_chunk=SSM_CHUNK["prefill_chunk"],
+                                               prefix_cache=pc, metrics=reg)
+    chunks = int(reg["serve_prefill_chunks_total"].value)
+    got = launch_counts()
+    want = {name: 0 for name in counters}
+    want.update(ssm_want("det", ssteps - 1 + chunks))
+    print(f"  {ssteps - 1} decode steps + {chunks} prefill chunks x {n_ssm_proj} projections; "
+          f"launches {got}; prefix cache {pc.stats()}")
+    if got != want:
+        raise AssertionError(f"{SSM_ARCH} det chunked: expected launches {want}")
+    for name, count in got.items():
+        launches[name][(SSM_ARCH, "det chunked")] = count
+    run_mode[(SSM_ARCH, "det chunked")] = "det"
+    if pc.hits < 1:
+        raise AssertionError(f"{SSM_ARCH} det chunked: no prefix hit")
+    lg = lm_greedy(engine, torch.from_numpy(np.stack(sprompts)).to(dev), s_new)
+    margin, tol = top2_margin(lg), LM_LOGIT_TOL * lg.abs().amax(dim=-1)
+    n_equal = 0
+    for uid in range(len(sprompts)):
+        if streams[uid] == whole[uid]:
+            n_equal += 1
+            continue
+        i = first_diff(streams[uid], whole[uid])
+        print(f"  request {uid}: chunked stream equals the whole-prompt one up to step {i}, "
+              f"where the top-2 margin is {margin[uid, i].item():.4g}")
+        if margin[uid, i] >= tol[uid, i]:
+            raise AssertionError(f"{SSM_ARCH} det: request {uid}'s chunked stream diverges "
+                                 f"with a top-2 margin above the tolerance")
+    ssm_rows["chunked"] = {"tok_s": sb.tokens_generated / ssecs, "steps": ssteps,
+                           "chunks": chunks, "prefix": pc.stats(), "n_equal": n_equal,
+                           "n_req": len(sprompts),
+                           "ttft_ms": statistics.median(r.ttft for r in sb.completed) * 1e3}
+    print(f"  {n_equal}/{len(sprompts)} chunked streams equal the whole-prompt streams "
+          f"(smallest top-2 margin on the whole-prompt path {margin.min().item():.4g}); "
+          f"{ssm_rows['chunked']['tok_s']:.1f} tok/s, median TTFT "
+          f"{ssm_rows['chunked']['ttft_ms']:.1f} ms")
+    del engine, lg
+    torch.cuda.empty_cache()
+
+    phase_start["7"] = time.perf_counter()
     # 7. timing at the path shapes
     print("== timing (kernel_ms: CUDA events around 200 back-to-back wrapper calls, K1 "
           "cold with L2 flushed before each call, as at pack time; device_ms: the "
@@ -2717,6 +2991,54 @@ def main() -> int:
                             moe_attn),
                     "device_ms_per_shape": [r[6] for r in moe_attn]})
 
+    print(f"== {SSM_ARCH} shapes: K1 at pack time (cold), and the decode projections (M = 4 "
+          f"slots; a layer runs in_proj and out_proj)")
+    ssm_runs = [r for r in run_mode if r[0] == SSM_ARCH]
+    ssm_k1 = {}
+    for mode in ("det", "stoch"):
+        st = mode == "stoch"
+        rows_ = []
+        for k_, n_ in SSM_KN:
+            w_ = torch.randn(k_, n_, generator=g, device=dev) * 0.7
+            b_ = rand_words((k_, n_)) if st else None
+            ms = time_cold(lambda: binarize_pack(w_, b_, stochastic=st))
+            plain_ms = time_cold(lambda: binarize_pack_plain(w_, b_, stochastic=st))
+            dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(w_, b_, stochastic=st)),
+                               "binarize_pack_kernel")
+            nbytes = k_ * n_ * 4 * (2 if st else 1) + (k_ + 31) // 32 * n_ * 4
+            t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+            print(f"  K1 {mode} {k_}x{n_} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, "
+                  f"plain_ms {plain_ms:.4f}, library_ms none, bound_ms {t_b:.5f} (bytes, "
+                  f"{nbytes} B)")
+            rows_.append((ms, plain_ms, t_b, t_b, 0.0, None, dev_ms))
+        ssm_k1[mode] = rows_
+        kernels.append({**entry(f"binarize_pack ({mode}, {SSM_ARCH}: in_proj and out_proj of "
+                                f"a layer, summed)",
+                                "src/repro_torch/kernels/csrc/binarize_pack.cu",
+                                ("src/repro/kernels/stoch_binarize.py:118" if st
+                                 else "src/repro/kernels/stoch_binarize.py:98"),
+                                total(launches["binarize_pack"],
+                                      [r for r in ssm_runs if (run_mode[r] == "stoch") == st]),
+                                errs[f"k1_{mode}"], rows_),
+                        "device_ms_per_shape": [r[6] for r in rows_]})
+    ssm_k2 = [k2_lm_row(4, k_, n_) for k_, n_ in SSM_KN]
+    kernels.append({**entry(f"binary_matmul ({SSM_ARCH} det/stoch decode, bf16 M=4, scaled: "
+                            f"in_proj and out_proj of a layer, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul"], ssm_runs), errs["k2_ssm"], ssm_k2),
+                    "device_ms_per_shape": [r[6] for r in ssm_k2]})
+    ssm_k3 = [k3_row(4, k_, torch.bfloat16) for k_, _ in SSM_KN]
+    kernels.append({**entry(f"sign_pack, no prologue ({SSM_ARCH} xnor decode, bf16 M=4: the "
+                            f"inputs of in_proj and out_proj, summed)", k3_src, k3_rep,
+                            total(launches["sign_pack"], ssm_runs), errs["k3"], ssm_k3),
+                    "device_ms_per_shape": [r[6] for r in ssm_k3]})
+    ssm_k4 = [k4_row(4, k_ // 32, n_, k_, True) for k_, n_ in SSM_KN]
+    kernels.append({**entry(f"xnor_matmul ({SSM_ARCH} xnor decode, M=4, scaled: in_proj and "
+                            f"out_proj of a layer, summed)", k4_src, k4_rep,
+                            total(launches["xnor_matmul"], ssm_runs), errs["k4"], ssm_k4),
+                    "device_ms_per_shape": [r[6] for r in ssm_k4]})
+
     print("== xnor conv layers as a whole (K5, then K4 with the border correction and "
           "epilogue in its flush) against F.conv2d on +-1 f32, TF32 off; device kernels "
           "a layer launches, counted by torch.profiler")
@@ -2814,6 +3136,27 @@ def main() -> int:
           f"median TTFT {r['ttft_ms']:.1f} ms, prefix {r['prefix']['hits']} hits / "
           f"{r['prefix']['misses']} misses; {r['n_equal']}/{r['n_req']} streams equal the "
           f"whole-prompt ones, {r['n_dropped']} whole-prompt prefills dropped assignments")
+    print(f"== {SSM_ARCH} serving summary (full width, all {ssm_cfg.n_layers} layers, "
+          f"{LM_SERVE})")
+    for mode in LM_MODES:
+        r = ssm_rows[mode]
+        print(f"  {mode}: pack {r['pack_s']:.3f} s, {r['dense_mb']:.1f} -> {r['served_mb']:.1f} "
+              f"MB, {r['tok_s']:.1f} tok/s ({r['steps']} steps in {r['seconds']:.3f} s), median "
+              f"TTFT {r['ttft_ms']:.1f} ms, median latency {r['latency_ms']:.1f} ms, decode "
+              f"step {r['step_ms']:.3f} ms (device {fmt(r['step_device_ms'])} ms, K2/K3/K4 "
+              f"{fmt(r['step_kernel_ms'])} ms of it, {fmt_count(r['step_launches'])} launches), "
+              f"peak {r['peak_gb']:.2f} GB, logits vs plain kernels {r['max_abs_err']:.4g} "
+              f"({SSM_LONG_PROMPT}-token prefill {r['long_err']:.4g}, its final state "
+              f"{r['long_state_err']:.3g} of the largest |value|)")
+    r = ssm_rows["chunked"]
+    print(f"  chunked det: {r['tok_s']:.1f} tok/s ({r['steps']} steps, {r['chunks']} chunks), "
+          f"median TTFT {r['ttft_ms']:.1f} ms, prefix {r['prefix']['hits']} hits / "
+          f"{r['prefix']['misses']} misses; {r['n_equal']}/{r['n_req']} streams equal the "
+          f"whole-prompt ones")
+    marks = sorted(phase_start.items(), key=lambda kv: kv[1]) + [("end", time.perf_counter())]
+    print("== seconds a phase: " + ", ".join(
+        f"{name} {t1 - t0:.1f}" for (name, t0), (_, t1) in zip(marks, marks[1:]))
+        + f"; {time.perf_counter() - t_start:.1f} in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ the same words bit for bit, so a stochastic pack of the port at
 * ``split(k, n)[i]``     -> threefry2x32(k, (i >> 32, i mod 2^32))
 * ``bits(k, shape)[i]``  -> x0 ^ x1 of threefry2x32(k, (i >> 32, i mod 2^32)),
                             i the row-major flat index
-* ``uniform(k, shape)``  -> f32 with mantissa bits >> 9 of ``bits``, minus 1
+* ``uniform(k, shape)``  -> f32 with mantissa (uint32) bits >> 9 of ``bits``, minus 1
                             (then ``* (maxval - minval) + minval``, floored at
                             ``minval``)
 * ``categorical(k, l)``  -> argmax(gumbel + l) over the last axis, the gumbel
@@ -20,8 +20,10 @@ the same words bit for bit, so a stochastic pack of the port at
                             (jax's default "low" mode)
 
 A key is a :class:`Key` of two Python ints, so key arithmetic never touches
-a device. Words are computed on int64 tensors holding uint32 values, with
-every add, rotate and xor masked to 32 bits. This is pack-time and
+a device. Words are computed a chunk of indices at a time (``WORDS_CHUNK``):
+on the CPU in numpy uint32, whose adds wrap; on a card as int64 tensors
+holding uint32 values, masked to 32 bits where a rotate needs it. This is
+pack-time and
 sampling-time work: the reference draws these words with plain
 ``jax.random`` calls outside any kernel, and plain torch on the leaf's (or
 the logits') device is its counterpart. The uniform words are the
@@ -34,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.packing import to_int32
@@ -54,7 +57,8 @@ class Key:
 def threefry2x32(key: Key, x0, x1):
     """Threefry-2x32 with 20 rounds of the counter words (x0, x1) under
     ``key``; the words are Python ints or int64 tensors holding uint32
-    values, and so are the two results."""
+    values, and so are the two results. Key arithmetic calls it on ints;
+    :func:`bits` runs the same rounds in place, a chunk at a time."""
     ks = (key.k0, key.k1, key.k0 ^ key.k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK32
     x1 = (x1 + ks[1]) & _MASK32
@@ -83,23 +87,89 @@ def split(k: Key, n: int = 2) -> list[Key]:
     return [Key(*threefry2x32(k, i >> 32, i & _MASK32)) for i in range(n)]
 
 
-def _words(k: Key, shape, device) -> torch.Tensor:
-    """uint32 words of ``jax.random.bits(k, shape)``, held in int64."""
-    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32(k, i >> 32, i & _MASK32)
-    return (x0 ^ x1).reshape(tuple(shape))
+# Flat indices a pass of :func:`bits` computes at once. On the CPU the
+# rounds run in numpy uint32 (wrapping adds, logical shifts, one thread) over
+# three buffers that stay in a core's cache: torch's int64 ops over a whole
+# leaf are slower, and far slower when several processes share the CPU,
+# each op then waiting on a barrier of torch's thread pool. On the card a
+# pass launches ~135 elementwise torch kernels over int64, so its chunk
+# holds a whole 2048 x 2048 leaf.
+WORDS_CHUNK = {"cpu": 1 << 16, "cuda": 1 << 22}
+
+
+def _host_words(k: Key, n: int) -> np.ndarray:
+    """The first ``n`` words of ``bits(k, ...)`` as uint32, on the host: the
+    rounds of :func:`threefry2x32`, a chunk at a time, in place on two
+    counter buffers and one rotate temporary, into a preallocated output."""
+    chunk = WORDS_CHUNK["cpu"]
+    ks = [np.uint32(v) for v in (k.k0, k.k1, k.k0 ^ k.k1 ^ _PARITY)]
+    out = np.empty(n, np.uint32)
+    buf = np.empty((3, min(chunk, n)), np.uint32)
+    for start in range(0, n, chunk):
+        m = min(chunk, n - start)
+        x0, x1, t = buf[0, :m], buf[1, :m], buf[2, :m]
+        i = np.arange(start, start + m, dtype=np.uint64)
+        x0[:] = i >> np.uint64(32)
+        x1[:] = i & np.uint64(_MASK32)
+        x0 += ks[0]
+        x1 += ks[1]
+        for r5 in range(5):
+            for r in _ROTATIONS[r5 % 2]:
+                x0 += x1
+                np.right_shift(x1, np.uint32(32 - r), out=t)
+                np.left_shift(x1, np.uint32(r), out=x1)
+                x1 |= t
+                x1 ^= x0
+            x0 += ks[(r5 + 1) % 3]
+            x1 += np.uint32((int(ks[(r5 + 2) % 3]) + r5 + 1) & _MASK32)
+        np.bitwise_xor(x0, x1, out=out[start:start + m])
+    return out
+
+
+def _device_words(k: Key, n: int, device) -> torch.Tensor:
+    """The same words on ``device``, in int64 holding uint32 values: the
+    rounds a chunk at a time, in place. Only ``x1`` is masked to 32 bits
+    (before each rotate); ``x0`` carries its carries above bit 31, which
+    never reach the low 32 bits of a sum or an xor, and stays below 2^38."""
+    chunk = WORDS_CHUNK[device.type]
+    ks = (k.k0, k.k1, k.k0 ^ k.k1 ^ _PARITY)
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    buf = torch.empty((3, min(chunk, n)), dtype=torch.int64, device=device)
+    for start in range(0, n, chunk):
+        m = min(chunk, n - start)
+        x0, x1, t = buf[0, :m], buf[1, :m], buf[2, :m]
+        torch.arange(start, start + m, out=x1)
+        torch.bitwise_right_shift(x1, 32, out=x0)
+        x0.add_(ks[0])
+        x1.bitwise_and_(_MASK32).add_(ks[1]).bitwise_and_(_MASK32)
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x0.add_(x1)
+                torch.bitwise_right_shift(x1, 32 - r, out=t)
+                x1.bitwise_left_shift_(r).bitwise_or_(t).bitwise_xor_(x0).bitwise_and_(_MASK32)
+            x0.add_(ks[(i + 1) % 3])
+            x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_MASK32)
+        torch.bitwise_xor(x0, x1, out=out[start:start + m]).bitwise_and_(_MASK32)
+    return out
 
 
 def bits(k: Key, shape, device=None) -> torch.Tensor:
-    """``jax.random.bits(k, shape, uint32)`` as int32 bit patterns."""
-    return to_int32(_words(k, shape, device))
+    """``jax.random.bits(k, shape, uint32)`` as int32 bit patterns, on
+    ``device`` (the CPU when None)."""
+    n = math.prod(shape)
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu":
+        words = torch.from_numpy(_host_words(k, n).view(np.int32))
+    else:
+        words = to_int32(_device_words(k, n, device))
+    return words.reshape(tuple(shape))
 
 
 def uniform(k: Key, shape, device=None, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32, minval, maxval)``: the [0, 1)
     floats scaled as jax scales them, in f32."""
-    mant = ((_words(k, shape, device) >> 9) | 0x3F800000).to(torch.int32)
+    mant = ((bits(k, shape, device) >> 9) & 0x7FFFFF) | 0x3F800000
     floats = mant.view(torch.float32) - 1.0
     if (minval, maxval) == (0.0, 1.0):
         return floats

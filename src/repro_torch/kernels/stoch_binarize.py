@@ -12,8 +12,9 @@ draws its own words from a stateless Philox4x32-10 stream, where word
 (k, n) depends only on (seed, k, n) (:func:`onchip_words`). No path calls
 it: ``kernels.ops`` draws operand words, as the reference's ops do.
 
-A CPU tensor runs the plain version in ``kernels.ref``; a CUDA tensor
-launches ``csrc/binarize_pack.cu`` or raises. ``binarize_pack.launches``
+A CPU tensor runs the plain version in ``kernels.ref`` (operand and det
+modes a block of ``HOST_BLOCK`` weights at a time); a CUDA tensor launches
+``csrc/binarize_pack.cu`` or raises. ``binarize_pack.launches``
 counts kernel launches, and ``binarize_pack.launches_on_chip`` those of the
 on-chip variant among them.
 """
@@ -86,6 +87,32 @@ def binarize_pack_plain(w: torch.Tensor, bits: torch.Tensor | None, *,
     return ref.stoch_binarize_pack_ref(wp, bp)
 
 
+# Elements of a block of a CPU pack: under torch's intra-op grain size
+# (2^15), so each op of a block runs on the calling thread.
+HOST_BLOCK = (1 << 15) - 1
+
+
+def _host_plain(w: torch.Tensor, bits: torch.Tensor | None, *,
+                stochastic: bool) -> torch.Tensor:
+    """:func:`binarize_pack_plain` of a CPU leaf, a block of up to
+    ``HOST_BLOCK`` weights (whole word rows of 32 weight rows, and at most
+    ``HOST_BLOCK // 32`` columns) at a time: the same words, since a word
+    packs 32 rows of one column. Whole-leaf ops would each wait on the
+    thread pool's barrier, many times over when several processes share
+    the CPU."""
+    k, n = w.shape
+    cols = min(n, HOST_BLOCK // PACK)
+    rows = PACK * max(1, HOST_BLOCK // (PACK * cols))
+    if rows >= k and cols >= n:
+        return binarize_pack_plain(w, bits, stochastic=stochastic)
+    return torch.cat([
+        torch.cat([binarize_pack_plain(w[r:r + rows, c:c + cols],
+                                       None if bits is None else bits[r:r + rows, c:c + cols],
+                                       stochastic=stochastic)
+                   for c in range(0, n, cols)], dim=1)
+        for r in range(0, k, rows)])
+
+
 def binarize_pack(w: torch.Tensor, bits: torch.Tensor | None = None, *,
                   stochastic: bool, seed: int | None = None,
                   on_chip_prng: bool = False) -> torch.Tensor:
@@ -114,8 +141,9 @@ def binarize_pack(w: torch.Tensor, bits: torch.Tensor | None = None, *,
                              f"{bits.dtype} {tuple(bits.shape)}")
     operand = stochastic and not on_chip_prng
     if _build.kernel_device("binarize_pack", [w] + ([bits] if operand else [])) == "cpu":
-        return binarize_pack_plain(w, bits, stochastic=stochastic, seed=seed,
-                                   on_chip_prng=on_chip_prng)
+        if on_chip_prng:
+            return binarize_pack_plain(w, None, stochastic=True, seed=seed, on_chip_prng=True)
+        return _host_plain(w, bits, stochastic=stochastic)
     k, n = w.shape
     out = torch.empty(((k + PACK - 1) // PACK, n), dtype=torch.int32, device=w.device)
     mode = _ON_CHIP if on_chip_prng else _OPERAND if stochastic else _DET

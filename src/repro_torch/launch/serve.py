@@ -1,6 +1,6 @@
 """Serving driver: fixed-batch inference of the paper's nets (the MNIST FC
 net and VGG-16 on CIFAR-10), and step-level continuous-batching serving of
-the dense and MoE LM families, with binary weights, and in ``xnor`` mode
+the dense, MoE and SSM LM families, with binary weights, and in ``xnor`` mode
 binary activations too (not for MoE experts, which the reference serves in
 ``det`` and ``stoch`` only).
 
@@ -18,10 +18,12 @@ dense. Prints the weight bytes before and after packing, ms/batch and img/s.
 
 Token archs (``serve_lm``; the dense family: starcoder2_3b, qwen2_5_32b,
 h2o_danube_3_4b, deepseek_coder_33b; the MoE family: moonshot_v1_16b_a3b,
-grok_1_314b, whose expert projections run on the expert-batched K2) stream
-requests through
+grok_1_314b, whose expert projections run on the expert-batched K2; the
+SSM family: mamba2_130m, whose Mamba2 mixers run ``in_proj`` and
+``out_proj`` on K2, or K3 + K4 in ``xnor``) stream requests through
 ``serve.engine.stream_serve``: a persistent slot-addressed KV cache,
-per-step slot refill, per-request ``max_new``, tok/s from tokens actually
+per-step slot refill (the SSM family's recurrent state and conv window
+in place of K/V), per-request ``max_new``, tok/s from tokens actually
 recorded. ``--packed`` serves the plan's packed leaves (every attention,
 MLP and expert projection: K2, or K3 + K4 in ``xnor``); without it the
 dense masters. ``--binarize xnor`` on an MoE arch exits naming the
@@ -516,7 +518,7 @@ def main(argv=None) -> ServeResult | LMServeResult:
     ap.add_argument("--arch", default="mnist_fc",
                     help=f"{' | '.join(ARCHS)}, or a token arch: "
                          f"{' | '.join(a for a in cb.ARCH_IDS if a not in ARCHS)} "
-                         f"(the dense and MoE families run; MoE in det and stoch)")
+                         f"(the dense, MoE and SSM families run; MoE in det and stoch)")
     ap.add_argument("--binarize", default="det", choices=["det", "stoch", "xnor"])
     ap.add_argument("--packed", action="store_true",
                     help="token archs: serve the plan's packed leaves (without it, the "

@@ -1,7 +1,8 @@
 """Decoder stack of the LM families (the reference's
-``repro/models/transformer.py``, its ``uniform`` template): every layer
+``repro/models/transformer.py``): its ``uniform`` template, every layer
 attention + FFN, dense (starcoder2, qwen2.5, h2o-danube-3, deepseek-coder)
-or MoE (moonshot / Moonlight, grok: ``models.moe`` on every layer).
+or MoE (moonshot / Moonlight, grok: ``models.moe`` on every layer), and its
+``ssm`` template, every layer a Mamba2 mixer (mamba2-130m: ``models.ssm``).
 
 Layers are stacked on a leading axis, as the reference stacks them for
 ``lax.scan``: the forward passes loop over layer ``i`` and slice every
@@ -12,7 +13,11 @@ tensor, a ``PackedLinear`` (K2) or an ``XnorLinear`` (K3 + K4).
 The decode cache is slot-addressed and long-lived: ``decode_step`` and
 ``cache_insert`` write its tensors in place, where the reference donates
 them to a jitted call, and return the cache dict; ``prefill_chunk``
-advances one slot's prefill by a chunk the same way. The SSM, hybrid and
+advances one slot's prefill by a chunk the same way. The SSM family's
+recurrent ``ssm`` and ``conv`` states are the exception: ``decode_step``
+returns them anew (a multiplicative update that the fused decode + chunk
+step must be able to undo for a mid-prefill slot, :func:`cache_keep`),
+and ``prefill_chunk`` writes its slot's rows in place. The hybrid and
 frontend families wait for ROADMAP queue 1 item 6b and raise
 ``NotImplementedError``.
 """
@@ -26,25 +31,31 @@ import torch.nn.functional as F
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import embed_lookup, lm_init, rms_norm
 
 _ITEM_6B = "ROADMAP queue 1 item 6b"
 
+# The cache entries ``decode_step`` returns anew, where it writes the rest in
+# place; :func:`cache_keep` re-selects them for the slots a fused step keeps.
+STEP_STATE = ("pos", "ssm", "conv")
+
 
 def require_uniform(cfg) -> None:
-    """Raises unless ``cfg`` runs the uniform template on tokens (the dense
-    and MoE families), the one the port runs."""
-    if cfg.family == "ssm" or cfg.is_hybrid or cfg.frontend:
+    """Raises unless ``cfg`` runs a template the port runs on tokens: the
+    uniform one (the dense and MoE families) or the SSM one."""
+    if cfg.is_hybrid or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet ({_ITEM_6B}); "
-            f"the port runs the dense and MoE families")
+            f"the port runs the dense, MoE and SSM families")
 
 
 def init_lm(cfg, generator: torch.Generator, *, device) -> dict:
     """Master weights drawn from ``generator`` (which must live on
     ``device``), f32, in the reference's tree: ``embed``, ``final_norm``,
-    ``lm_head`` and the stacked ``layers``: ``moe`` in place of ``mlp``
-    when every layer is an MoE layer, as in the reference."""
+    ``lm_head`` (untied heads) and the stacked ``layers``: ``moe`` in place
+    of ``mlp`` when every layer is an MoE layer, and ``ssm`` and ``ln1``
+    alone for the SSM family, as in the reference."""
     require_uniform(cfg)
     n = cfg.n_layers
     params: dict[str, Any] = {
@@ -55,6 +66,12 @@ def init_lm(cfg, generator: torch.Generator, *, device) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"kernel": lm_init(generator, (cfg.d_model, cfg.vocab_size),
                                                device=device)}
+    if cfg.is_ssm_only:
+        params["layers"] = {
+            "ssm": S.init_ssm(generator, cfg, lm_init, device=device, n_layers=n),
+            "ln1": {"scale": torch.zeros((n, cfg.d_model), device=device)},
+        }
+        return params
     params["layers"] = {
         "attn": A.init_attn(generator, cfg, lm_init, device=device, n_layers=n),
         "ln1": {"scale": torch.zeros((n, cfg.d_model), device=device)},
@@ -113,6 +130,11 @@ def forward(cfg, params: dict, tokens_or_embeds: torch.Tensor):
     ``lb_loss`` the MoE layers' load-balance losses summed (0 when dense)."""
     require_uniform(cfg)
     x = _embed_in(cfg, params, tokens_or_embeds)
+    if cfg.is_ssm_only:
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["layers"], i)
+            x = x + S.ssm_forward(cfg, lp["ssm"], rms_norm(x, lp["ln1"]["scale"]))
+        return _head_out(cfg, params, x), {"lb_loss": torch.zeros((), device=x.device)}
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux: list[dict] = []
     for i in range(cfg.n_layers):
@@ -130,9 +152,17 @@ def forward(cfg, params: dict, tokens_or_embeds: torch.Tensor):
 
 def init_cache(cfg, batch: int, context_len: int, dtype=None, *, device) -> dict:
     """Zeroed decode cache for a context of ``context_len`` tokens:
-    ``pos`` (B,) int32 and ``k``/``v`` (L, B, S_kv, KV, hd)."""
+    ``pos`` (B,) int32 and ``k``/``v`` (L, B, S_kv, KV, hd), or for the SSM
+    family ``ssm`` (L, B, H, P, N) f32 and ``conv`` (L, B, W-1, conv_dim)."""
     require_uniform(cfg)
     dtype = dtype or cfg.activation_dtype
+    if cfg.is_ssm_only:
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+                "ssm": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_state), dtype=torch.float32, device=device),
+                "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv_width - 1, conv_dim),
+                                    dtype=dtype, device=device)}
     s_kv = A.cache_length(cfg, context_len)
     shape = (cfg.n_layers, batch, s_kv, cfg.n_kv_heads, cfg.head_dim)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -144,6 +174,8 @@ def cache_slot_axes(cfg) -> dict[str, int]:
     """Slot (batch) axis of every decode-cache entry: each request owns one
     index along these axes for its lifetime."""
     require_uniform(cfg)
+    if cfg.is_ssm_only:
+        return {"pos": 0, "ssm": 1, "conv": 1}
     return {"pos": 0, "k": 1, "v": 1}
 
 
@@ -175,12 +207,14 @@ def cache_extract(cfg, cache: dict, slot: int) -> dict:
 
 def cache_keep(cfg, old: dict, new: dict, keep: torch.Tensor) -> dict:
     """Per-slot merge: slots where ``keep`` (bool (n_slots,)) holds keep
-    ``old``'s position counter, the rest take ``new``'s. Only state a
-    pending prefill chunk cannot rewrite is re-selected (for this family,
-    ``pos``); the K/V buffers pass through, as in the reference."""
+    ``old``'s rows, the rest take ``new``'s. Only state a pending prefill
+    chunk cannot rewrite is re-selected (``STEP_STATE``: the position
+    counters, and the SSM family's recurrent ``ssm`` and ``conv`` states,
+    which a foreign decode would corrupt); the K/V buffers pass through, as
+    in the reference."""
     out = dict(new)
     for name, axis in cache_slot_axes(cfg).items():
-        if name not in ("pos", "ssm", "conv"):
+        if name not in STEP_STATE:
             continue
         shape = [1] * old[name].ndim
         shape[axis] = old[name].shape[axis]
@@ -196,12 +230,31 @@ def prefill_chunk(cfg, params: dict, cache: dict, tokens: torch.Tensor, slot: in
     would see, and writes the chunk's K/V in place (``A.chunk_attention``).
     Returns (last-token logits (1, V), cache) with a new ``pos`` whose
     ``pos[slot]`` is ``offset + C``, set absolutely; the old ``pos`` tensor
-    is left as it was."""
+    is left as it was.
+
+    The SSM family threads the slot's recurrent state and conv window
+    through the chunk (``ssm_forward`` with ``chunk=C``) and writes the
+    slot's new rows in place; at ``offset`` 0 (a fresh prefill) the slot's
+    resident rows belong to its previous occupant and read as zeros."""
     require_uniform(cfg)
     x = _embed_in(cfg, params, tokens)
     c = x.shape[1]
     pos = cache["pos"].clone()
     pos[slot] = offset + c
+    if cfg.is_ssm_only:
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["layers"], i)
+            st0 = cache["ssm"][i, slot:slot + 1]
+            cv0 = cache["conv"][i, slot:slot + 1]
+            if offset == 0:
+                st0, cv0 = torch.zeros_like(st0), torch.zeros_like(cv0)
+            y, st, cv = S.ssm_forward(cfg, lp["ssm"], rms_norm(x, lp["ln1"]["scale"]),
+                                      chunk=c, return_state=True, initial_state=st0,
+                                      conv_state=cv0)
+            x = x + y
+            cache["ssm"][i, slot:slot + 1] = st.to(cache["ssm"].dtype)
+            cache["conv"][i, slot:slot + 1] = cv.to(cache["conv"].dtype)
+        return _head_out(cfg, params, x[:, -1:])[:, -1], dict(cache, pos=pos)
     for i in range(cfg.n_layers):
         kc, vc = cache["k"][i], cache["v"][i]
         x = _block(cfg, layer_params(params["layers"], i), x,
@@ -212,10 +265,21 @@ def prefill_chunk(cfg, params: dict, cache: dict, tokens: torch.Tensor, slot: in
 def decode_step(cfg, params: dict, cache: dict, tokens_or_embeds: torch.Tensor):
     """One decode step for the whole batch: tokens (B, 1) ->
     (logits (B, V), cache), the cache's K/V written in place and ``pos``
-    advanced by one."""
+    advanced by one; the SSM family's ``ssm`` and ``conv`` are new tensors
+    and the old ones are left as they were."""
     require_uniform(cfg)
     x = _embed_in(cfg, params, tokens_or_embeds)
     pos = cache["pos"]
+    if cfg.is_ssm_only:
+        new_ssm, new_conv = torch.empty_like(cache["ssm"]), torch.empty_like(cache["conv"])
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["layers"], i)
+            y, new_ssm[i], new_conv[i] = S.ssm_decode_step(
+                cfg, lp["ssm"], rms_norm(x, lp["ln1"]["scale"]), cache["ssm"][i],
+                cache["conv"][i])
+            x = x + y
+        return (_head_out(cfg, params, x)[:, -1],
+                dict(cache, ssm=new_ssm, conv=new_conv, pos=pos + 1))
     for i in range(cfg.n_layers):
         kc, vc = cache["k"][i], cache["v"][i]
         x = _block(cfg, layer_params(params["layers"], i), x,
@@ -241,10 +305,23 @@ def _to_cache_layout(cfg, k: torch.Tensor, s: int, s_kv: int) -> torch.Tensor:
 def prefill(cfg, params: dict, tokens_or_embeds: torch.Tensor, max_len: int | None = None):
     """Prefill ``s`` context tokens -> (last-token logits (B, V), cache),
     the cache sized for ``max_len`` positions (default ``s + 1``, so one
-    decode step fits)."""
+    decode step fits); the SSM family's cache holds each layer's final state
+    and conv tail, whatever ``max_len``."""
     require_uniform(cfg)
     x = _embed_in(cfg, params, tokens_or_embeds)
     bsz, s = x.shape[0], x.shape[1]
+    if cfg.is_ssm_only:
+        sts, cvs = [], []
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["layers"], i)
+            y, st, cv = S.ssm_forward(cfg, lp["ssm"], rms_norm(x, lp["ln1"]["scale"]),
+                                      return_state=True)
+            x = x + y
+            sts.append(st)
+            cvs.append(cv)
+        cache = {"ssm": torch.stack(sts), "conv": torch.stack(cvs),
+                 "pos": torch.full((bsz,), s, dtype=torch.int32, device=x.device)}
+        return _head_out(cfg, params, x)[:, -1], cache
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     s_kv = A.cache_length(cfg, max_len if max_len is not None else s + 1)
     ks, vs = [], []

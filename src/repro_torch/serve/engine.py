@@ -7,7 +7,8 @@ dispatches through ``apply_linear`` on the serving leaves the plan
 produced (K2 for ``packed``, K3 + K4 for ``xnor``).
 
 Serving is step-level continuously batched (:func:`stream_serve`): the KV
-cache is a persistent slot-addressed structure (:class:`DecodeState`), a
+cache (the SSM family's recurrent state and conv window) is a persistent
+slot-addressed structure (:class:`DecodeState`), a
 finished request's slot is re-prefilled from the queue mid-stream
 (``ServeEngine.prefill_into``, or chunk by chunk with ``prefill_chunk_into``
 and the fused decode + prefill step ``fused_step``), and one decode step
@@ -215,13 +216,16 @@ class ServeEngine:
 
     def _ens_decode(self, cache: dict, tokens: torch.Tensor):
         """One decode step of every replica on its view of the (K, ...)
-        cache (K/V written in place): (EnsembleStats, cache)."""
-        lgs, pos = [], []
+        cache (K/V written in place; the entries a decode step returns
+        anew, ``T.STEP_STATE``, stacked): (EnsembleStats, cache)."""
+        lgs, news = [], []
         for r, tree in enumerate(self._trees):
             lg, new = T.decode_step(self.cfg, tree, _replica_cache(cache, r), tokens)
             lgs.append(lg)
-            pos.append(new["pos"])
-        return ensemble_stats(torch.stack(lgs)), dict(cache, pos=torch.stack(pos))
+            news.append(new)
+        anew = {name: torch.stack([n[name] for n in news])
+                for name in T.STEP_STATE if name in cache}
+        return ensemble_stats(torch.stack(lgs)), dict(cache, **anew)
 
     # -- one-shot generation ----------------------------------------------
 

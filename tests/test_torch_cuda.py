@@ -562,6 +562,9 @@ def test_twin_words_on_cuda_equal_cpu(cuda):
     k = prng.split(prng.fold_in(prng.key(1), 2), 1)[0]
     assert torch.equal(prng.bits(k, (2048, 2048), cuda).cpu(), prng.bits(k, (2048, 2048)))
     assert torch.equal(prng.uniform(k, (300, 500), cuda).cpu(), prng.uniform(k, (300, 500)))
+    # past one chunk of the card's route, with a ragged last chunk
+    n = prng.WORDS_CHUNK["cuda"] + 12345
+    assert torch.equal(prng.bits(k, (n,), cuda).cpu(), prng.bits(k, (n,)))
 
 
 @pytest.mark.cuda
@@ -837,7 +840,8 @@ LM_KN = [(3072, 3584), (3072, 3072), (3072, 12288), (12288, 3072)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [4, 32])          # decode (4 slots), prefill (32 tokens)
-@pytest.mark.parametrize("k,n", [(3072, 3584), (3072, 12288), (12288, 3072)])
+@pytest.mark.parametrize("k,n", [(3072, 3584), (3072, 12288), (12288, 3072),
+                                 (768, 3352), (1536, 768)])   # and mamba2-130m's
 def test_k2_at_the_lm_shapes_matches_plain(cuda, m, k, n):
     """bf16 activations: products with +-1 are exact and both sides sum in
     f32, so only the sum order differs (f32 tolerance, at K up to 12288)."""
@@ -872,6 +876,21 @@ def test_k4_at_k_12288(cuda, m, n, scaled):
                               .astype(np.float32)).to(cuda) if scaled else None)
     assert torch.equal(xnor_matmul(a, w, scale, k_total=12288),
                        xnor_matmul_plain(a, w, scale, k_total=12288))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 200])
+@pytest.mark.parametrize("k", [768, 1536])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_k4_at_mamba2s_ragged_n(cuda, m, k, scaled):
+    """N = 3352 (mamba2-130m's in_proj: 52 x 64 + 24 columns) at 24- and
+    48-word rows, exact; M = 200 a prefill past one SSD chunk."""
+    n, words = 3352, k // 32
+    a, w = _words((m, words), m + k, cuda), _words((words, n), n + k, cuda)
+    scale = (torch.from_numpy(np.random.default_rng(k).uniform(0.5, 2, n)
+                              .astype(np.float32)).to(cuda) if scaled else None)
+    assert torch.equal(xnor_matmul(a, w, scale, k_total=k),
+                       xnor_matmul_plain(a, w, scale, k_total=k))
 
 
 @pytest.mark.cuda
@@ -1141,3 +1160,35 @@ def test_moe_serve_on_the_card(cuda, arch, mode):
     finally:
         ops._binary_matmul, ops._binary_matmul_batched = saved
     torch.testing.assert_close(logits, plain, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "stoch", "xnor"])
+def test_ssm_serve_on_the_card(cuda, mode):
+    """mamba2-130m's SMOKE config (2 layers, f32) served on the card: in_proj
+    and out_proj a layer per prefill and decode step (K2, or K3 + K4), every
+    stream equal to its one-shot generate, and the logits the same forward
+    with the plain kernels (xnor bit for bit)."""
+    counts = (binary_matmul, sign_pack, xnor_matmul)
+    before = [f.launches for f in counts]
+    res = serve.serve_lm(arch="mamba2_130m", smoke=True, packed=True, binarize=mode,
+                         requests=5, slots=2, prompt_len=8, max_new=3, device="cuda")
+    calls = 2 * 2 * (5 + res.steps - 1)          # layers x projections x calls
+    got = [f.launches - b for f, b in zip(counts, before)]
+    assert got == ([calls, 0, 0] if mode != "xnor" else [0, calls, calls])
+    eng = res.engine
+    for r in res.batcher.completed:
+        assert eng.generate(r.prompt[None], r.max_new).tokens[0].tolist() == r.generated
+    prompts = torch.from_numpy(np.stack([r.prompt for r in res.batcher.completed])).to(cuda)
+    logits = T.forward(res.cfg, eng.params, prompts)[0]
+    saved = (ops._binary_matmul, xops._sign_pack, xops._xnor_matmul)
+    ops._binary_matmul, xops._sign_pack, xops._xnor_matmul = (
+        binary_matmul_plain, sign_pack_plain, xnor_matmul_plain)
+    try:
+        plain = T.forward(res.cfg, eng.params, prompts)[0]
+    finally:
+        ops._binary_matmul, xops._sign_pack, xops._xnor_matmul = saved
+    if mode == "xnor":
+        assert torch.equal(logits, plain)
+    else:
+        torch.testing.assert_close(logits, plain, **F32_TOL)

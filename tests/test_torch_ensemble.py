@@ -57,6 +57,20 @@ def _model(arch):
     return mnist_fc if arch == "mnist_fc" else vgg
 
 
+@pytest.fixture(scope="module")
+def k3_replicas():
+    """``_port(arch, 3)`` per arch, drawn once for the tests that read the
+    same K = 3 replicas (none of them modifies a tree)."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            cache[arch] = _port(arch, 3)
+        return cache[arch]
+
+    return get
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_k1_is_the_single_sample_pack_and_forward(arch):
     _, carried, _ = _small(arch)
@@ -79,8 +93,8 @@ def test_k1_is_the_single_sample_pack_and_forward(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_replica_words_equal_the_reference(arch):
-    rs, j_rs, _, _, _ = _port(arch, 3)
+def test_replica_words_equal_the_reference(k3_replicas, arch):
+    rs, j_rs, _, _, _ = k3_replicas(arch)
     assert isinstance(rs, ReplicaSet) and rs.k == j_rs.k == 3
     assert rs.paths == j_rs.paths and set(rs.stacked) == set(j_rs.stacked)
     assert rs.paths == tuple(a.path for a in rs.plan.stochastic_rows())
@@ -125,8 +139,8 @@ def test_stats_equal_the_reference_on_the_same_logits(k, batch, v):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_forward_matches_the_reference(arch):
-    rs, j_rs, state, tree, jmodel = _port(arch, 3)
+def test_forward_matches_the_reference(k3_replicas, arch):
+    rs, j_rs, state, tree, jmodel = k3_replicas(arch)
     x = _images(arch, 6)
     want = j_ensemble_forward(j_rs, lambda t: jmodel.apply(t, tree["state"], jnp.asarray(x),
                                                            training=False)[0])
@@ -138,8 +152,8 @@ def test_forward_matches_the_reference(arch):
     np.testing.assert_array_equal(got.agreement.numpy(), np.asarray(want.agreement))
 
 
-def test_merge_replica_gives_each_replica_and_shares_the_rest():
-    rs, _, _, _, _ = _port("vgg16_cifar10", 3)
+def test_merge_replica_gives_each_replica_and_shares_the_rest(k3_replicas):
+    rs, _, _, _, _ = k3_replicas("vgg16_cifar10")
     trees = [rs.merge_replica(r) for r in range(3)]
     stoch = set(rs.paths)
     for r, tree in enumerate(trees):

@@ -19,7 +19,7 @@ from repro_torch.core import packing as P
 from repro_torch.core import prng
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.binary_matmul import binary_matmul
-from repro_torch.kernels.stoch_binarize import binarize_pack
+from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -54,7 +54,7 @@ def _pallas_pack(w, bits, stochastic):
     return np.asarray(out)[: -(-k // 32), :n]
 
 
-@pytest.mark.parametrize("k,n", [(256, 256), (512, 384), (300, 100), (33, 7)])
+@pytest.mark.parametrize("k,n", [(256, 256), (512, 384), (300, 100), (33, 7), (1000, 1500)])
 @pytest.mark.parametrize("stochastic", [False, True])
 def test_k1_matches_pallas_kernel(k, n, stochastic):
     w, bits = _weights_and_words(k, n, k * 7 + n)
@@ -63,6 +63,20 @@ def test_k1_matches_pallas_kernel(k, n, stochastic):
                         if stochastic else None, stochastic=stochastic)
     assert got.dtype == torch.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,n", [(1000, 1500), (4608, 512), (70, 40000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_k1_cpu_blocks_equal_the_whole_leaf(k, n, dtype, stochastic):
+    """On the CPU, K1 packs a leaf a block of ``HOST_BLOCK`` weights at a time
+    (ragged K and N past one block in each dimension; one word row wider
+    than a block): the words of the plain version over the whole leaf."""
+    w, bits = _weights_and_words(k, n, k + n)
+    wt = torch.from_numpy(w).to(dtype)
+    bt = torch.from_numpy(bits.view(np.int32)) if stochastic else None
+    got = binarize_pack(wt, bt, stochastic=stochastic)
+    assert torch.equal(got, binarize_pack_plain(wt, bt, stochastic=stochastic))
 
 
 @pytest.mark.parametrize("k,n", [(256, 128), (96, 40)])

@@ -86,6 +86,25 @@ def test_bits_match_reference(seed, shape):
     np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
 
 
+def test_bits_past_one_chunk_match_reference():
+    """A leaf of three whole chunks of ``WORDS_CHUNK`` indices and a ragged
+    fourth: every chunk's counters start where the last one ended. Both
+    routes: the host's (numpy uint32) and the card's (int64 torch ops, run
+    here on the CPU tensors)."""
+    chunk = prng.WORDS_CHUNK["cpu"]
+    shape = (5, 3 * chunk // 5 + 300)
+    n = shape[0] * shape[1]
+    assert 3 * chunk < n < 4 * chunk
+    k = prng.fold_in(prng.key(2**31 + 5), 11)
+    jk = jax.random.fold_in(jax.random.key(2**31 + 5), 11)
+    want = np.asarray(jax.random.bits(jk, shape, jnp.uint32)).view(np.int32)
+    np.testing.assert_array_equal(prng.bits(k, shape).numpy(), want)
+    device_route = prng._device_words(k, n, torch.device("cpu"))
+    assert device_route.dtype == torch.int64
+    np.testing.assert_array_equal(device_route.numpy().astype(np.uint32).view(np.int32),
+                                  want.reshape(-1))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_uniform_matches_reference(seed, shape):

@@ -75,7 +75,7 @@ class TestServeEngine:
         with pytest.raises(NotImplementedError, match="item 7"):
             ServeEngine(cfg, params, mesh=object())
         with pytest.raises(NotImplementedError, match="item 6b"):
-            ServeEngine(cb.get_config("mamba2_130m", smoke=True), params)
+            ServeEngine(cb.get_config("jamba_1_5_large", smoke=True), params)
         with pytest.raises(NotImplementedError, match="item 8"):
             stream_serve(engine, SlotBatcher(1, 4), sentinel=object())
 
@@ -389,7 +389,7 @@ def test_serve_lm_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_cli_other_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="item 6b"):
-        serve.main(["--arch", "mamba2_130m", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "jamba_1_5_large", "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
