@@ -131,7 +131,9 @@ split of ``decode_step`` and ``prefill_into``. Phase 7 times K2, K3 and K4
 at the LM decode shapes.
 
 Since the rest of the dense LM serve engine (phase 6f, about two minutes
-more), from the same StarCoder2-3B masters at full width: chunked prefill
+more; since the hybrid's phase 6i, StarCoder2-3B at full width cut to
+``LM_6F_LAYERS`` = 10 of its 30 layers, so the counts below are 4 a layer, 40
+a call), from StarCoder2-3B masters at full width: chunked prefill
 with the prefix cache in det and xnor (``LM_CHUNK``: 16 requests sharing a
 16-token prompt prefix plus one repeating request ``LM_REPEAT_OF``'s
 prompt, 4 slots, chunks of 8, a 32-entry cache): launch counters exact
@@ -139,7 +141,8 @@ prompt, 4 slots, chunks of 8, a 32-entry cache): launch counters exact
 step runs both), at least one prefix hit and tokens skipped, the repeated
 prompt's full-prompt hit emitting its twin's stream, every stream equal to
 the same engine's whole-prompt stream up to a near tie under
-``LM_LOGIT_TOL`` (the smallest margin printed); wall ms, device ms and
+``LM_6F_LOGIT_TOL`` (``LM_LOGIT_TOL`` scaled by the depth, 10/30; the
+smallest margin printed); wall ms, device ms and
 device launches of a decode step, a chunk alone and a fused step; tok/s
 and median TTFT; and a traced chunked det serve (``build/
 lm_chunked_trace.json``, coverage >= 0.95) with the dispatch/device split
@@ -147,7 +150,7 @@ of ``decode_prefill``, ``prefill_chunk``, ``decode_step`` and
 ``prefix_splice``. Temperature sampling (det, T = 0.8, key 5): the uniform
 words under the first draw on the card equal the CPU twin's, and the
 sampled tokens equal the same sampling with the plain kernels up to a
-near tie of logits / T + gumbel. The K = 4 stochastic ensemble (8
+near tie of logits / T + gumbel (under ``LM_6F_LOGIT_TOL``). The K = 4 stochastic ensemble (8
 requests, 8 new tokens): K1 120 x 4 at pack and K2 120 x 4 per prefill and
 decode step, every stream equal to the ensemble's one-shot ``generate``,
 agreement in [0, 1] and variance >= 0, a K = 1 ensemble's tokens and
@@ -205,6 +208,29 @@ share of the device time; and a chunked det serve with the prefix cache
 (``SSM_CHUNK``): counters exact, at least one hit, streams against the
 whole-prompt ones up to a near tie. Phase 7 times K1, K2, K3 and K4 at
 mamba2's shapes.
+
+Since the hybrid (phase 6i, about four minutes more): K2 at jamba-1.5-large's
+projection shapes (``HYB_KN``: K up to 24576, N up to 33280; bf16, M = 4
+and 32) and the expert-batched K2 at its expert shapes (``HYB_K2``: 16
+experts x 8 rows, all rows and routed) against their plain versions, two
+calls bit-identical, live rows bit for bit the 2-D K2; the draw-and-pack
+route (``ExecutionPlan.pack_drawn``) against ``plan.pack(init_lm(...))`` at
+SMOKE width on the card, det and stoch, bit for bit, with the plan compiled
+from the masters' shapes; jamba at full width with all 72 layers in det
+through ``serve_lm`` with ``LM_SERVE`` (each (K, N) master drawn and packed
+at once: ~50 GB of words where the f32 masters would be ~1.6 TB): counters
+exact (1,980 K1 at pack; 252 K2 and 108 expert-batched K2 a model call), the
+first four streams equal to their one-shot ``generate``, pack s,
+served GB against bf16 dense, peak allocated, tok/s, median TTFT, the decode
+step's wall ms, device ms and launches with the 2-D and batched K2's shares;
+one period (8 layers) in det and stoch: counters exact, det words equal to
+a plain pack of the same draws, a stoch expert matrix equal to a CPU pack at
+its split key, logits of the first four requests against the plain kernels
+(on the kernel run's routing; flips counted) within ``LM_LOGIT_TOL``, every
+stream equal to ``generate``; and a chunked det serve of one period with
+the prefix cache (``HYB_CHUNK``) against whole-prompt admission. Phase 7
+times K2 at a period's 28 decode projections and the expert-batched K2 at
+the routing the 72-layer decode step produced.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -314,6 +340,15 @@ LM_CHUNK = dict(requests=16, slots=4, prompt_len=32, max_new=16, prefill_chunk=8
 LM_REPEAT_OF = 2
 LM_TEMPERATURE, LM_TEMPERATURE_KEY = 0.8, 5
 LM_ENSEMBLE = dict(k=4, requests=8, slots=4, prompt_len=32, max_new=8)
+# 6f's depth: StarCoder2-3B at full width cut to 10 of its 30 layers (6e
+# serves all 30), so that the whole run, phase 6i's 72-layer hybrid included,
+# stays near 800 s; at 30 layers 6f's chunked, tempered and ensemble serves
+# took 216 s of an 880 s run on an H100 80GB HBM3 (700 W)
+LM_6F_LAYERS = 10
+# LM_LOGIT_TOL is four bf16 ulps of the largest logit over 30 layers; 6f's
+# near-tie checks scale it by their depth (the same budget a layer), so the
+# depth cut leaves them no looser than 6e's
+LM_6F_LOGIT_TOL = LM_LOGIT_TOL * LM_6F_LAYERS / 30
 # The MoE family (phase 6g): Moonlight-16B-A3B at its full CONFIG width
 # (d_model 2048, 16 heads of 128, 64 experts of GLU d_ff 1408, top-6, vocab
 # 163840, bf16 activations) at MOE_LAYERS of its 48 layers: its f32 masters
@@ -358,6 +393,30 @@ SSM_KN = [(768, 3352), (1536, 768)]
 # a prefill past one SSD chunk of 128 that is not a multiple of it (padded)
 SSM_LONG_PROMPT = 200
 SSM_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
+                 prefix_cache=16, shared_prefix=16)
+
+# The hybrid (phase 6i): jamba-1.5-large at its full CONFIG width (d_model
+# 8192, 64 heads with 8 KV heads of 128, GLU d_ff 24576, 16 experts top-2 on
+# odd layers, Mamba2 d_inner 16384 in 256 heads of 64 with state 128, vocab
+# 65536, untied head, bf16), in periods of 8 layers with attention at j = 4.
+# Its f32 masters are ~180 GB a period, so serve_lm draws each (K, N) matrix
+# and packs it at once (ExecutionPlan.pack_drawn); packed, all 72 layers are
+# ~50 GB of words. A period runs K1 220 times at pack (2 attention + 14 mixer
+# + 12 dense GLU + 192 expert matrices), and a model call 28 2-D K2
+# (attention 2, the mixers' in_proj and out_proj, the dense GLUs' 3) and 12
+# expert-batched K2 (the MoE layers' 3) a period.
+HYB_ARCH = "jamba_1_5_large"
+# (K, N) of a period's 2-D K2 projections and how many a period runs: w_qkv,
+# w_o, in_proj, out_proj, the dense GLU's w_gate and w_up, w_down
+HYB_KN = [((8192, 10240), 1), ((8192, 8192), 1), ((8192, 33280), 7), ((16384, 8192), 7),
+          ((8192, 24576), 8), ((24576, 8192), 4)]
+# the expert-batched K2 at the expert shapes, (E, M, K, N): M = 8 rows, the
+# capacity of a decode step's 4 tokens x top-2 (and of a 32-token prefill)
+HYB_K2 = [(16, 8, 8192, 24576), (16, 8, 24576, 8192)]
+# one period (8 layers) against the plain kernels and with chunked admission:
+# 72 bf16 layers would carry the kernels' rounding past LM_LOGIT_TOL, and the
+# twin draws ~1 G stochastic words a second on the card (a period's 44 G)
+HYB_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
                  prefix_cache=16, shared_prefix=16)
 
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
@@ -1590,8 +1649,11 @@ def main() -> int:
 
     phase_start["6f"] = time.perf_counter()
     # 6f. the rest of the dense LM serve engine at StarCoder2-3B's full width,
-    # from the masters 6e served (seed 0): chunked prefill with the prefix
-    # cache (det, xnor), temperature sampling (det), the K-replica ensemble
+    # LM_6F_LAYERS of its layers, masters from seed 0: chunked prefill with the
+    # prefix cache (det, xnor), temperature sampling (det), the K-replica
+    # ensemble
+    lm_cfg = dataclasses.replace(lm_cfg, n_layers=LM_6F_LAYERS)
+    n_proj = 4 * lm_cfg.n_layers                  # projection launches a model call
     from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.serve import PrefixCache, ServeEngine, SlotBatcher, stream_serve
     from repro_torch.serve.engine import tempered
@@ -1660,7 +1722,8 @@ def main() -> int:
     c_new, c_slots, c_len = LM_CHUNK["max_new"], LM_CHUNK["slots"], LM_CHUNK["prefill_chunk"]
     lm_packed, lm6f = {}, {}
     for mode in ("det", "xnor"):
-        print(f"== serve {LM_ARCH} full width --packed --binarize {mode}, chunked prefill "
+        print(f"== serve {LM_ARCH} full width, {LM_6F_LAYERS} of 30 layers --packed --binarize "
+              f"{mode}, chunked prefill "
               f"and the prefix cache: {LM_CHUNK}, request {repeat} repeating request "
               f"{LM_REPEAT_OF}'s prompt")
         lm_packed[mode] = packed = compile_plan(masters, DEFAULT_POLICY, mode).pack(
@@ -1677,7 +1740,7 @@ def main() -> int:
                                                 metrics=reg)
         chunks = int(reg["serve_prefill_chunks_total"].value)
         # every decode (steps - 1: the last emission needs none) and every
-        # chunk runs the 120 projections once; a fused step does both
+        # chunk runs the n_proj projections once; a fused step does both
         calls = steps - 1 + chunks
         print(f"  {steps - 1} decode steps + {chunks} prefill chunks, x {n_proj} projections")
         expect_counts(f"{LM_ARCH} {mode} chunked", (f"{mode} chunked", mode),
@@ -1693,7 +1756,7 @@ def main() -> int:
         # every chunked stream against the same engine's whole-prompt stream,
         # up to a near tie on the whole-prompt greedy path
         lg = lm_greedy(engine, torch.from_numpy(np.stack(chunk_prompts)).to(dev), c_new)
-        tol = LM_LOGIT_TOL * lg.abs().amax(dim=-1)
+        tol = LM_6F_LOGIT_TOL * lg.abs().amax(dim=-1)
         margin = top2_margin(lg)
         n_equal = 0
         for uid in range(n_req):
@@ -1785,7 +1848,7 @@ def main() -> int:
                 tok_ = torch.argmax(y, dim=-1).to(torch.int32)
                 toks.append(tok_)
                 margins.append(top2_margin(y))
-                tols.append(LM_LOGIT_TOL * x.abs().amax(dim=-1))
+                tols.append(LM_6F_LOGIT_TOL * x.abs().amax(dim=-1))
                 if i < max_new - 1:
                     lg_, cache = T.decode_step(lm_cfg, engine.params, cache, tok_[:, None])
         return torch.stack(toks, 1), torch.stack(margins, 1), torch.stack(tols, 1)
@@ -1816,7 +1879,8 @@ def main() -> int:
 
     # the K-replica ensemble (stoch)
     ek, e_new, e_slots = LM_ENSEMBLE["k"], LM_ENSEMBLE["max_new"], LM_ENSEMBLE["slots"]
-    print(f"== {LM_ARCH} full width, stoch ensemble: {LM_ENSEMBLE}")
+    print(f"== {LM_ARCH} full width, {LM_6F_LAYERS} of 30 layers, stoch ensemble: "
+          f"{LM_ENSEMBLE}")
     plan_s = compile_plan(masters, DEFAULT_POLICY, "stoch")
     erng = np.random.default_rng(1)
     e_prompts = [erng.integers(0, vocab, LM_ENSEMBLE["prompt_len"])
@@ -2027,17 +2091,17 @@ def main() -> int:
             moe_mod.route = orig
 
 
-    def moe_greedy(params, prompts, max_new, forced=None):
+    def moe_greedy(cfg_, params, prompts, max_new, forced=None):
         """(B, max_new, V) f32: each step's logits of greedy generation, or of
         decoding the tokens ``forced`` (B, max_new) in place of the argmax."""
         out = []
         with torch.inference_mode():
-            lg, cache = T.prefill(moe_cfg, params, prompts, max_len=prompts.shape[1] + max_new)
+            lg, cache = T.prefill(cfg_, params, prompts, max_len=prompts.shape[1] + max_new)
             for i in range(max_new):
                 out.append(lg.to(torch.float32))
                 if i < max_new - 1:
                     tok = (torch.argmax(lg, dim=-1) if forced is None else forced[:, i])
-                    lg, cache = T.decode_step(moe_cfg, params, cache, tok.to(torch.int32)[:, None])
+                    lg, cache = T.decode_step(cfg_, params, cache, tok.to(torch.int32)[:, None])
         return torch.stack(out, 1)
 
 
@@ -2116,10 +2180,11 @@ def main() -> int:
         prompts = torch.from_numpy(np.stack([r.prompt for r in done[:4]])).to(dev)
         routes, flips = [], []
         with moe_routing(record=routes):
-            k_lg = moe_greedy(engine.params, prompts, LM_SERVE["max_new"])
+            k_lg = moe_greedy(moe_cfg, engine.params, prompts, LM_SERVE["max_new"])
         k_tok = k_lg.argmax(-1)
         with plain_kernels(), moe_routing(replay=routes, flips=flips):
-            p_lg = moe_greedy(engine.params, prompts, LM_SERVE["max_new"], forced=k_tok)
+            p_lg = moe_greedy(moe_cfg, engine.params, prompts, LM_SERVE["max_new"],
+                              forced=k_tok)
         n_flip = sum(n for n, _ in flips)
         gap = max(gp for _, gp in flips)
         n_routed = sum(int(e.shape[0]) for _, e in routes)
@@ -2264,7 +2329,7 @@ def main() -> int:
                 raise AssertionError(f"{MOE_ARCH} det chunked: the prefix cache changed a stream")
             print(f"  all {len(cprompts)} streams equal the chunked serve's without the prefix "
                   f"cache")
-            lg = moe_greedy(engine.params, torch.from_numpy(np.stack(cprompts)).to(dev),
+            lg = moe_greedy(moe_cfg, engine.params, torch.from_numpy(np.stack(cprompts)).to(dev),
                             c_["max_new"])
             tol = LM_LOGIT_TOL * lg.abs().amax(dim=-1)
             margin = top2_margin(lg)
@@ -2548,6 +2613,434 @@ def main() -> int:
           f"{ssm_rows['chunked']['ttft_ms']:.1f} ms")
     del engine, lg
     torch.cuda.empty_cache()
+
+    phase_start["6i"] = time.perf_counter()
+    # 6i. the hybrid: K2 at jamba-1.5-large's shapes; the draw-and-pack route
+    # against plan.pack(init_lm(...)) at SMOKE width on the card; jamba at full
+    # width with all 72 layers (det); one period in det and stoch against the
+    # plain kernels; a chunked det serve of one period with the prefix cache
+    import math
+
+    hyb_cfg = cb.get_config(HYB_ARCH)
+    hyb_per = hyb_cfg.attn_period
+    n_moe_per = sum(hyb_cfg.moe_layer(j) for j in range(hyb_per))
+    hyb_k1 = 2 + 2 * (hyb_per - 1) + 3 * (hyb_per - n_moe_per) + 3 * n_moe_per * hyb_cfg.n_experts
+    hyb_k2 = sum(c for _, c in HYB_KN)                  # 2-D K2 a period and model call
+    hyb_k2b = 3 * n_moe_per                             # expert-batched K2 likewise
+    hyb_rows = {}
+
+    def hyb_want(n_per, calls, packs=True):
+        want = {name: 0 for name in counters}
+        want.update(binary_matmul=hyb_k2 * n_per * calls,
+                    binary_matmul_batched=hyb_k2b * n_per * calls)
+        if packs:
+            want["binarize_pack"] = hyb_k1 * n_per
+        return want
+
+    def hyb_counted(tag, run, mode, want):
+        got = launch_counts()
+        print(f"  launches {got}")
+        if got != want:
+            raise AssertionError(f"{HYB_ARCH} {tag}: expected launches {want}")
+        for name, count in got.items():
+            launches[name][(HYB_ARCH, run)] = count
+        run_mode[(HYB_ARCH, run)] = mode
+
+    def same_tree(tag, got, want):
+        """Every leaf of two serving trees equal, words, scales and tensors."""
+        n = 0
+        for (path, a), (_, b) in zip(tree_leaves_with_path(got), tree_leaves_with_path(want)):
+            if type(a) is not type(b):
+                raise AssertionError(f"{tag}: {path} is a {type(a).__name__}, want "
+                                     f"{type(b).__name__}")
+            if hasattr(a, "packed"):
+                n += math.prod(a.packed.shape[:-2])
+                if not (torch.equal(a.packed, b.packed) and torch.equal(a.scale, b.scale)):
+                    raise AssertionError(f"{tag}: {path}'s words or scales differ")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{tag}: {path} differs")
+        return n
+
+    def step_profile(engine, state, tok):
+        """(wall ms synced median, device ms, device launches, 2-D K2 ms,
+        expert-batched K2 ms) of one decode step."""
+        step_ms = synced_ms(lambda: engine.decode_step(state, tok), LM_SERVE["max_new"] - 2)
+        kern = profiled(lambda: engine.decode_step(state, tok), reps=3)
+        n_ = kernels_per_rep(lambda: engine.decode_step(state, tok), reps=3)
+        if not kern:
+            return step_ms, None, n_, None, None
+        return (step_ms, sum(kern.values()), n_,
+                sum(v for k_, v in kern.items() if "binary_matmul_kernel" in k_),
+                sum(v for k_, v in kern.items() if "binary_matmul_batched_kernel" in k_))
+
+    def share(part, whole):
+        return "not measured" if not whole or part is None else f"{100 * part / whole:.1f}%"
+
+    print(f"== K2 vs plain at {HYB_ARCH}'s projection shapes (bf16, M = 4 and 32, scaled; "
+          f"K up to 24576, N up to 33280) and the expert-batched K2 at its expert shapes (16 "
+          f"experts x 8 rows; all rows, and routed: all empty, one full, a decode step's 4 "
+          f"tokens x top-2, past M): within tolerance, two calls bit-identical, each expert's "
+          f"live rows bit for bit the 2-D K2 on its slices and +0 past them")
+    for (k, n), _ in HYB_KN:
+        wp = binarize_pack(torch.randn(k, n, generator=g, device=dev), stochastic=False)
+        scale = torch.rand(n, generator=g, device=dev) + 0.5
+        for m in (4, 32):
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            got, want = binary_matmul(x, wp, scale), binary_matmul_plain(x, wp, scale)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print(f"  K2 {m}x{k}x{n} bf16 scaled: max_abs_err {err:.3e} (|want| max "
+                  f"{want.abs().max().item():.3e})")
+            torch.testing.assert_close(got, want, **F32_TOL, msg=f"K2 {HYB_ARCH} {m}x{k}x{n}")
+            if not torch.equal(binary_matmul(x, wp, scale), got):
+                raise AssertionError(f"K2 {m}x{k}x{n}: two calls differ")
+            errs["k2_hyb"] = max(errs.get("k2_hyb", 0.0), err)
+        del wp
+    cpu_g = torch.Generator().manual_seed(1)
+    for e_, m, k, n in HYB_K2:
+        x = torch.randn(e_, m, k, generator=g, device=dev).to(torch.bfloat16)
+        wp = torch.stack([binarize_pack(torch.randn(k, n, generator=g, device=dev),
+                                        stochastic=False) for _ in range(e_)])
+        scale = torch.rand(e_, n, generator=g, device=dev) + 0.5
+        loop = torch.stack([binary_matmul(x[i], wp[i], scale[i]) for i in range(e_)])
+        top = torch.stack([torch.randperm(e_, generator=cpu_g)[:2] for _ in range(4)])
+        one = torch.zeros(e_, dtype=torch.int64)
+        one[e_ // 2] = m
+        routings = {"all rows": None, "all empty": torch.zeros(e_, dtype=torch.int64),
+                    "one full": one,
+                    "decode 4 x top-2": torch.bincount(top.reshape(-1), minlength=e_),
+                    "past M": torch.randint(m + 1, 3 * m + 1, (e_,), generator=cpu_g)}
+        for route, counts in routings.items():
+            rows = None if counts is None else counts.to(dev)
+            n_before = binary_matmul_batched.launches
+            got = binary_matmul_batched(x, wp, scale, rows)
+            if binary_matmul_batched.launches - n_before != 1:
+                raise AssertionError("batched K2: not one launch a call")
+            want = binary_matmul_batched_plain(x, wp, scale, rows)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tag = f"{e_}x{m}x{k}x{n} bf16 scaled {route}"
+            print(f"  expert-batched K2 {tag}: max_abs_err {err:.3e}")
+            torch.testing.assert_close(got, want, **F32_TOL, msg=f"batched K2 {tag}")
+            live = [m] * e_ if counts is None else counts.clamp(max=m).tolist()
+            for i, c in enumerate(live):
+                if not torch.equal(got[i, :c], loop[i, :c]):
+                    raise AssertionError(f"batched K2 {tag}: expert {i}'s live rows differ "
+                                         f"from the 2-D K2 loop")
+                if (got[i, c:] != 0).any() or torch.signbit(got[i, c:]).any():
+                    raise AssertionError(f"batched K2 {tag}: expert {i}'s rows past its "
+                                         f"count are not +0")
+            if not torch.equal(binary_matmul_batched(x, wp, scale, rows), got):
+                raise AssertionError(f"batched K2 {tag}: two calls differ")
+            errs["k2_hyb_moe"] = max(errs.get("k2_hyb_moe", 0.0), err)
+        del x, wp, scale, loop, want, got
+    torch.cuda.empty_cache()
+
+    smoke_cfg = cb.get_config(HYB_ARCH, smoke=True)
+    for mode in MOE_MODES:
+        masters = T.init_lm(smoke_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        plan = compile_plan(T.lm_shapes(smoke_cfg), DEFAULT_POLICY, mode)
+        if plan.to_json() != compile_plan(masters, DEFAULT_POLICY, mode).to_json():
+            raise AssertionError(f"{HYB_ARCH} SMOKE {mode}: the plan from the masters' shapes "
+                                 f"differs from the plan from the masters")
+        n_ = same_tree(f"{HYB_ARCH} SMOKE {mode} draw-and-pack",
+                       plan.pack_drawn(T.lm_draws(smoke_cfg),
+                                       torch.Generator(device=dev).manual_seed(0),
+                                       key=prng.key(1), device=dev),
+                       plan.pack(masters, key=prng.key(1)))
+        print(f"  {HYB_ARCH} SMOKE ({smoke_cfg.n_layers} layers, 2 periods) {mode}: the plan "
+              f"from the masters' shapes equals the plan from the masters, and the "
+              f"draw-and-pack route equals plan.pack(init_lm(...)) on the card, {n_} (K, N) "
+              f"matrices and every other leaf bit for bit")
+    del masters
+
+    # all 72 layers at full width (det)
+    n_per = hyb_cfg.n_layers // hyb_per
+    words_gb = sum(math.prod(d.shape[:-2]) * -(-d.shape[-2] // 32) * d.shape[-1] * 4
+                   for d in T.lm_draws(hyb_cfg) if d.fan_in is not None) / 1e9
+    print(f"== serve {HYB_ARCH} full width, all {hyb_cfg.n_layers} layers ({n_per} periods "
+          f"of {hyb_per}: d_model {hyb_cfg.d_model}, d_ff {hyb_cfg.d_ff}, {hyb_cfg.n_experts} "
+          f"experts top-{hyb_cfg.experts_per_token}, d_inner {hyb_cfg.d_inner}, state "
+          f"{hyb_cfg.ssm_state}, vocab {hyb_cfg.vocab_size}, {hyb_cfg.dtype}) --packed "
+          f"--binarize det, each (K, N) master drawn and packed at once: {LM_SERVE}; "
+          f"{hyb_cfg.param_count() / 1e9:.1f} B parameters, {words_gb:.2f} GB of words")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    reset_counts()
+    res = serve_lm(arch=HYB_ARCH, packed=True, binarize="det", device="cuda", **LM_SERVE)
+    peak_serve = torch.cuda.max_memory_allocated()
+    calls = LM_SERVE["requests"] + res.steps - 1
+    print(f"  {LM_SERVE['requests']} prefills + {res.steps - 1} decode steps x {n_per} periods "
+          f"x ({hyb_k2} K2 + {hyb_k2b} expert-batched K2), {hyb_k1 * n_per} K1 at pack time")
+    hyb_counted("det", "det", "det", hyb_want(n_per, calls))
+    engine = res.engine
+    done = sorted(res.batcher.completed, key=lambda r: r.uid)
+    if len(done) != LM_SERVE["requests"] or res.tokens != 16 * LM_SERVE["max_new"]:
+        raise AssertionError(f"{HYB_ARCH} det: served {len(done)} requests, {res.tokens} tokens")
+    leaves = dict(tree_leaves_with_path(engine.params))
+    served_words = sum(v.nbytes() for v in leaves.values() if hasattr(v, "packed")) / 1e9
+    dense_f32 = sum(v.numel() * v.element_size() for v in leaves.values()
+                    if isinstance(v, torch.Tensor)) / 1e9
+    # each at batch 1, as the serve prefills it: a MoE layer's capacity
+    # follows the tokens of the call (8 rows an expert for one 32-token
+    # prompt, 24 for four), so a batch-4 prefill may drop other assignments
+    for r in done[:4]:
+        if engine.generate(r.prompt[None], r.max_new).tokens[0].tolist() != r.generated:
+            raise AssertionError(f"{HYB_ARCH} det: request {r.uid}'s stream differs from its "
+                                 f"one-shot generate")
+    print(f"  the first 4 streams equal the one-shot generate of their request")
+    state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
+    for slot in range(4):
+        state = engine.prefill_into(state, slot, done[slot].prompt)
+    tok = torch.argmax(state.logits, dim=-1)
+    decode_rows = []
+    with record_rows(decode_rows):
+        state = engine.decode_step(state, tok)
+    # the served decode routing, one count vector a MoE layer (its three
+    # projections share it), for phase 7's timing
+    hyb_decode_rows = decode_rows[::3]
+    cap4 = moe_mod.capacity(hyb_cfg, 4)
+    print(f"  decode step routing: {len(hyb_decode_rows)} MoE layers, live experts a layer "
+          f"{[int((r > 0).sum()) for r in hyb_decode_rows]} (of {hyb_cfg.n_experts}), live rows "
+          f"{sum(int(r.clamp(max=cap4).sum()) for r in hyb_decode_rows)} in all")
+    step_ms, step_dev, step_n, k2_ms, k2b_ms = step_profile(engine, state, tok)
+    peak = torch.cuda.max_memory_allocated()
+    hyb_rows["full"] = {
+        "pack_s": res.pack_seconds, "dense_gb": res.dense_bytes / 1e9,
+        "served_gb": res.packed_bytes / 1e9, "words_gb": served_words, "f32_gb": dense_f32,
+        "tok_s": res.tok_per_s, "ttft_ms": res.median_ttft * 1e3,
+        "latency_ms": res.median_latency * 1e3, "step_ms": step_ms, "step_device_ms": step_dev,
+        "step_launches": step_n, "k2_ms": k2_ms, "k2b_ms": k2b_ms,
+        "peak_serve_gb": peak_serve / 1e9, "peak_gb": peak / 1e9, "live_gb": live / 1e9,
+        "seconds": res.seconds, "steps": res.steps}
+    print(f"  draw + pack {res.pack_seconds:.3f} s; {res.dense_bytes / 1e9:.2f} GB bf16 dense -> "
+          f"{res.packed_bytes / 1e9:.2f} GB served ({res.dense_bytes / res.packed_bytes:.2f}x; "
+          f"{served_words:.2f} GB of words and scales, {dense_f32:.2f} GB of f32 embedding, head, "
+          f"routers, conv and norms on the card); {res.tok_per_s:.1f} tok/s, median TTFT "
+          f"{res.median_ttft * 1e3:.1f} ms, median latency {res.median_latency * 1e3:.1f} ms; "
+          f"decode step {step_ms:.3f} ms median (synced), device {fmt(step_dev)} ms in "
+          f"{fmt_count(step_n)} device launches, 2-D K2 {fmt(k2_ms)} ms "
+          f"({share(k2_ms, step_dev)}), expert-batched K2 {fmt(k2b_ms)} ms "
+          f"({share(k2b_ms, step_dev)}); peak allocated (torch.cuda.max_memory_allocated) "
+          f"{peak_serve / 1e9:.2f} GB through the serve, {peak / 1e9:.2f} GB with the batch-4 "
+          f"generate and the step timing ({live / 1e9:.2f} GB held by earlier phases)")
+    del res, engine, state, leaves
+    torch.cuda.empty_cache()
+
+    # one period (8 layers) in det and stoch, against the plain kernels; the
+    # det engine also serves the chunked admission
+    per_cfg = dataclasses.replace(hyb_cfg, n_layers=hyb_per)
+    n_moe_calls = n_moe_per                            # MoE layers a model call, one period
+
+    def hyb_chunked(engine):
+        """Chunked admission with the prefix cache (det, one period) against
+        whole-prompt admission, on ``engine``: a chunk of 8 tokens never
+        overflows an expert (16 assignments over 16 experts of capacity 8); a
+        whole 32-token prompt may (64 assignments), so a request whose
+        whole-prompt prefill dropped one may part; otherwise a stream may
+        part only at a routing near tie or a top-2 logit near tie."""
+        c_ = HYB_CHUNK
+        print(f"== serve {HYB_ARCH} one period --packed --binarize det, chunked prefill and the "
+              f"prefix cache: {c_}")
+        rng = np.random.default_rng(1)
+        shared = rng.integers(0, hyb_cfg.vocab_size, c_["shared_prefix"])
+        hprompts = [np.concatenate([shared, rng.integers(0, hyb_cfg.vocab_size,
+                                                         c_["prompt_len"] - len(shared))])
+                    for _ in range(c_["requests"])]
+        whole, _, _, _ = serve_streams(engine, hprompts, c_["max_new"], c_["slots"])
+        no_prefix, _, _, _ = serve_streams(engine, hprompts, c_["max_new"], c_["slots"],
+                                           prefill_chunk=c_["prefill_chunk"])
+        pc, reg = PrefixCache(max_entries=c_["prefix_cache"]), MetricsRegistry()
+        reset_counts()
+        streams, hb, hsteps, hsecs = serve_streams(engine, hprompts, c_["max_new"], c_["slots"],
+                                                   prefill_chunk=c_["prefill_chunk"],
+                                                   prefix_cache=pc, metrics=reg)
+        chunks = int(reg["serve_prefill_chunks_total"].value)
+        print(f"  {hsteps - 1} decode steps + {chunks} prefill chunks; prefix cache {pc.stats()}")
+        hyb_counted("det chunked", "det chunked", "det", hyb_want(1, hsteps - 1 + chunks,
+                                                                  packs=False))
+        if pc.hits < 1:
+            raise AssertionError(f"{HYB_ARCH} det chunked: no prefix hit")
+        if streams != no_prefix:
+            raise AssertionError(f"{HYB_ARCH} det chunked: the prefix cache changed a stream")
+        print(f"  all {len(hprompts)} streams equal the chunked serve's without the prefix cache")
+        lg = moe_greedy(per_cfg, engine.params, torch.from_numpy(np.stack(hprompts)).to(dev),
+                        c_["max_new"])
+        tol, margin = LM_LOGIT_TOL * lg.abs().amax(dim=-1), top2_margin(lg)
+
+        def hyb_routes(prompt, forced, chunk):
+            """Routing records of one request's greedy path on one slot: its
+            prompt prefilled whole (chunk 0) or by chunks, then the ``forced``
+            tokens decoded; each prefill MoE call's records joined along the
+            tokens."""
+            rec = []
+            st_ = engine.init_decode(1, c_["prompt_len"], c_["max_new"])
+            with moe_routing(record=rec):
+                if chunk:
+                    for off in range(0, len(prompt), chunk):
+                        st_ = engine.prefill_chunk_into(st_, 0, prompt[off:off + chunk], off)
+                else:
+                    st_ = engine.prefill_into(st_, 0, prompt)
+                for t_ in forced:
+                    st_ = engine.decode_step(st_, torch.tensor([t_], device=dev))
+            n_chunks = len(prompt) // chunk if chunk else 1
+            pre = [(torch.cat([rec[c * n_moe_calls + l_][0] for c in range(n_chunks)]),
+                    torch.cat([rec[c * n_moe_calls + l_][1] for c in range(n_chunks)]))
+                   for l_ in range(n_moe_calls)]
+            return pre + rec[n_chunks * n_moe_calls:]
+
+        n_equal = n_dropped = n_flipped = 0
+        for uid, p_ in enumerate(hprompts):
+            drops = []
+            with record_moe(drops), torch.inference_mode():
+                T.prefill(per_cfg, engine.params, torch.from_numpy(p_[None]).to(dev))
+            dropped = any(d > 0 for _, d in drops)
+            n_dropped += dropped
+            if streams[uid] == whole[uid]:
+                n_equal += 1
+                continue
+            i = first_diff(streams[uid], whole[uid])
+            note = (f"  request {uid}: chunked stream equals the whole-prompt one up to step {i} "
+                    f"(top-2 margin {margin[uid, i].item():.4g}, tolerance "
+                    f"{tol[uid, i].item():.4g})")
+            if dropped:
+                print(f"{note}; its whole-prompt prefill dropped assignments")
+                continue
+            fl = [flipped(pw, ew, ec) for (pw, ew), (_, ec) in
+                  zip(hyb_routes(p_, whole[uid][:i], 0),
+                      hyb_routes(p_, whole[uid][:i], c_["prefill_chunk"]))]
+            n_fl, gap_fl = sum(n for n, _ in fl), max(gp for _, gp in fl)
+            n_flipped += n_fl > 0
+            print(f"{note}; no drop; {n_fl} token routings differ between the chunked and whole "
+                  f"paths up to there (largest router-logit gap {gap_fl:.4g})")
+            if gap_fl >= MOE_ROUTE_TIE:
+                raise AssertionError(f"{HYB_ARCH} det: request {uid}: a routing flip at a gap of "
+                                     f"{gap_fl}")
+            if not n_fl and margin[uid, i] >= tol[uid, i]:
+                raise AssertionError(f"{HYB_ARCH} det: request {uid}'s chunked stream diverges "
+                                     f"with no drop, no routing flip and a margin above the "
+                                     f"tolerance")
+        hyb_rows["chunked"] = {"tok_s": hb.tokens_generated / hsecs, "steps": hsteps,
+                               "chunks": chunks, "prefix": pc.stats(), "n_equal": n_equal,
+                               "n_req": len(hprompts), "n_dropped": n_dropped,
+                               "n_flipped": n_flipped,
+                               "ttft_ms": statistics.median(r.ttft for r in hb.completed) * 1e3}
+        print(f"  {n_equal}/{len(hprompts)} chunked streams equal the whole-prompt streams; "
+              f"{n_dropped} whole-prompt prefills dropped assignments, {n_flipped} differing "
+              f"streams met a routing flip; {hyb_rows['chunked']['tok_s']:.1f} tok/s, median TTFT "
+              f"{hyb_rows['chunked']['ttft_ms']:.1f} ms")
+
+    for mode in MOE_MODES:
+        print(f"== serve {HYB_ARCH} full width, one period ({hyb_per} layers) --packed "
+              f"--binarize {mode}: {LM_SERVE}")
+        torch.cuda.empty_cache()
+        reset_counts()
+        res = serve_lm(arch=HYB_ARCH, n_layers=hyb_per, packed=True, binarize=mode,
+                       device="cuda", **LM_SERVE)
+        calls = LM_SERVE["requests"] + res.steps - 1
+        hyb_counted(f"{mode} period", f"{mode} period", mode, hyb_want(1, calls))
+        engine = res.engine
+        done = sorted(res.batcher.completed, key=lambda r: r.uid)
+        if len(done) != LM_SERVE["requests"] or res.tokens != 16 * LM_SERVE["max_new"]:
+            raise AssertionError(f"{HYB_ARCH} {mode}: served {len(done)} requests")
+        torch.cuda.empty_cache()        # the plain expert products unpack 13 GB of f32
+        if mode == "det":
+            with plain_kernels():
+                plain = res.plan.pack_drawn(T.lm_draws(per_cfg),
+                                            torch.Generator(device=dev).manual_seed(0),
+                                            key=prng.key(1), device=dev)
+            n_ = same_tree(f"{HYB_ARCH} det period", engine.params, plain)
+            del plain
+            note = f"{n_} served (K, N) matrices (K1) == a plain pack of the same draws"
+        else:
+            # the threefry twin on the card against the CPU: the last expert
+            # matrix of w_down (the last of its 64 split keys), replayed from the
+            # draw order (a CPU pack of its 201 M weights takes ~10 s)
+            row = res.plan["layers/moe/w_down"]
+            lead = math.prod(row.shape[:-2])
+            keys = prng.split(prng.fold_in(prng.key(1), row.index), lead)
+            picked, gen_ = {}, torch.Generator(device=dev).manual_seed(0)
+            for d in T.lm_draws(per_cfg):
+                if d.whole is not None:
+                    d.whole(gen_, dev)
+                    continue
+                for i, w in enumerate(d.matrices(gen_, dev)):
+                    if d.path == row.path and i == lead - 1:
+                        picked[i] = w.cpu()
+            served = engine.params["layers"]["moe"]["w_down"].packed
+            served = served.reshape(lead, *served.shape[-2:])
+            for i, w in picked.items():
+                if not torch.equal(served[i].cpu(),
+                                   kops_mod.binarize_and_pack(w, keys[i], stochastic=True)):
+                    raise AssertionError(f"{HYB_ARCH} stoch: w_down matrix {i}'s words differ "
+                                         f"from a CPU pack at its split key")
+            note = (f"w_down matrix {lead - 1} of {lead} (replayed from the draw order) equals "
+                    f"a CPU pack at its split key")
+        print(f"  {note}")
+
+        prompts = torch.from_numpy(np.stack([r.prompt for r in done[:4]])).to(dev)
+        routes, flips = [], []
+        with moe_routing(record=routes):
+            k_lg = moe_greedy(per_cfg, engine.params, prompts, LM_SERVE["max_new"])
+        k_tok = k_lg.argmax(-1)
+        with plain_kernels(), moe_routing(replay=routes, flips=flips):
+            p_lg = moe_greedy(per_cfg, engine.params, prompts, LM_SERVE["max_new"], forced=k_tok)
+        n_flip = sum(n for n, _ in flips)
+        gap = max(gp for _, gp in flips)
+        n_routed = sum(int(e.shape[0]) for _, e in routes)
+        print(f"  routing: {n_flip} of {n_routed} token routings (tokens x MoE layers) of the "
+              f"plain kernels differ from the kernels' (the plain run takes the kernels'); "
+              f"largest router-logit gap at a flip {gap:.4g} (near-tie bound {MOE_ROUTE_TIE})")
+        if gap >= MOE_ROUTE_TIE:
+            raise AssertionError(f"{HYB_ARCH} {mode}: a routing flip at a gap of {gap}")
+        del routes
+        tol = LM_LOGIT_TOL * p_lg.abs().amax(dim=-1)
+        err = (k_lg - p_lg).abs().amax(dim=-1)
+        print(f"  logits vs the plain kernels, largest over the {LM_SERVE['max_new']} steps: "
+              f"max_abs_err per request {[round(e, 5) for e in err.amax(-1).tolist()]} "
+              f"(tolerance {[round(t, 5) for t in tol.amin(-1).tolist()]} at the least)")
+        if (err > tol).any():
+            raise AssertionError(f"{HYB_ARCH} {mode}: logits differ from the plain kernels")
+        margin = top2_margin(p_lg)
+        if ((k_tok != p_lg.argmax(-1)) & (margin >= tol)).any():
+            raise AssertionError(f"{HYB_ARCH} {mode}: a greedy token differs from the plain "
+                                 f"kernels' at a top-2 margin above the tolerance")
+        print(f"  greedy tokens equal the plain kernels' at "
+              f"{int((k_tok == p_lg.argmax(-1)).sum())} of {k_tok.numel()} steps, the rest at a "
+              f"near tie (smallest top-2 margin {margin.min().item():.4g})")
+        for r in done:
+            if engine.generate(r.prompt[None], r.max_new).tokens[0].tolist() != r.generated:
+                raise AssertionError(f"{HYB_ARCH} {mode}: request {r.uid}'s stream differs "
+                                     f"from its one-shot generate")
+        print(f"  all {len(done)} streams equal the one-shot generate of their request")
+        state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
+        drops = []
+        with record_moe(drops):
+            for slot in range(4):
+                state = engine.prefill_into(state, slot, done[slot].prompt)
+        tok = torch.argmax(state.logits, dim=-1)
+        step_ms, step_dev, step_n, k2_ms, k2b_ms = step_profile(engine, state, tok)
+        hyb_rows[mode] = {
+            "pack_s": res.pack_seconds, "served_gb": res.packed_bytes / 1e9,
+            "tok_s": res.tok_per_s, "ttft_ms": res.median_ttft * 1e3, "step_ms": step_ms,
+            "step_device_ms": step_dev, "step_launches": step_n, "k2_ms": k2_ms,
+            "k2b_ms": k2b_ms, "max_abs_err": err.max().item(),
+            "flips": (n_flip, n_routed, gap),
+            "drop_prefill": statistics.mean(d for _, d in drops)}
+        print(f"  draw + pack {res.pack_seconds:.3f} s; {res.dense_bytes / 1e9:.2f} GB bf16 "
+              f"dense -> {res.packed_bytes / 1e9:.2f} GB served; {res.tok_per_s:.1f} tok/s, median "
+              f"TTFT {res.median_ttft * 1e3:.1f} ms; dropped fraction at a 32-token prefill "
+              f"{hyb_rows[mode]['drop_prefill']:.5g} (mean over {len(drops)} MoE layer calls); "
+              f"decode step {step_ms:.3f} ms (synced), device {fmt(step_dev)} ms in "
+              f"{fmt_count(step_n)} launches, 2-D K2 {fmt(k2_ms)} ms ({share(k2_ms, step_dev)}), "
+              f"expert-batched K2 {fmt(k2b_ms)} ms ({share(k2b_ms, step_dev)})")
+        del res, state, k_lg, p_lg
+        if mode == "det":
+            hyb_chunked(engine)
+        del engine
+        torch.cuda.empty_cache()
+
 
     phase_start["7"] = time.perf_counter()
     # 7. timing at the path shapes
@@ -3039,6 +3532,44 @@ def main() -> int:
                             total(launches["xnor_matmul"], ssm_runs), errs["k4"], ssm_k4),
                     "device_ms_per_shape": [r[6] for r in ssm_k4]})
 
+    print(f"== {HYB_ARCH} decode shapes (M = 4 slots; a period runs 28 2-D K2: w_qkv, w_o, "
+          f"7 mixers' in_proj and out_proj, 4 dense GLUs' w_gate, w_up and w_down; and 12 "
+          f"expert-batched K2: 4 MoE layers' w_gate, w_up and w_down), each expert shape all "
+          f"rows live and at the decode routing the served 72-layer det step produced")
+    hyb_runs = [r for r in run_mode if r[0] == HYB_ARCH]
+    hyb_2d_rows = [k2_lm_row(4, k_, n_) for (k_, n_), _ in HYB_KN]
+    hyb_2d = [r for r, (_, c) in zip(hyb_2d_rows, HYB_KN) for _ in range(c)]
+    kernels.append({**entry(f"binary_matmul ({HYB_ARCH} det/stoch decode, bf16 M=4, scaled: "
+                            f"the 28 2-D projections of a period, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul"], hyb_runs), errs["k2_hyb"], hyb_2d),
+                    "device_ms_per_shape": [r[6] for r in hyb_2d_rows],
+                    "shapes": [f"{k_}x{n_} x{c}" for (k_, n_), c in HYB_KN]})
+    hyb_b_all, hyb_b_routed = {}, {}
+    for sh in dict.fromkeys(HYB_K2):
+        hyb_b_all[sh] = k2_moe_row(*sh)
+        torch.cuda.empty_cache()
+        hyb_b_routed[sh] = k2_moe_row(*sh, routings=hyb_decode_rows)
+        torch.cuda.empty_cache()
+    hyb_shapes = [HYB_K2[0], HYB_K2[0], HYB_K2[1]]     # w_gate, w_up, w_down
+    hyb_b = [hyb_b_routed[sh] for sh in hyb_shapes]
+    kernels.append({**entry(f"binary_matmul_batched ({HYB_ARCH} det/stoch decode at the "
+                            f"served routing, bf16, 16 experts x 8 rows, scaled: w_gate, w_up, "
+                            f"w_down of a MoE layer, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul_batched"], hyb_runs),
+                            errs["k2_hyb_moe"], hyb_b),
+                    "replaces_note": "vmapped over the experts at src/repro/models/moe.py:29-32",
+                    "device_ms_per_shape": [r[6] for r in hyb_b],
+                    "live_experts_mean": hyb_b[0][8],
+                    "bound_ms_all_experts": sum(r[7] for r in hyb_b),
+                    "all_rows_live": {
+                        key: v for key, v in entry(
+                            "", "", "", 0, 0.0, [hyb_b_all[sh] for sh in hyb_shapes]).items()
+                        if key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}})
+
     print("== xnor conv layers as a whole (K5, then K4 with the border correction and "
           "epilogue in its flush) against F.conv2d on +-1 f32, TF32 off; device kernels "
           "a layer launches, counted by torch.profiler")
@@ -3101,7 +3632,7 @@ def main() -> int:
                       for k, (n, d, v) in tr["split"].items()))
     for mode in ("det", "xnor"):
         r = lm6f[mode]
-        print(f"  chunked {mode}: {r['tok_s']:.1f} tok/s ({r['steps']} steps, {r['chunks']} "
+        print(f"  chunked {mode} ({LM_6F_LAYERS} layers): {r['tok_s']:.1f} tok/s ({r['steps']} steps, {r['chunks']} "
               f"chunks in {r['seconds']:.3f} s), median TTFT {r['ttft_ms']:.1f} ms (whole-prompt "
               f"admission {r['whole_tok_s']:.1f} tok/s, {r['whole_ttft_ms']:.1f} ms), prefix "
               f"{r['prefix']['hits']} hits / {r['prefix']['misses']} misses, "
@@ -3153,6 +3684,31 @@ def main() -> int:
           f"median TTFT {r['ttft_ms']:.1f} ms, prefix {r['prefix']['hits']} hits / "
           f"{r['prefix']['misses']} misses; {r['n_equal']}/{r['n_req']} streams equal the "
           f"whole-prompt ones")
+    r = hyb_rows["full"]
+    print(f"== {HYB_ARCH} serving summary (full width, {LM_SERVE})")
+    print(f"  all {hyb_cfg.n_layers} layers, det: draw + pack {r['pack_s']:.3f} s, "
+          f"{r['dense_gb']:.2f} "
+          f"-> {r['served_gb']:.2f} GB ({r['words_gb']:.2f} GB of words and scales, "
+          f"{r['f32_gb']:.2f} GB of f32 leaves), {r['tok_s']:.2f} tok/s ({r['steps']} steps in "
+          f"{r['seconds']:.3f} s), median TTFT {r['ttft_ms']:.1f} ms, median latency "
+          f"{r['latency_ms']:.1f} ms, decode step {r['step_ms']:.3f} ms (device "
+          f"{fmt(r['step_device_ms'])} ms, 2-D K2 {fmt(r['k2_ms'])} ms, expert-batched K2 "
+          f"{fmt(r['k2b_ms'])} ms, {fmt_count(r['step_launches'])} launches), peak allocated "
+          f"{r['peak_serve_gb']:.2f} GB (serve), {r['peak_gb']:.2f} GB (with the checks)")
+    for mode in MOE_MODES:
+        r = hyb_rows[mode]
+        print(f"  one period, {mode}: draw + pack {r['pack_s']:.3f} s, {r['served_gb']:.2f} GB, "
+              f"{r['tok_s']:.1f} tok/s, median TTFT {r['ttft_ms']:.1f} ms, decode step "
+              f"{r['step_ms']:.3f} ms (device {fmt(r['step_device_ms'])} ms, 2-D K2 "
+              f"{fmt(r['k2_ms'])} ms, expert-batched K2 {fmt(r['k2b_ms'])} ms, "
+              f"{fmt_count(r['step_launches'])} launches), logits vs plain kernels "
+              f"{r['max_abs_err']:.4g}, routing flips {r['flips'][0]}/{r['flips'][1]} (largest "
+              f"gap {r['flips'][2]:.4g}), dropped fraction at prefill {r['drop_prefill']:.5g}")
+    r = hyb_rows["chunked"]
+    print(f"  one period, chunked det: {r['tok_s']:.1f} tok/s ({r['steps']} steps, {r['chunks']} "
+          f"chunks), median TTFT {r['ttft_ms']:.1f} ms, prefix {r['prefix']['hits']} hits / "
+          f"{r['prefix']['misses']} misses; {r['n_equal']}/{r['n_req']} streams equal the "
+          f"whole-prompt ones, {r['n_dropped']} whole-prompt prefills dropped assignments")
     marks = sorted(phase_start.items(), key=lambda kv: kv[1]) + [("end", time.perf_counter())]
     print("== seconds a phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (name, t0), (_, t1) in zip(marks, marks[1:]))

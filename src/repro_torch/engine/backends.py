@@ -29,6 +29,7 @@ Priority order (highest wins among eligible), as in the reference:
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -152,26 +153,45 @@ def _pack_binarized_dense(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
     return wb if scale is None else (wb.to(torch.float32) * scale).to(leaf.dtype)
 
 
+class _LinearPacker:
+    """Binarizes + bitpacks a stacked (..., K, N) projection of ``shape``
+    into ``cls`` through K1, one (K, N) matrix at a time (``put(l, w)``, l
+    row-major over the leading dims), into words and scales allocated once
+    on ``device``; ``leaf()`` is the serving leaf. The scale (unless the
+    plan packs without) is the mean |w| over K, (..., N). Matrix l's Eq.-2
+    words come from ``split(fold_in(key, index), L)[l]``, the keys the
+    reference's vmap over the L matrices draws from (L = 1 for a 2-D
+    leaf)."""
+
+    def __init__(self, cls, lc: LeafContext, shape, pc: PackContext, device):
+        *lead, k, n = shape
+        count = math.prod(lead)
+        key = _leaf_key(lc, pc)
+        self._cls, self._lead, self._k = cls, tuple(lead), k
+        self._keys = None if key is None else prng.split(key, count)
+        self._words = torch.empty((count, -(-k // PACK), n), dtype=torch.int32,
+                                  device=device)
+        self._scale = (torch.empty((count, n), dtype=torch.float32, device=device)
+                       if pc.with_scale else None)
+
+    def put(self, i: int, w: torch.Tensor) -> None:
+        self._words[i] = (ops.binarize_and_pack(w) if self._keys is None
+                          else ops.binarize_and_pack(w, self._keys[i], stochastic=True))
+        if self._scale is not None:
+            self._scale[i] = w.to(torch.float32).abs().mean(dim=0)
+
+    def leaf(self):
+        n = self._words.shape[-1]
+        scale = None if self._scale is None else self._scale.view(*self._lead, n)
+        return self._cls(self._words.view(*self._lead, -1, n), scale, self._k)
+
+
 def _pack_linear(cls, lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
-    """Binarize + bitpack a (..., K, N) projection into ``cls`` through K1,
-    one launch per (K, N) layer of a stacked leaf; the scale (unless the plan
-    packs without) is the mean |w| over K, (..., N). Layer l's Eq.-2 words
-    come from ``split(fold_in(key, index), L)[l]``, the keys the
-    reference's vmap over the L layers draws from (L = 1 for a 2-D leaf)."""
-    k_dim, n_dim = leaf.shape[-2], leaf.shape[-1]
-    lead = tuple(leaf.shape[:-2])
-    w3 = leaf.reshape(-1, k_dim, n_dim)
-    key = _leaf_key(lc, pc)
-    keys = None if key is None else prng.split(key, w3.shape[0])
-    packed, scale = [], []
-    for i, w in enumerate(w3):
-        packed.append(ops.binarize_and_pack(w) if keys is None
-                      else ops.binarize_and_pack(w, keys[i], stochastic=True))
-        if pc.with_scale:
-            scale.append(w.to(torch.float32).abs().mean(dim=0))
-    packed = torch.stack(packed).reshape(*lead, -1, n_dim)
-    scale = torch.stack(scale).reshape(*lead, n_dim) if pc.with_scale else None
-    return cls(packed, scale, k_dim)
+    """:class:`_LinearPacker` over every (K, N) matrix of a master leaf."""
+    packer = _LinearPacker(cls, lc, tuple(leaf.shape), pc, leaf.device)
+    for i, w in enumerate(leaf.reshape(-1, *leaf.shape[-2:])):
+        packer.put(i, w)
+    return packer.leaf()
 
 
 def _pack_packed_conv(lc: LeafContext, leaf: torch.Tensor, pc: PackContext):
@@ -273,6 +293,7 @@ PACKED = register_backend(BackendSpec(
     name="packed", kinds=("linear",), priority=20, leaf_type=PackedLinear,
     eligible=_packable,
     pack=lambda lc, leaf, pc: _pack_linear(PackedLinear, lc, leaf, pc),
+    matrix_packer=functools.partial(_LinearPacker, PackedLinear),
     apply=_apply_packed, cost=functools.partial(costs.gemm_cost, "packed"), tp_dim=-1,
     doc="Bitpacked binary weights (+ per-channel scale) through the K2 "
         "packed-weight matmul kernel."))

@@ -36,6 +36,7 @@ from repro_torch.core.policy import XNOR_POLICY, is_conv_kernel, is_xnor_boundar
 from repro_torch.distributed import sharding as SH
 from repro_torch.engine import costs as C
 from repro_torch.engine import registry
+from repro_torch.models.layers import tree_from_paths
 from repro_torch.obs.collectives import predict_row_collective
 
 PLAN_VERSION = 3
@@ -170,6 +171,18 @@ class ExecutionPlan:
         return lint_plan(self, mesh_axes=mesh_axes, axis_sizes=axis_sizes)
 
     # -- packing ----------------------------------------------------------
+    def _pack_context(self, key) -> registry.PackContext:
+        return registry.PackContext(
+            weight_mode=(BinarizeMode.STOCHASTIC if self.mode == "stoch"
+                         else BinarizeMode.DETERMINISTIC),
+            key=key, with_scale=self.with_scale)
+
+    @staticmethod
+    def _check_shape(a: LayerAssignment, shape, what: str) -> None:
+        if tuple(shape) != a.shape:
+            raise ValueError(f"plan/{what} shape mismatch at {a.path!r}: plan has "
+                             f"{a.shape}, {what} has {tuple(shape)}")
+
     def pack(self, params: Any, key=None) -> Any:
         """Applies each row's backend ``pack`` transform to its leaf.
 
@@ -182,21 +195,46 @@ class ExecutionPlan:
         if len(leaves) != len(self.layers):
             raise ValueError(f"plan/params mismatch: plan has {len(self.layers)} "
                              f"leaves, params has {len(leaves)}")
-        weight_mode = (BinarizeMode.STOCHASTIC if self.mode == "stoch"
-                       else BinarizeMode.DETERMINISTIC)
-        pc = registry.PackContext(weight_mode=weight_mode, key=key,
-                                  with_scale=self.with_scale)
+        pc = self._pack_context(key)
         out = []
         for a, (path, leaf) in zip(self.layers, leaves):
             if path != a.path:
                 raise ValueError(f"plan/params mismatch at leaf {a.index}: plan has "
                                  f"{a.path!r}, params has {path!r}")
-            if tuple(leaf.shape) != a.shape:
-                raise ValueError(f"plan/params shape mismatch at {a.path!r}: plan "
-                                 f"has {a.shape}, params has {tuple(leaf.shape)}")
+            self._check_shape(a, leaf.shape, "params")
             out.append(registry.get_backend(a.backend).pack(
                 _leaf_context(a, self.mode), leaf, pc))
         return tree_unflatten(params, out)
+
+    def pack_drawn(self, draws, generator, key=None, *, device) -> Any:
+        """:meth:`pack` of the masters that ``draws`` (a model's draw order,
+        ``models.layers.LeafDraw``: ``models.transformer.lm_draws``) makes
+        from ``generator``, without ever holding them all: the draws are
+        walked in order, making the generator calls ``materialize`` makes,
+        and each matrix of a leaf whose backend has a ``matrix_packer`` goes
+        through it as it is drawn (the transient is one (K, N) matrix); any
+        other leaf is drawn whole and packed as :meth:`pack` packs it. So the
+        result equals ``pack(tree of materialized draws, key)`` leaf for
+        leaf, bit for bit. The draws must cover the plan's rows (path and
+        shape)."""
+        rows = {a.path: a for a in self.layers}
+        if sorted(d.path for d in draws) != sorted(rows):
+            raise ValueError(f"plan/draws mismatch: plan has {sorted(rows)}, draws have "
+                             f"{sorted(d.path for d in draws)}")
+        pc = self._pack_context(key)
+        out = {}
+        for d in draws:
+            a = rows[d.path]
+            self._check_shape(a, d.shape, "draws")
+            spec, lc = registry.get_backend(a.backend), _leaf_context(a, self.mode)
+            if d.whole is None and spec.matrix_packer is not None:
+                packer = spec.matrix_packer(lc, a.shape, pc, device)
+                for i, w in enumerate(d.matrices(generator, device)):
+                    packer.put(i, w)
+                out[a.path] = packer.leaf()
+            else:
+                out[a.path] = spec.pack(lc, d.materialize(generator, device), pc)
+        return tree_from_paths(out.items())
 
     # -- serialization ----------------------------------------------------
     def to_json(self) -> dict:

@@ -77,6 +77,12 @@ class BackendSpec:
     # apply reads models.layers.SignWords (the activation's packed Eq.-1
     # signs), so the model may fuse the sign into the producer's K3
     takes_sign_words: bool = False
+    # (ctx, master shape, pack_ctx, device) -> a packer whose put(l, w) takes
+    # the leaf's (K, N) matrices one at a time (row-major over the leading
+    # dims) and whose leaf() is what pack gives for the whole leaf, bit for
+    # bit (ExecutionPlan.pack_drawn); None: the backend packs whole leaves
+    # (xnor: no served hybrid, whose draws it would take, runs xnor)
+    matrix_packer: Optional[Callable[..., Any]] = None
 
 
 _REGISTRY: dict[str, BackendSpec] = {}

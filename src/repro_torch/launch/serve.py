@@ -1,8 +1,8 @@
 """Serving driver: fixed-batch inference of the paper's nets (the MNIST FC
 net and VGG-16 on CIFAR-10), and step-level continuous-batching serving of
-the dense, MoE and SSM LM families, with binary weights, and in ``xnor`` mode
-binary activations too (not for MoE experts, which the reference serves in
-``det`` and ``stoch`` only).
+the dense, MoE, SSM and hybrid LM families, with binary weights, and in
+``xnor`` mode binary activations too (not for MoE experts, which the
+reference serves in ``det`` and ``stoch`` only).
 
 The master weights are compiled into an execution plan (``repro_torch.engine``)
 and packed with K1. Per batch, ``det``/``stoch`` run the hidden projections
@@ -20,14 +20,17 @@ Token archs (``serve_lm``; the dense family: starcoder2_3b, qwen2_5_32b,
 h2o_danube_3_4b, deepseek_coder_33b; the MoE family: moonshot_v1_16b_a3b,
 grok_1_314b, whose expert projections run on the expert-batched K2; the
 SSM family: mamba2_130m, whose Mamba2 mixers run ``in_proj`` and
-``out_proj`` on K2, or K3 + K4 in ``xnor``) stream requests through
+``out_proj`` on K2, or K3 + K4 in ``xnor``; the hybrid: jamba_1_5_large,
+Mamba2 and attention 1:7 with MoE on alternate layers, whose packed masters
+are drawn and packed a matrix at a time) stream requests through
 ``serve.engine.stream_serve``: a persistent slot-addressed KV cache,
 per-step slot refill (the SSM family's recurrent state and conv window
 in place of K/V), per-request ``max_new``, tok/s from tokens actually
 recorded. ``--packed`` serves the plan's packed leaves (every attention,
 MLP and expert projection: K2, or K3 + K4 in ``xnor``); without it the
-dense masters. ``--binarize xnor`` on an MoE arch exits naming the
-reference's gap (``engine.backends.XNOR_EXPERTS_ABSENT``).
+dense masters. ``--binarize xnor`` on an arch with MoE layers (the MoE
+family, jamba) exits naming the reference's gap
+(``engine.backends.XNOR_EXPERTS_ABSENT``).
 ``--trace OUT.json`` writes a Chrome trace of the loop (dispatch vs device
 spans; ``--no-trace-fence`` drops the device fence) and ``--metrics-out
 OUT.json|.prom`` the serving metrics:
@@ -348,7 +351,9 @@ class LMServeResult:
     plan: ExecutionPlan | None
     dense_bytes: int
     packed_bytes: int
-    pack_seconds: float | None      # plan.pack (or sample_replicas), synced; None when not packed
+    # plan.pack (or sample_replicas), synced; None when not packed; a packed
+    # hybrid's is plan.pack_drawn, so it includes drawing the masters
+    pack_seconds: float | None
     tracer: Tracer | None
     metrics: MetricsRegistry | None
     prefix_cache: PrefixCache | None = None
@@ -394,7 +399,14 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     flagging requests whose vote agreement falls below it. ``trace`` writes
     a Chrome trace of the loop and validates it; ``metrics_out`` writes the
     serving metrics. ``n_layers`` cuts the config's depth, its widths kept
-    (a card that cannot hold every layer's f32 masters)."""
+    (a card that cannot hold every layer's f32 masters; a hybrid's must be a
+    multiple of its period).
+
+    A packed hybrid (jamba) serve with one sample never holds its master
+    tree: the plan is compiled from the masters' shapes
+    (``T.lm_shapes``) and ``plan.pack_drawn`` draws each (K, N) matrix and
+    packs it at once, which gives ``plan.pack(T.init_lm(...))`` bit for
+    bit. Its ensemble, and every other family, draws the masters whole."""
     arch = cb.canonical_arch(arch)
     if (prefill_chunk or prefix_cache) and ensemble > 1:
         raise SystemExit("--prefill-chunk/--prefix-cache are single-sample serving features; "
@@ -411,7 +423,11 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
         raise SystemExit("--ensemble K samples K stochastic replicas: add --packed "
                          "--binarize stoch")
     dev = resolve_device(device)
-    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a single-sample packed hybrid draws and packs its masters a matrix at a
+    # time, from a plan compiled from their shapes
+    drawn = cfg.is_hybrid and packed and ensemble == 1
+    params = T.lm_shapes(cfg) if drawn else T.init_lm(cfg, gen, device=dev)
     plan = None
     if packed or plan_out or plan_from or show_report or override:
         plan = make_plan(params, DEFAULT_POLICY, binarize=binarize, plan_out=plan_out,
@@ -429,6 +445,8 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
             # the key the single-sample pack uses, so replica 0 is --packed alone
             replicas = sample_replicas(params, plan, prng.key(seed + 1), ensemble)
             params = replicas.base
+        elif drawn:
+            params = plan.pack_drawn(T.lm_draws(cfg), gen, key=prng.key(seed + 1), device=dev)
         else:
             params = plan.pack(params, key=prng.key(seed + 1))
         if dev.type == "cuda":
@@ -518,7 +536,8 @@ def main(argv=None) -> ServeResult | LMServeResult:
     ap.add_argument("--arch", default="mnist_fc",
                     help=f"{' | '.join(ARCHS)}, or a token arch: "
                          f"{' | '.join(a for a in cb.ARCH_IDS if a not in ARCHS)} "
-                         f"(the dense, MoE and SSM families run; MoE in det and stoch)")
+                         f"(the dense, MoE, SSM and hybrid families run; MoE and hybrid "
+                         f"in det and stoch)")
     ap.add_argument("--binarize", default="det", choices=["det", "stoch", "xnor"])
     ap.add_argument("--packed", action="store_true",
                     help="token archs: serve the plan's packed leaves (without it, the "

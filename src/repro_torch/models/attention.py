@@ -15,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import apply_linear, rope_cos_sin, rotate
+from repro_torch.models.layers import (LeafDraw, apply_linear, draw_leaves, filled,
+                                       rope_cos_sin, rotate)
 
 NEG_INF = -1e30
 
@@ -25,16 +26,20 @@ FLASH_THRESHOLD = 4096
 FLASH_CHUNK = 1024
 
 
-def init_attn(generator: torch.Generator, cfg, init_fn, *, device, n_layers: int) -> dict:
-    """``n_layers`` stacked attention blocks: (L, D, Q + 2 KV) and (L, Q, D)."""
-    p = {
-        "w_qkv": init_fn(generator, (n_layers, cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim),
-                         device=device),
-        "w_o": init_fn(generator, (n_layers, cfg.q_dim, cfg.d_model), device=device),
-    }
+def attn_draws(cfg, lead) -> list[LeafDraw]:
+    """Attention's leaves stacked on ``lead``, in draw order: ``w_qkv``
+    (..., D, Q + 2 KV), ``w_o`` (..., Q, D) and, with the bias, ``b_qkv`` 0."""
+    lead, qkv = tuple(lead), cfg.q_dim + 2 * cfg.kv_dim
+    draws = [LeafDraw("w_qkv", lead + (cfg.d_model, qkv), fan_in=cfg.d_model),
+             LeafDraw("w_o", lead + (cfg.q_dim, cfg.d_model), fan_in=cfg.q_dim)]
     if cfg.qkv_bias:
-        p["b_qkv"] = torch.zeros((n_layers, cfg.q_dim + 2 * cfg.kv_dim), device=device)
-    return p
+        draws.append(filled("b_qkv", lead + (qkv,)))
+    return draws
+
+
+def init_attn(generator: torch.Generator, cfg, init_fn, *, device, n_layers: int) -> dict:
+    """``n_layers`` stacked attention blocks (:func:`attn_draws`)."""
+    return draw_leaves(attn_draws(cfg, (n_layers,)), generator, init_fn, device=device)
 
 
 def _split_qkv(cfg, qkv: torch.Tensor):

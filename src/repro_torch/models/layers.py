@@ -1,8 +1,9 @@
 """Base layers: linear and conv application (dense, bitpacked binary, or
 fully binary), batch norm (eval and training mode), the fused batch-norm
 sign of the fully-binary path, the He initializer, and the LM layers (the
-scaled-normal initializers, RMS and layer norm, rotary embeddings and the
-embedding lookup, each upcasting to f32 where the reference does).
+scaled-normal initializers and a leaf's draw order, RMS and layer norm,
+rotary embeddings and the embedding lookup, each upcasting to f32 where the
+reference does).
 
 Models are binarization-agnostic: the serving path substitutes serving
 leaves (:class:`PackedLinear`, :class:`XnorLinear`, :class:`XnorConv`,
@@ -14,6 +15,8 @@ NHWC/HWIO at every interface, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -281,6 +284,73 @@ def lm_init(generator: torch.Generator, shape, *, device, dtype=torch.float32,
         fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     return fan_in ** -0.5 * torch.randn(tuple(shape), generator=generator, device=device,
                                         dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafDraw:
+    """How one master leaf at ``path`` is drawn: in one call (``whole``:
+    (generator, device) -> the leaf), or, a scaled-normal projection
+    (``fan_in``), either over its whole stacked shape in one ``init_fn``
+    call (:func:`draw_leaves`: the uniform and SSM templates) or one (K, N)
+    matrix at a time, row-major over the leading dims, each
+    ``lm_init(generator, (K, N), fan_in=fan_in)`` (:meth:`materialize`: the
+    hybrid template). The module inits state their leaves once this way
+    (``attn_draws``, ``mlp_draws``, ``moe_draws``, ``ssm_draws``). A list
+    of these, in order, is a model's draw order: walking it with one
+    generator makes the same generator calls whether the leaves are kept
+    (:meth:`materialize`) or each matrix is consumed as it is drawn
+    (``ExecutionPlan.pack_drawn``)."""
+
+    path: str
+    shape: tuple[int, ...]
+    whole: Callable | None = None
+    fan_in: int | None = None
+
+    def under(self, prefix: str) -> "LeafDraw":
+        """This draw with its path under ``prefix``."""
+        return dataclasses.replace(self, path=f"{prefix}/{self.path}")
+
+    def matrices(self, generator: torch.Generator, device) -> Iterator[torch.Tensor]:
+        """The leaf's (K, N) matrices in draw order (a matrix-drawn leaf)."""
+        for _ in range(math.prod(self.shape[:-2])):
+            yield lm_init(generator, self.shape[-2:], fan_in=self.fan_in, device=device)
+
+    def materialize(self, generator: torch.Generator, device) -> torch.Tensor:
+        """The whole leaf, f32, each projection drawn a matrix at a time."""
+        if self.whole is not None:
+            return self.whole(generator, device)
+        out = torch.empty(self.shape, device=device)
+        flat = out.view(-1, *self.shape[-2:])
+        for i, w in enumerate(self.matrices(generator, device)):
+            flat[i] = w
+        return out
+
+
+def filled(path: str, shape, value: float = 0.0) -> LeafDraw:
+    """A leaf that draws nothing: f32 ``value`` everywhere."""
+    shape = tuple(shape)
+    return LeafDraw(path, shape, whole=lambda g, dev: torch.full(shape, value, device=dev))
+
+
+def draw_leaves(draws, generator: torch.Generator, init_fn, *, device) -> dict:
+    """{path: leaf} of ``draws``, drawn in order, each projection whole by
+    one ``init_fn(generator, shape, fan_in=..., device=...)`` call."""
+    return {d.path: (d.whole(generator, device) if d.whole is not None
+                     else init_fn(generator, d.shape, fan_in=d.fan_in, device=device))
+            for d in draws}
+
+
+def tree_from_paths(pairs) -> dict:
+    """A nested dict from ('/'-joined path, leaf) pairs (a draw order's
+    paths)."""
+    out: dict = {}
+    for path, leaf in pairs:
+        *heads, last = path.split("/")
+        node = out
+        for head in heads:
+            node = node.setdefault(head, {})
+        node[last] = leaf
+    return out
 
 
 def embed_init(generator: torch.Generator, shape, *, device,

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_linear
+from repro_torch.models.layers import LeafDraw, apply_linear, draw_leaves, lm_init
+from repro_torch.models.mlp import ffn_projections
 
 
 def _expert_matmul(w, xe: torch.Tensor, dtype, rows: torch.Tensor) -> torch.Tensor:
@@ -40,19 +41,22 @@ def _expert_matmul(w, xe: torch.Tensor, dtype, rows: torch.Tensor) -> torch.Tens
     return apply_linear(w, xe, rows=rows).to(dtype)
 
 
+def moe_draws(cfg, lead) -> list[LeafDraw]:
+    """An MoE FFN's leaves stacked on ``lead``, in draw order: the router
+    (..., D, E), drawn whole (it is never packed), then the experts'
+    projections (..., E, K, N)."""
+    lead, e, d = tuple(lead), cfg.n_experts, cfg.d_model
+    router = lead + (d, e)
+    return ([LeafDraw("router", router,
+                      whole=lambda g, dev: lm_init(g, router, fan_in=d, device=dev))]
+            + [LeafDraw(name, lead + (e, k, n), fan_in=k)
+               for name, k, n in ffn_projections(cfg, cfg.d_ff)])
+
+
 def init_moe(generator: torch.Generator, cfg, init_fn, *, device, n_layers: int) -> dict:
-    """``n_layers`` stacked MoE FFNs: the router (L, D, E) and the experts'
-    projections (L, E, ...), in the reference's tree."""
-    e, d, f, n = cfg.n_experts, cfg.d_model, cfg.d_ff, n_layers
-    p = {"router": init_fn(generator, (n, d, e), fan_in=d, device=device)}
-    if cfg.mlp_type == "glu":
-        p["w_gate"] = init_fn(generator, (n, e, d, f), fan_in=d, device=device)
-        p["w_up"] = init_fn(generator, (n, e, d, f), fan_in=d, device=device)
-        p["w_down"] = init_fn(generator, (n, e, f, d), fan_in=f, device=device)
-    else:
-        p["wi"] = init_fn(generator, (n, e, d, f), fan_in=d, device=device)
-        p["wo"] = init_fn(generator, (n, e, f, d), fan_in=f, device=device)
-    return p
+    """``n_layers`` stacked MoE FFNs (:func:`moe_draws`), in the reference's
+    tree."""
+    return draw_leaves(moe_draws(cfg, (n_layers,)), generator, init_fn, device=device)
 
 
 def capacity(cfg, n_tokens: int) -> int:

@@ -26,29 +26,36 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_linear, rms_norm
+from repro_torch.models.layers import LeafDraw, apply_linear, draw_leaves, filled, rms_norm
 
 NEG_EXP = -1e30       # the masked exponent of the intra-chunk decay
 
 
-def init_ssm(generator: torch.Generator, cfg, init_fn, *, device, n_layers: int) -> dict:
-    """``n_layers`` stacked mixers in the reference's tree: ``in_proj``
-    (L, d, 2 di + 2 n + h), ``out_proj`` (L, di, d), ``conv`` (L, W, di + 2 n),
-    ``A_log`` log(linspace(1, 16, h)), ``dt_bias`` 0, ``D`` 1, ``norm_scale`` 0."""
+def ssm_draws(cfg, lead) -> list[LeafDraw]:
+    """A mixer's leaves stacked on ``lead``, in draw order: ``conv``
+    (..., W, di + 2 n) 0.1 randn, ``in_proj`` (..., d, 2 di + 2 n + h),
+    ``out_proj`` (..., di, d), then ``A_log`` log(linspace(1, 16, h)),
+    ``dt_bias`` 0, ``D`` 1 and ``norm_scale`` 0, which draw nothing."""
+    lead = tuple(lead)
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    conv_dim = di + 2 * n
-    conv = torch.randn((n_layers, cfg.ssm_conv_width, conv_dim), generator=generator,
-                       device=device)
-    return {
-        "in_proj": init_fn(generator, (n_layers, d, 2 * di + 2 * n + h), fan_in=d,
-                           device=device),
-        "out_proj": init_fn(generator, (n_layers, di, d), fan_in=di, device=device),
-        "conv": 0.1 * conv,
-        "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=device)).repeat(n_layers, 1),
-        "dt_bias": torch.zeros((n_layers, h), device=device),
-        "D": torch.ones((n_layers, h), device=device),
-        "norm_scale": torch.zeros((n_layers, di), device=device),
-    }
+    conv = lead + (cfg.ssm_conv_width, di + 2 * n)
+    return [
+        LeafDraw("conv", conv,
+                 whole=lambda g, dev: 0.1 * torch.randn(conv, generator=g, device=dev)),
+        LeafDraw("in_proj", lead + (d, 2 * di + 2 * n + h), fan_in=d),
+        LeafDraw("out_proj", lead + (di, d), fan_in=di),
+        LeafDraw("A_log", lead + (h,),
+                 whole=lambda g, dev: torch.log(torch.linspace(1.0, 16.0, h, device=dev)
+                                                ).repeat(*lead, 1)),
+        filled("dt_bias", lead + (h,)),
+        filled("D", lead + (h,), 1.0),
+        filled("norm_scale", lead + (di,)),
+    ]
+
+
+def init_ssm(generator: torch.Generator, cfg, init_fn, *, device, n_layers: int) -> dict:
+    """``n_layers`` stacked mixers in the reference's tree (:func:`ssm_draws`)."""
+    return draw_leaves(ssm_draws(cfg, (n_layers,)), generator, init_fn, device=device)
 
 
 def _split_proj(cfg, zxbcdt: torch.Tensor):

@@ -850,6 +850,39 @@ def test_k2_at_the_lm_shapes_matches_plain(cuda, m, k, n):
                                **F32_TOL)
 
 
+# (K, N) of jamba-1.5-large's projections on the 2-D K2: w_qkv, w_o, the
+# Mamba2 in_proj and out_proj, the dense GLU's w_gate / w_up and w_down (K2's
+# longest K yet: 768 words over the cluster's 8 slices)
+JAMBA_KN = [(8192, 10240), (8192, 8192), (8192, 33280), (16384, 8192), (8192, 24576),
+            (24576, 8192)]
+
+
+def _device_k2_inputs(shape, k, n, device, experts=None):
+    """bf16 activations of ``shape``, packed weights (K, N), or (E, K, N)
+    with ``experts``, and scales, drawn on the card (numpy would draw up to
+    3.2 G weights on the host)."""
+    g = torch.Generator(device=device).manual_seed(k + n + sum(shape))
+    x = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    lead = () if experts is None else (experts,)
+    wp = torch.stack([binarize_pack(torch.randn(k, n, generator=g, device=device),
+                                    stochastic=False) for _ in range(experts or 1)])
+    scale = torch.rand(lead + (n,), generator=g, device=device) + 0.5
+    return x, wp if experts else wp[0], scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 32])          # decode (4 slots), a prefill's 32 tokens
+@pytest.mark.parametrize("k,n", JAMBA_KN)
+def test_k2_at_jambas_shapes_matches_plain(cuda, m, k, n):
+    """K2's tolerance at jamba's projection shapes (bf16 activations: only
+    the f32 sum order differs from the plain version), and bit-identical
+    output run to run."""
+    x, wp, scale = _device_k2_inputs((m, k), k, n, cuda)
+    got = binary_matmul(x, wp, scale)
+    torch.testing.assert_close(got, binary_matmul_plain(x, wp, scale), **F32_TOL)
+    assert all(torch.equal(binary_matmul(x, wp, scale), got) for _ in range(3))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k", [(4, 12288), (4, 3072), (32, 12288)])
 def test_k3_on_bf16_lm_activations(cuda, m, k):
@@ -1118,6 +1151,30 @@ def test_batched_k2_routed_matches_the_2d_loop(cuda, e, m, k, n, dtype, scaled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(8192, 24576), (24576, 8192)])
+def test_batched_k2_at_jambas_expert_shapes(cuda, k, n):
+    """The expert-batched K2 at jamba's expert shapes (16 experts, the decode
+    capacity 8; K = 24576 walks 96 word rows a slice): all rows and each
+    routing within tolerance of the plain version, each expert's live rows
+    bit for bit the 2-D K2 on its slices and +0 past them, two calls
+    bit-identical."""
+    e, m = 16, 8
+    x, wp, scale = _device_k2_inputs((e, m, k), k, n, cuda, experts=e)
+    loop = torch.stack([binary_matmul(x[i], wp[i], scale[i]) for i in range(e)])
+    routings = {"all rows": None, **_routings(e, m, seed=e + k)}
+    for name, counts in routings.items():
+        rows = None if counts is None else counts.to(cuda)
+        got = binary_matmul_batched(x, wp, scale, rows)
+        live = [m] * e if counts is None else counts.clamp(max=m).tolist()
+        for i, c in enumerate(live):
+            assert torch.equal(got[i, :c], loop[i, :c]), (name, i)
+            assert (got[i, c:] == 0).all() and not torch.signbit(got[i, c:]).any(), (name, i)
+        torch.testing.assert_close(got, binary_matmul_batched_plain(x, wp, scale, rows),
+                                   **F32_TOL)
+        assert torch.equal(binary_matmul_batched(x, wp, scale, rows), got), name
+
+
+@pytest.mark.cuda
 def test_batched_k2_reads_words_off_16_byte_alignment(cuda):
     """Words whose rows are not 16-byte aligned (a contiguous view one word
     into its storage) take the kernel's scalar loads: equal to the aligned
@@ -1192,3 +1249,40 @@ def test_ssm_serve_on_the_card(cuda, mode):
         assert torch.equal(logits, plain)
     else:
         torch.testing.assert_close(logits, plain, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "stoch"])
+def test_hybrid_serve_on_the_card(cuda, mode):
+    """jamba-1.5-large's SMOKE config (8 layers in 2 periods of 4, f32)
+    served on the card: the masters drawn and packed a matrix at a time, the
+    words equal to ``plan.pack(init_lm(...))`` on the card; per prefill and
+    decode step 14 K2 and 6 expert-batched K2 a period; every stream equal
+    to its one-shot generate, and the logits the same forward with the
+    plain kernels."""
+    before = (binarize_pack.launches, binary_matmul.launches,
+              binary_matmul_batched.launches)
+    res = serve.serve_lm(arch="jamba_1_5_large", smoke=True, packed=True, binarize=mode,
+                         requests=5, slots=2, prompt_len=8, max_new=3, device="cuda")
+    calls = 2 * (5 + res.steps - 1)               # periods x model calls
+    assert (binarize_pack.launches - before[0], binary_matmul.launches - before[1],
+            binary_matmul_batched.launches - before[2]) == (2 * 38, 14 * calls, 6 * calls)
+    eng = res.engine
+    masters = T.init_lm(res.cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    want = res.plan.pack(masters, key=prng.key(1))
+    for (path, a), (_, b) in zip(tree_leaves_with_path(eng.params), tree_leaves_with_path(want)):
+        assert type(a) is type(b), path
+        assert torch.equal(a.packed if hasattr(a, "packed") else a,
+                           b.packed if hasattr(b, "packed") else b), path
+    for r in res.batcher.completed:
+        assert eng.generate(r.prompt[None], r.max_new).tokens[0].tolist() == r.generated
+    prompts = torch.from_numpy(np.stack([r.prompt for r in res.batcher.completed])).to(cuda)
+    logits = T.forward(res.cfg, eng.params, prompts)[0]
+    saved = (ops._binary_matmul, ops._binary_matmul_batched)
+    ops._binary_matmul, ops._binary_matmul_batched = (binary_matmul_plain,
+                                                      binary_matmul_batched_plain)
+    try:
+        plain = T.forward(res.cfg, eng.params, prompts)[0]
+    finally:
+        ops._binary_matmul, ops._binary_matmul_batched = saved
+    torch.testing.assert_close(logits, plain, **F32_TOL)

@@ -415,6 +415,6 @@ def test_xnor_experts_are_refused_on_both_sides(models, arch):
 
 
 def test_other_families_still_raise():
-    for arch in ("jamba_1_5_large", "internvl2_76b"):
+    for arch in ("internvl2_76b",):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
             T.forward(cb.get_config(arch, smoke=True), {}, torch.zeros((1, 2), dtype=torch.int32))

@@ -75,7 +75,7 @@ class TestServeEngine:
         with pytest.raises(NotImplementedError, match="item 7"):
             ServeEngine(cfg, params, mesh=object())
         with pytest.raises(NotImplementedError, match="item 6b"):
-            ServeEngine(cb.get_config("jamba_1_5_large", smoke=True), params)
+            ServeEngine(cb.get_config("internvl2_76b", smoke=True), params)
         with pytest.raises(NotImplementedError, match="item 8"):
             stream_serve(engine, SlotBatcher(1, 4), sentinel=object())
 
@@ -387,9 +387,14 @@ def test_serve_lm_defaults_to_cuda_and_raises_without_it(monkeypatch):
         serve.main(LM_SMOKE[:3])                    # --arch starcoder2_3b --smoke
 
 
-def test_cli_other_families_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        serve.main(["--arch", "jamba_1_5_large", "--smoke", "--device", "cpu"])
+def test_cli_other_families_raise_naming_the_roadmap(capsys):
+    """The hybrid (jamba) now serves through the CLI, its SMOKE config on the
+    CPU; a frontend arch still exits, as the reference's CLI does."""
+    res = serve.main(["--arch", "jamba_1_5_large", "--smoke", "--device", "cpu", "--packed",
+                      "--requests", "3", "--slots", "2", "--prompt-len", "6", "--max-new", "2"])
+    assert "served 3 requests in" in capsys.readouterr().out and res.tokens == 6
+    with pytest.raises(SystemExit, match="stubbed frontend"):
+        serve.main(["--arch", "internvl2_76b", "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
