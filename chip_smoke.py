@@ -232,6 +232,28 @@ the prefix cache (``HYB_CHUNK``) against whole-prompt admission. Phase 7
 times K2 at a period's 28 decode projections and the expert-batched K2 at
 the routing the 72-layer decode step produced.
 
+Since the LM training slice (phase 6j, about two minutes more; ``LmTraining``),
+Alg.-1 training of the decoder LMs through ``launch.train.build_lm``, none
+of it launching a port kernel (training runs the dense +-1 masters through
+``torch.matmul``, as the reference's einsums run outside any Pallas
+kernel): StarCoder2-3B at its full CONFIG (30 layers) at batch 8 x 128
+tokens, the CLI's step once (its grads reach ~1e29 through 30 layers of
+unscaled +-1 projections, and the masters after it overflow the next
+forward: reported), then ``TRAIN_LM_STEPS`` det and stoch steps with the
+grads clipped to a global norm, each with a finite loss, clipped masters
+and no kernel launch: wall ms, a det step's device ms and launches, peak
+allocated against the reckoned peak, and the threefry twin's share of a
+stoch step; the same cut to 2 layers on the card and on the CPU
+(``TRAIN_LM_CUT_RUNS``: bf16 det and stoch, f32 det; losses, binarized
+weights and the head's grads held, the rest printed beside f64);
+musicgen-large from its stub's frame embeddings, the CLI's step at all 48
+layers (grads past f32's range: reported) and clipped det steps at
+``TRAIN_FRONTEND_LAYERS``; ``python -m repro_torch.launch.train --arch
+mamba2_130m --steps 12 --ckpt-every 4 --fail-at 6`` (1 recovery, final
+masters bit for bit those of a run without the crash); and one det step of
+Moonlight and jamba at SMOKE width against the CPU (the MoE backward:
+``lb_loss`` and the router's grads).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -419,6 +441,66 @@ HYB_K2 = [(16, 8, 8192, 24576), (16, 8, 24576, 8192)]
 HYB_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
                  prefix_cache=16, shared_prefix=16)
 
+# Alg.-1 training of the decoder LMs (phase 6j), through launch.train.build_lm
+# (its masters and batches) and the step function (the Trainer is not used:
+# no 25 GB checkpoints): StarCoder2-3B at its full CONFIG (30 layers, remat
+# "full") at the CLI's batch 8 x 128 tokens, SGD momentum, TRAIN_LM_STEPS det
+# steps then stoch steps from the same state. Training runs the dense f32
+# masters, binarized to +-1 and cast to bf16 in the layers, through
+# torch.matmul, as the reference runs its einsums outside any Pallas kernel:
+# no port kernel may launch.
+TRAIN_LM_ARCH = "starcoder2_3b"
+TRAIN_LM = dict(batch=8, seq=128, lr=3e-3, optimizer="sgd", seed=0)
+TRAIN_LM_STEPS = {"det": 4, "stoch": 2}
+# At full depth the CLI's step (no clipping) diverges: each unscaled +-1
+# projection multiplies activations and their grads by ~sqrt(K), so 30 layers
+# give grads of ~1e29 and, after one step at lr 3e-3, embedding masters of
+# ~3e27, whose next forward overflows to NaN (H100 80GB HBM3, 700 W). 6j runs
+# that step once and reports it, then trains with the grads clipped to this
+# global norm by its own clip (LmTraining.step_fn), which sums the norm's
+# squares in f64: the port's optim.sgd.clip_by_global_norm sums them in f32,
+# as the reference's does, which overflows past a norm of ~1.8e19 and then
+# zeroes every grad (these grads' norms are ~1e30).
+TRAIN_LM_GRAD_CLIP = 1.0
+# The same at full width cut to 2 layers and batch 2 (the CPU's share of the
+# run), on the card and on the CPU from the same masters and batches:
+# TRAIN_LM_CUT_RUNS (activation dtype, mode, steps), each step of the CPU from
+# the card's state (a step's grads differ between the two, so their states
+# would), step 1's grads also against the same step in f64 on the card. At this width the forward is
+# well conditioned (losses agree to TRAIN_LM_LOSS_RTOL) but the grads before
+# the last attention are not: its scores reach ~1e4, the softmax is near an
+# argmax, and a rounding flips which key wins; the f32 grads of both devices
+# are 0.2-0.35 (relative l2) from f64 there, the bf16 ones 30-180 (H100 80GB
+# HBM3, 700 W, and its host's CPU). So the head's grads and updates
+# (lm_head, final_norm) are held to TRAIN_LM_HEAD_TOL card against CPU; in
+# the f32 run every other leaf's are held to TRAIN_LM_REST_TOL too (card vs
+# CPU 0.043 at most, either side vs f64 0.20-0.22, my H100 run), and the
+# bf16 ones are printed beside f64.
+TRAIN_LM_CPU_LAYERS = 2
+TRAIN_LM_CUT_BATCH = 2
+TRAIN_LM_CUT_RUNS = [("bfloat16", "det", 2), ("bfloat16", "stoch", 1), ("float32", "det", 1)]
+TRAIN_LM_HEAD_LEAVES = ("lm_head/kernel", "final_norm/scale")
+TRAIN_LM_HEAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+TRAIN_LM_REST_TOL = {"float32": 0.1}
+TRAIN_LM_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# musicgen-large at full width from its stub's frame embeddings (B, S,
+# d_model) with lm_tokens labels: one CLI step of all 48 layers (its grads
+# pass f32's range: reported), then TRAIN_FRONTEND_STEPS clipped det steps at
+# TRAIN_FRONTEND_LAYERS of its layers, where they stay finite
+TRAIN_FRONTEND_ARCH = "musicgen_large"
+TRAIN_FRONTEND_STEPS = 3
+TRAIN_FRONTEND_LAYERS = 24
+# mamba2-130m (all 24 layers) through the training CLI, a crash at step 6
+# restored from the step-4 checkpoint and replayed, against a clean run
+TRAIN_CLI_ARGS = ["--arch", "mamba2_130m", "--steps", "12", "--ckpt-every", "4"]
+TRAIN_CLI_FAIL_AT = 6
+# one det step of the MoE and hybrid families at SMOKE width (f32) on the card
+# against the CPU, held as the CPU parity tests hold the port to the
+# reference: loss rtol 1e-4, momentum atol 2e-5 + 1e-2 x the leaf's largest
+# |grad|, masters atol 2e-5 + 1e-2 x the leaf's largest update
+TRAIN_SMOKE_ARCHS = ("moonshot_v1_16b_a3b", "jamba_1_5_large")
+TRAIN_SMOKE_TOL = 1e-2
+
 # VGG-16's xnor convs at batch 4: (input NHWC shape, output channels).
 VGG_XNOR_CONVS = [((4, 16, 16, 64), 128), ((4, 16, 16, 128), 128),
                   ((4, 8, 8, 128), 256), ((4, 8, 8, 256), 256), ((4, 8, 8, 256), 256),
@@ -438,6 +520,516 @@ def fmt(ms: float | None) -> str:
 
 def fmt_count(n: float | None) -> str:
     return "not measured" if n is None else f"{n:g}"
+
+
+class LmTraining:
+    """Phase 6j: Alg.-1 training of the decoder LMs on the card (see the
+    TRAIN_* constants). ``card`` is nvidia-smi's name and power limit,
+    printed with every number; ``launch_counts()`` reads the port kernels'
+    counters and ``zero_counts()`` sets them to 0: training must launch
+    none. Each section fills ``rows`` for the summary."""
+
+    def __init__(self, card: str, launch_counts, zero_counts):
+        self.card, self.launch_counts, self.zero_counts = card, launch_counts, zero_counts
+        self.rows: dict = {}
+
+    def run(self) -> dict:
+        for section in (self.full_lm, self.cut, self.frontend, self.cli, self.smoke):
+            t0 = time.perf_counter()
+            section()
+            print(f"  ({section.__name__}: {time.perf_counter() - t0:.1f} s)")
+        return self.rows
+
+    # -- helpers ---------------------------------------------------------------------
+    @staticmethod
+    def leaves(tree):
+        from repro_torch.engine.plan import tree_leaves_with_path
+
+        return list(tree_leaves_with_path(tree))
+
+    def check(self, tag, state, m):
+        """Finite loss and xent, clipped masters, no port kernel launched."""
+        import torch
+
+        from repro_torch.core.policy import DEFAULT_POLICY
+
+        for k in ("loss", "xent"):
+            if not torch.isfinite(m[k]).item():
+                raise AssertionError(f"{tag}: {k} is {float(m[k])}")
+        top = max(float(t.abs().max()) for p, t in self.leaves(state["params"])
+                  if DEFAULT_POLICY.selects(p))
+        if top > 1.0:
+            raise AssertionError(f"{tag}: a binarized master reaches |w| = {top}")
+        if any(self.launch_counts().values()):
+            raise AssertionError(f"{tag}: training launched a port kernel "
+                                 f"{self.launch_counts()}")
+
+    @staticmethod
+    def step_fn(cfg, mode, clip=None):
+        """The CLI's step (SGD momentum at its constant rate, the LM loss).
+        With ``clip``, the grads are scaled to that global norm, its squares
+        summed in f64 (see TRAIN_LM_GRAD_CLIP), and the metrics'
+        ``grad_norm`` is the norm before. That step's update runs SGD
+        momentum a leaf at a time and lets each grad go once its leaf is
+        updated (it empties the step's grads tree, which the step does not
+        read after the update): StarCoder2-3B's whole-tree update (5 x 12.7
+        GB at once) ran out of memory after the earlier phases, with 9-11
+        GiB of the card's cache fragmented."""
+        import torch
+
+        from repro_torch.core.policy import DEFAULT_POLICY
+        from repro_torch.engine.plan import tree_leaves_with_path, tree_unflatten
+        from repro_torch.optim import schedules
+        from repro_torch.optim.sgd import Optimizer, sgd_momentum
+        from repro_torch.train import steps as ST
+
+        opt = sgd_momentum(schedules.constant(TRAIN_LM["lr"]))
+        loss_fn = ST.make_lm_loss(cfg)
+        if clip is None:
+            return ST.make_train_step(loss_fn, opt, mode, DEFAULT_POLICY)
+        seen = {}
+
+        def clipped_update(grads, opt_state, params, step):
+            gs = [g for _, g in tree_leaves_with_path(grads)]
+            grads.clear()
+            sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float64) ** 2
+                              for g in gs]).sum()
+            norm = torch.sqrt(sq).to(torch.float32)
+            factor = torch.clamp(clip / (norm + 1e-9), max=1.0)
+            mus = [m for _, m in tree_leaves_with_path(opt_state["mu"])]
+            new_p, new_mu = [], []
+            for (_, p), m in zip(tree_leaves_with_path(params), mus):
+                (p1,), o = opt.update([gs.pop(0) * factor], {"mu": [m]}, [p], step)
+                new_p.append(p1)
+                new_mu.append(o["mu"][0])
+            seen["grad_norm"] = norm
+            return tree_unflatten(params, new_p), {"mu": tree_unflatten(params, new_mu)}
+
+        inner = ST.make_train_step(loss_fn, Optimizer(opt.init, clipped_update), mode,
+                                   DEFAULT_POLICY)
+
+        def step(state, batch):
+            new, m = inner(state, batch)
+            return new, {**m, "grad_norm": seen.pop("grad_norm")}
+
+        return step
+
+    def cli_step_once(self, tag, step_fn, state, batch) -> dict:
+        """One step of the CLI's own step function (no clipping) from
+        ``state``: its loss, largest |grad| (the momentum from zero), how
+        many grad leaves hold a non-finite value, and the largest master
+        after it; the new state is dropped."""
+        import torch
+
+        new, m = step_fn(state, batch)
+        grads = [t for _, t in self.leaves(new["opt"]["mu"])]
+        r = {"loss": float(m["loss"]),
+             "grad": max(float(t.abs().max()) for t in grads),
+             "nonfinite_leaves": sum(not bool(torch.isfinite(t).all()) for t in grads),
+             "master": max(float(t.abs().max()) for _, t in self.leaves(new["params"]))}
+        print(f"  {tag}, the CLI's step without clipping: loss {r['loss']:.6f}, largest "
+              f"|grad| {r['grad']:.3g} ({r['nonfinite_leaves']} of {len(grads)} grad leaves "
+              f"not finite), largest |master| after it {r['master']:.3g} [{self.card}]")
+        del new, grads
+        torch.cuda.empty_cache()
+        return r
+
+    def timed_step(self, step_fn, state, batch, profile=False):
+        """(new state, metrics, wall ms, device ms, device launches): one
+        synchronised step; under torch.profiler when ``profile`` (its wall
+        then includes the profiler's cost)."""
+        import torch
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        prof = (torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                if profile else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        dev_ms = n_launch = None
+        if profile:
+            ev = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+            if ev:
+                dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+                n_launch = sum(e.count for e in ev)
+        return state, m, wall, dev_ms, n_launch
+
+    def run_steps(self, tag, holder, steps, live, reckoned_gb):
+        """Runs ``steps`` [(mode, step_fn, batch)] from the state in the list
+        ``holder`` (taken out, so no caller keeps a state a step replaces),
+        checking each and profiling the second det step. Returns
+        (state, per-step rows, peak allocated GB above ``live``, the bytes
+        allocated before the state was built)."""
+        import torch
+
+        state = holder.pop()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, seen = [], {}
+        for i, (mode, step_fn, batch) in enumerate(steps):
+            seen[mode] = seen.get(mode, 0) + 1
+            profile = seen[mode] == 2 and mode == "det"
+            state, m, wall, dms, nl = self.timed_step(step_fn, state, batch, profile=profile)
+            self.check(f"{tag} step {i + 1} ({mode})", state, m)
+            r = {"mode": mode, "loss": float(m["loss"]), "xent": float(m["xent"]),
+                 "lb_loss": float(m["lb_loss"]), "grad_norm": float(m["grad_norm"]),
+                 "wall_ms": wall, "device_ms": dms, "launches": nl, "profiled": profile}
+            out.append(r)
+            print(f"    step {i + 1} ({mode}): loss {r['loss']:.6f}, xent {r['xent']:.6f}, "
+                  f"grad norm before the clip {r['grad_norm']:.3g}, wall {wall:.1f} ms"
+                  f"{' (profiled)' if r['profiled'] else ''}, device {fmt(dms)} ms in "
+                  f"{fmt_count(nl)} device kernel launches; masters clipped, 0 port kernel "
+                  f"launches [{self.card}]")
+        peak = (torch.cuda.max_memory_allocated() - live) / 1e9
+        print(f"  {tag}: peak allocated {peak:.2f} GB, the state included (reckoned "
+              f"{reckoned_gb:.1f} GB) [{self.card}]")
+        return state, out, peak
+
+    @staticmethod
+    def reckon_gb(leaves) -> float:
+        """Peak of a clipped step in f32 bytes, activations left out: the
+        larger of the backward's end (masters, momentum, grads and the +-1
+        copies of the selected masters) and the update's, leaf by leaf in
+        ``leaves``' order (masters and momentum; at leaf i the new masters
+        and momentum of the leaves before it, the grads of it and of those
+        after it, and its new momentum, new masters and one temporary)."""
+        from repro_torch.core.policy import DEFAULT_POLICY
+
+        sizes = [t.numel() for _, t in leaves]
+        n = sum(sizes)
+        n_sel = sum(t.numel() for p, t in leaves if DEFAULT_POLICY.selects(p))
+        done = update = 0
+        for size in sizes:
+            update = max(update, 2 * n + 2 * done + (n - done) + 3 * size)
+            done += size
+        return max(3 * n + n_sel, update) * 4 / 1e9
+
+    def rel_errors(self, got, want, old=None, only=None) -> dict:
+        """Per leaf (of the paths in ``only``, when given): the relative l2
+        error ||got - want|| / ||want|| (of the update from ``old`` when
+        given), in f64 on the card; leaves whose ``want`` is 0 skipped."""
+        import torch
+
+        out = {}
+        olds = dict(self.leaves(old)) if old is not None else None
+        for (p, x), (_, y) in zip(self.leaves(got), self.leaves(want)):
+            if only is not None and p not in only:
+                continue
+            x, y = x.to("cuda", torch.float64), y.to("cuda", torch.float64)
+            if olds is not None:
+                o = olds[p].to("cuda", torch.float64)
+                x, y = x - o, y - o
+            ref = float(y.norm())
+            if ref > 0.0:
+                out[p] = float((x - y).norm()) / ref
+        return out
+
+    # -- sections --------------------------------------------------------------------
+    def full_lm(self):
+        """StarCoder2-3B at full width and depth: the CLI's step once, then
+        det and stoch steps with the grads clipped; the twin's share."""
+        import torch
+
+        from repro_torch.configs import base as cb
+        from repro_torch.core import prng
+        from repro_torch.core.policy import DEFAULT_POLICY
+        from repro_torch.launch import train as train_cli
+
+        cfg = cb.get_config(TRAIN_LM_ARCH)
+        print(f"== training {TRAIN_LM_ARCH} at its full CONFIG ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+              f"remat {cfg.remat!r}) through launch.train.build_lm, {TRAIN_LM}: "
+              f"{TRAIN_LM_STEPS} steps [{self.card}]")
+        self.zero_counts()
+        torch.cuda.empty_cache()
+        live = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, cli_step, batch_fn = train_cli.build_lm(TRAIN_LM_ARCH, binarize="det",
+                                                       device="cuda", **TRAIN_LM)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        sizes = [t.numel() for _, t in self.leaves(state["params"])]
+        reckoned = self.reckon_gb(self.leaves(state["params"]))
+        print(f"  {sum(sizes) / 1e9:.3f} B parameters, init {init_s:.2f} s on the card")
+        diverge = self.cli_step_once(TRAIN_LM_ARCH, cli_step, state, batch_fn(0))
+        del cli_step
+        fns = {mode: self.step_fn(cfg, mode, TRAIN_LM_GRAD_CLIP) for mode in TRAIN_LM_STEPS}
+        modes = [mode for mode in TRAIN_LM_STEPS for _ in range(TRAIN_LM_STEPS[mode])]
+        steps = [(mode, fns[mode], batch_fn(i)) for i, mode in enumerate(modes)]
+        # the twin's share of a stoch step: its uniform draws over every selected
+        # master, timed alone (CUDA events), at the first stoch step's key
+        sel = [t for p, t in self.leaves(state["params"]) if DEFAULT_POLICY.selects(p)]
+        keys = prng.split(prng.fold_in(state["key"], TRAIN_LM_STEPS["det"]), len(sel))
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for k, t in zip(keys, sel):
+            prng.uniform(k, t.shape, t.device)
+        b.record()
+        torch.cuda.synchronize()
+        twin_ms = a.elapsed_time(b)
+        n_sel = sum(t.numel() for t in sel)
+        del sel
+        holder = [state]
+        del state
+        state, out, peak = self.run_steps(TRAIN_LM_ARCH, holder, steps, live, reckoned)
+        stoch = [r["wall_ms"] for r in out if r["mode"] == "stoch" and not r["profiled"]]
+        print(f"  the twin's uniforms over the {n_sel / 1e9:.3f} G selected masters: "
+              f"{twin_ms:.1f} ms, {100 * twin_ms / stoch[0]:.1f}% of the first stoch step's "
+              f"wall {stoch[0]:.1f} ms [{self.card}]")
+        self.rows["lm"] = {"params_b": sum(sizes) / 1e9, "steps": out, "peak_gb": peak,
+                           "reckoned_gb": reckoned, "twin_ms": twin_ms, "init_s": init_s,
+                           "diverge": diverge}
+        del state, steps, fns
+        torch.cuda.empty_cache()
+
+    def cut(self):
+        """StarCoder2-3B at full width cut to TRAIN_LM_CPU_LAYERS layers, the
+        TRAIN_LM_CUT_RUNS on the card and on the CPU."""
+        import dataclasses
+
+        import torch
+
+        from repro_torch.configs import base as cb
+        from repro_torch.core import binarize as B
+        from repro_torch.core import prng
+        from repro_torch.core.policy import DEFAULT_POLICY
+        from repro_torch.engine.plan import tree_map
+        from repro_torch.launch import train as train_cli
+        from repro_torch.train import steps as ST
+
+        kw = dict(TRAIN_LM, batch=TRAIN_LM_CUT_BATCH)
+        print(f"== training {TRAIN_LM_ARCH} at full width cut to {TRAIN_LM_CPU_LAYERS} "
+              f"layers, {kw}, on the card and on the CPU from the same masters and batches: "
+              f"{TRAIN_LM_CUT_RUNS} (activations, mode, steps); step 1's grads also against "
+              f"f64 on the card; held: losses {TRAIN_LM_LOSS_RTOL}, the head's momentum and "
+              f"update (relative l2) {TRAIN_LM_HEAD_TOL}, every other leaf's "
+              f"{TRAIN_LM_REST_TOL} [{self.card}]")
+        self.rows["cut"] = {}
+        base = dataclasses.replace(cb.get_config(TRAIN_LM_ARCH), n_layers=TRAIN_LM_CPU_LAYERS)
+        for dtype, mode, n_steps in TRAIN_LM_CUT_RUNS:
+            self.zero_counts()
+            state, _, batch_fn = train_cli.build_lm(
+                TRAIN_LM_ARCH, binarize=mode, device="cuda", n_layers=TRAIN_LM_CPU_LAYERS, **kw)
+            g64 = ST.binarized_value_and_grad(
+                ST.make_lm_loss(dataclasses.replace(base, dtype="float64")),
+                tree_map(lambda t: t.double(), state["params"]), batch_fn(0), mode=mode,
+                policy=DEFAULT_POLICY, key=prng.fold_in(state["key"], 0))[1]
+            step_fn = self.step_fn(dataclasses.replace(base, dtype=dtype), mode)
+            flips, cpu_s, losses, heads = [], 0.0, [], []
+            for i in range(n_steps):
+                cpu_state = {k: (v if k == "key" else tree_map(lambda t: t.cpu(), v))
+                             for k, v in state.items()}
+                batch = batch_fn(i)
+                key = prng.fold_in(state["key"], int(state["step"]))
+                wb = B.binarize_tree(state["params"], mode, DEFAULT_POLICY, key)
+                wb_cpu = B.binarize_tree(cpu_state["params"], mode, DEFAULT_POLICY, key)
+                flips.append(sum(int((x.cpu() != y).sum()) for (p, x), (_, y) in zip(
+                    self.leaves(wb), self.leaves(wb_cpu)) if DEFAULT_POLICY.selects(p)))
+                del wb, wb_cpu
+                if flips[-1]:
+                    raise AssertionError(f"{dtype} {mode} cut step {i + 1}: the binarized "
+                                         f"weights differ on the card")
+                new, m = step_fn(state, batch)
+                t0 = time.perf_counter()
+                new_cpu, m_cpu = step_fn(cpu_state, tree_map(lambda t: t.cpu(), batch))
+                cpu_s += time.perf_counter() - t0
+                self.check(f"{dtype} {mode} cut step {i + 1}", new, m)
+                losses.append((float(m["loss"]), float(m_cpu["loss"])))
+                mu = self.rel_errors(new["opt"]["mu"], new_cpu["opt"]["mu"])
+                upd = self.rel_errors(new["params"], new_cpu["params"], state["params"])
+                held = {**{f"{p} momentum": e for p, e in mu.items()},
+                        **{f"{p} update": e for p, e in upd.items()}}
+                head = {k: e for k, e in held.items() if k.split()[0] in TRAIN_LM_HEAD_LEAVES}
+                rest = {k: e for k, e in held.items() if k not in head}
+                heads.append(max(head.values()))
+                if heads[-1] > TRAIN_LM_HEAD_TOL[dtype]:
+                    raise AssertionError(f"{dtype} {mode} cut step {i + 1}: the head's "
+                                         f"momentum or update, card vs CPU: {head}")
+                if dtype in TRAIN_LM_REST_TOL and max(rest.values()) > TRAIN_LM_REST_TOL[dtype]:
+                    raise AssertionError(f"{dtype} {mode} cut step {i + 1}: a leaf's "
+                                         f"momentum or update, card vs CPU: {rest}")
+                if i == 0:
+                    # from zero, the momentum is the step's grads
+                    err = {"grads card vs CPU": mu, "update card vs CPU": upd,
+                           "grads card vs f64": self.rel_errors(new["opt"]["mu"], g64),
+                           "grads CPU vs f64": self.rel_errors(new_cpu["opt"]["mu"], g64)}
+                    for what, per_leaf in err.items():
+                        print(f"    {dtype} {mode} step 1, {what} (relative l2): "
+                              + ", ".join(f"{p} {e:.3g}" for p, e in per_leaf.items()))
+                loss, loss_cpu = losses[-1]
+                print(f"    {dtype} {mode} step {i + 1}: loss {loss:.6f} (CPU {loss_cpu:.6f}), "
+                      f"binarized weights differing from the CPU's {flips[-1]}, momentum and "
+                      f"update card vs CPU (relative l2): the head's within {heads[-1]:.3g}, "
+                      f"the other leaves' within {max(rest.values()):.3g}"
+                      f"{'' if dtype in TRAIN_LM_REST_TOL else ' (not held)'} [{self.card}]")
+                if not abs(loss - loss_cpu) <= TRAIN_LM_LOSS_RTOL[dtype] * abs(loss_cpu):
+                    raise AssertionError(f"{dtype} {mode} cut step {i + 1}: loss {loss} vs "
+                                         f"CPU {loss_cpu}")
+                state = new
+            self.rows["cut"][(dtype, mode)] = {
+                "flips": flips, "losses": losses, "cpu_s": cpu_s, "heads": heads,
+                "head": {k: max(e for p, e in v.items() if p in TRAIN_LM_HEAD_LEAVES)
+                         for k, v in err.items()},
+                "rest": {k: max(e for p, e in v.items() if p not in TRAIN_LM_HEAD_LEAVES)
+                         for k, v in err.items()}}
+            print(f"    ({dtype} {mode}: {cpu_s:.1f} s of CPU steps)")
+            del state, cpu_state, new, new_cpu, g64
+            torch.cuda.empty_cache()
+
+    def frontend(self):
+        """musicgen-large at full width from frame embeddings: the CLI's step
+        at all 48 layers once, then clipped det steps at
+        TRAIN_FRONTEND_LAYERS."""
+        import dataclasses
+
+        import torch
+
+        from repro_torch.configs import base as cb
+        from repro_torch.core import prng
+        from repro_torch.data import synthetic as syn
+        from repro_torch.launch import train as train_cli
+        from repro_torch.models import frontends
+
+        cfg = cb.get_config(TRAIN_FRONTEND_ARCH)
+        spec = syn.SyntheticSpec("lm", batch_size=TRAIN_LM["batch"], seq_len=TRAIN_LM["seq"],
+                                 vocab_size=cfg.vocab_size, seed=TRAIN_LM["seed"])
+
+        def batch(i):
+            """The stub's frame embeddings (B, S, d_model), lm_tokens labels."""
+            return {"tokens": frontends.frame_embeddings(
+                        prng.key(100 + i), TRAIN_LM["batch"], TRAIN_LM["seq"], cfg.d_model,
+                        device="cuda"),
+                    "labels": syn.lm_tokens(spec, i, device="cuda")[:, 1:]}
+
+        print(f"== training {TRAIN_FRONTEND_ARCH} at full width (d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) from "
+              f"frontends.frame_embeddings ({TRAIN_LM['batch']}, {TRAIN_LM['seq']}, "
+              f"{cfg.d_model}) with lm_tokens labels: the CLI's step at all "
+              f"{cfg.n_layers} layers, then {TRAIN_FRONTEND_STEPS} det steps at "
+              f"{TRAIN_FRONTEND_LAYERS} layers [{self.card}]")
+        self.zero_counts()
+        torch.cuda.empty_cache()
+        state, cli_step, _ = train_cli.build_lm(TRAIN_FRONTEND_ARCH, binarize="det",
+                                                device="cuda", **TRAIN_LM)
+        full = self.cli_step_once(f"all {cfg.n_layers} layers", cli_step, state, batch(0))
+        del state, cli_step
+        torch.cuda.empty_cache()
+        live = torch.cuda.memory_allocated()
+        state, _, _ = train_cli.build_lm(TRAIN_FRONTEND_ARCH, binarize="det", device="cuda",
+                                         n_layers=TRAIN_FRONTEND_LAYERS, **TRAIN_LM)
+        sizes = [t.numel() for _, t in self.leaves(state["params"])]
+        reckoned = self.reckon_gb(self.leaves(state["params"]))
+        step_fn = self.step_fn(dataclasses.replace(cfg, n_layers=TRAIN_FRONTEND_LAYERS), "det",
+                               TRAIN_LM_GRAD_CLIP)
+        steps = [("det", step_fn, batch(i)) for i in range(TRAIN_FRONTEND_STEPS)]
+        holder = [state]
+        del state
+        state, out, peak = self.run_steps(f"{TRAIN_FRONTEND_ARCH} at {TRAIN_FRONTEND_LAYERS} "
+                                          f"layers", holder, steps, live, reckoned)
+        self.rows["frontend"] = {"params_b": sum(sizes) / 1e9, "steps": out, "peak_gb": peak,
+                                 "reckoned_gb": reckoned, "full": full}
+        del state, steps, step_fn
+        torch.cuda.empty_cache()
+
+    def cli(self):
+        """mamba2-130m through the training CLI: a crash, a restore, a
+        replay, against a clean run."""
+        import shutil
+
+        import torch
+
+        from repro_torch.launch import train as train_cli
+
+        ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+        argv = TRAIN_CLI_ARGS + ["--ckpt-dir"]
+        print(f"== training CLI: python -m repro_torch.launch.train "
+              f"{' '.join(TRAIN_CLI_ARGS)} --fail-at {TRAIN_CLI_FAIL_AT} (all 24 layers, full "
+              f"width), against the same run without the crash [{self.card}]")
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        self.zero_counts()
+        t0 = time.perf_counter()
+        crash = train_cli.main(argv + [str(ckpt_root / "crash"), "--fail-at",
+                                       str(TRAIN_CLI_FAIL_AT)])
+        crash_s = time.perf_counter() - t0
+        clean = train_cli.main(argv + [str(ckpt_root / "clean")])
+        if any(self.launch_counts().values()):
+            raise AssertionError(f"the training CLI launched a port kernel "
+                                 f"{self.launch_counts()}")
+        if crash.recoveries != 1:
+            raise AssertionError(f"expected 1 recovery, got {crash.recoveries}")
+        pairs = list(zip(self.leaves(crash.state["params"]), self.leaves(clean.state["params"])))
+        if not all(torch.isfinite(y).all() for _, (_, y) in pairs):
+            raise AssertionError("the clean run's final masters are not finite")
+        differ = [p for (p, x), (_, y) in pairs if not torch.equal(x, y)]
+        last = clean.history[-1] if clean.history else {}
+        print(f"  recoveries {crash.recoveries}; the crash run's final masters "
+              f"{'equal' if not differ else 'differ from'} the clean run's "
+              f"{'bit for bit' if not differ else differ} after {int(crash.state['step'])} "
+              f"steps (the crash run {crash_s:.2f} s, checkpoints and replay included; last "
+              f"logged loss {last.get('loss', float('nan')):.6f}) [{self.card}]")
+        if differ:
+            raise AssertionError(f"the replayed run ends away from the clean run: {differ}")
+        self.rows["cli"] = {"recoveries": crash.recoveries, "crash_s": crash_s,
+                            "loss": last.get("loss")}
+        del crash, clean
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    def smoke(self):
+        """Moonlight and jamba at SMOKE width: one det step, card vs CPU."""
+        import torch
+
+        from repro_torch.engine.plan import tree_map
+        from repro_torch.launch import train as train_cli
+
+        print(f"== training {', '.join(TRAIN_SMOKE_ARCHS)} at SMOKE width (f32), one det step "
+              f"on the card against the CPU (loss rtol 1e-4; momentum and masters atol 2e-5 + "
+              f"{TRAIN_SMOKE_TOL:g} x the leaf's largest grad / update) [{self.card}]")
+        self.rows["smoke"] = {}
+        for arch in TRAIN_SMOKE_ARCHS:
+            self.zero_counts()
+            state, step_fn, batch_fn = train_cli.build_lm(arch, binarize="det", smoke=True,
+                                                          device="cuda", batch=4, seq=16)
+            cpu_state = {k: (v if k == "key" else tree_map(lambda t: t.cpu(), v))
+                         for k, v in state.items()}
+            batch = batch_fn(0)
+            new, m = step_fn(state, batch)
+            new_cpu, m_cpu = step_fn(cpu_state, tree_map(lambda t: t.cpu(), batch))
+            self.check(f"{arch} SMOKE", new, m)
+            worst = {}
+            for name in ("mu", "params"):
+                got = new["opt"]["mu"] if name == "mu" else new["params"]
+                want = new_cpu["opt"]["mu"] if name == "mu" else new_cpu["params"]
+                worst[name] = 0.0
+                for (p, x), (_, y), (_, o) in zip(self.leaves(got), self.leaves(want),
+                                                  self.leaves(cpu_state["params"])):
+                    scale = float((y if name == "mu" else y - o).abs().max())
+                    d = float((x.cpu().double() - y.double()).abs().max())
+                    worst[name] = max(worst[name], d / max(scale, 1e-30))
+                    if d > 2e-5 + TRAIN_SMOKE_TOL * scale:
+                        raise AssertionError(f"{arch} SMOKE {name} {p}: card vs CPU {d:.3g} "
+                                             f"(scale {scale:.3g})")
+            for k in ("loss", "xent", "lb_loss"):
+                a_, b_ = float(m[k]), float(m_cpu[k])
+                if not abs(a_ - b_) <= 1e-4 * abs(b_) + 1e-7:
+                    raise AssertionError(f"{arch} SMOKE {k}: card {a_} vs CPU {b_}")
+            router = [p for p, _ in self.leaves(new["opt"]["mu"]) if "router" in p]
+            print(f"  {arch}: loss {float(m['loss']):.6f} (CPU {float(m_cpu['loss']):.6f}), "
+                  f"lb_loss {float(m['lb_loss']):.6f} (CPU {float(m_cpu['lb_loss']):.6f}); "
+                  f"momentum (grads; {', '.join(router)} among them) within "
+                  f"{worst['mu']:.3g} of the leaf's largest, masters within "
+                  f"{worst['params']:.3g} of its largest update [{self.card}]")
+            self.rows["smoke"][arch] = {"loss": float(m["loss"]),
+                                        "loss_cpu": float(m_cpu["loss"]),
+                                        "lb": float(m["lb_loss"]),
+                                        "lb_cpu": float(m_cpu["lb_loss"]), **worst}
+            del state, cpu_state, new, new_cpu
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3042,6 +3634,17 @@ def main() -> int:
         torch.cuda.empty_cache()
 
 
+    phase_start["6j"] = time.perf_counter()
+    # 6j. Alg.-1 training of the decoder LMs: StarCoder2-3B and musicgen-large at
+    # full width, a 2-layer cut against the CPU, mamba2-130m through the CLI with
+    # a crash, Moonlight and jamba at SMOKE width against the CPU
+
+    def zero_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    train_rows = LmTraining(smi, launch_counts, zero_counts).run()
+
     phase_start["7"] = time.perf_counter()
     # 7. timing at the path shapes
     print("== timing (kernel_ms: CUDA events around 200 back-to-back wrapper calls, K1 "
@@ -3709,6 +4312,34 @@ def main() -> int:
           f"chunks), median TTFT {r['ttft_ms']:.1f} ms, prefix {r['prefix']['hits']} hits / "
           f"{r['prefix']['misses']} misses; {r['n_equal']}/{r['n_req']} streams equal the "
           f"whole-prompt ones, {r['n_dropped']} whole-prompt prefills dropped assignments")
+    print(f"== LM training summary (Alg. 1, SGD momentum, batch {TRAIN_LM['batch']} x "
+          f"{TRAIN_LM['seq']} tokens, grads clipped to norm {TRAIN_LM_GRAD_CLIP:g}) [{smi}]")
+    for tag, what in (("lm", f"{TRAIN_LM_ARCH}, all layers"),
+                      ("frontend", f"{TRAIN_FRONTEND_ARCH}, {TRAIN_FRONTEND_LAYERS} layers")):
+        r = train_rows[tag]
+        print(f"  {what} ({r['params_b']:.3f} B parameters): peak allocated "
+              f"{r['peak_gb']:.2f} GB (reckoned {r['reckoned_gb']:.1f}); " + "; ".join(
+                  f"{s['mode']} wall {s['wall_ms']:.1f} ms"
+                  + (f" (profiled: device {fmt(s['device_ms'])} ms, "
+                     f"{fmt_count(s['launches'])} launches)" if s["profiled"] else "")
+                  + f" loss {s['loss']:.4f}" for s in r["steps"]))
+    r = train_rows["lm"]
+    print(f"  {TRAIN_LM_ARCH} stoch: the twin's uniforms {r['twin_ms']:.1f} ms a step; the "
+          f"CLI's unclipped step: largest |grad| {r['diverge']['grad']:.3g}, largest |master| "
+          f"after it {r['diverge']['master']:.3g}; {TRAIN_FRONTEND_ARCH}'s at all 48 layers: "
+          f"{train_rows['frontend']['full']['nonfinite_leaves']} grad leaves not finite")
+    for (dtype, mode), r in train_rows["cut"].items():
+        print(f"  {TRAIN_LM_ARCH} {TRAIN_LM_CPU_LAYERS} layers {dtype} {mode}, step 1 relative "
+              f"l2, the head's worst leaf / the rest's: " + ", ".join(
+                  f"{k} {r['head'][k]:.3g} / {r['rest'][k]:.3g}" for k in r["head"])
+              + f"; losses (card, CPU) {[(round(a, 6), round(b, 6)) for a, b in r['losses']]}; "
+              f"binarized weights differing {r['flips']}; CPU {r['cpu_s']:.1f} s")
+    print(f"  mamba2_130m CLI: recoveries {train_rows['cli']['recoveries']}, final masters "
+          f"equal to the clean run's bit for bit")
+    for arch, r in train_rows["smoke"].items():
+        print(f"  {arch} SMOKE det vs CPU: loss {r['loss']:.6f} / {r['loss_cpu']:.6f}, lb_loss "
+              f"{r['lb']:.6f} / {r['lb_cpu']:.6f}, momentum {r['mu']:.3g}, masters "
+              f"{r['params']:.3g}")
     marks = sorted(phase_start.items(), key=lambda kv: kv[1]) + [("end", time.perf_counter())]
     print("== seconds a phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (name, t0), (_, t1) in zip(marks, marks[1:]))

@@ -69,3 +69,9 @@ def packed_nbytes(shape: tuple[int, ...]) -> int:
     """Bytes of the packed representation of a (K, N, ...) weight."""
     rest = math.prod(shape[1:]) if len(shape) > 1 else 1
     return ((shape[0] + PACK - 1) // PACK) * rest * 4
+
+
+def compression_ratio(shape: tuple[int, ...], dtype_bytes: int = 2) -> float:
+    """Weight-bytes compression against a dense tensor of ``dtype_bytes``-wide
+    values."""
+    return math.prod(shape) * dtype_bytes / packed_nbytes(shape)

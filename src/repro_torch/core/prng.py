@@ -13,8 +13,12 @@ the same words bit for bit, so a stochastic pack of the port at
 * ``bits(k, shape)[i]``  -> x0 ^ x1 of threefry2x32(k, (i >> 32, i mod 2^32)),
                             i the row-major flat index
 * ``uniform(k, shape)``  -> f32 with mantissa (uint32) bits >> 9 of ``bits``, minus 1
-                            (then ``* (maxval - minval) + minval``, floored at
-                            ``minval``)
+                            (then ``* (maxval - minval) + minval`` rounded once,
+                            as the reference's XLA CPU contracts it into an FMA,
+                            floored at ``minval``)
+* ``normal(k, shape)``   -> sqrt(2) * erfinv(uniform(k, shape, nextafter(-1, 0), 1)),
+                            erfinv by the single-precision polynomial XLA
+                            lowers ``erf_inv`` to
 * ``categorical(k, l)``  -> argmax(gumbel + l) over the last axis, the gumbel
                             draw ``-log(-log(uniform(k, l.shape, tiny, 1)))``
                             (jax's default "low" mode)
@@ -29,7 +33,9 @@ sampling-time work: the reference draws these words with plain
 the logits') device is its counterpart. The uniform words are the
 reference's bit for bit; the gumbel draw's two ``log`` calls may differ from
 XLA's in the last ulp, so a categorical sample can differ only where the
-top two of ``logits + gumbel`` are that close.
+top two of ``logits + gumbel`` are that close. The normal draw's ``log1p``
+is torch's, not XLA's: about 1% of the normals differ from the reference's
+by a few f32 ulps (at most ~5e-7).
 """
 from __future__ import annotations
 
@@ -127,13 +133,15 @@ def _host_words(k: Key, n: int) -> np.ndarray:
 
 
 def _device_words(k: Key, n: int, device) -> torch.Tensor:
-    """The same words on ``device``, in int64 holding uint32 values: the
-    rounds a chunk at a time, in place. Only ``x1`` is masked to 32 bits
-    (before each rotate); ``x0`` carries its carries above bit 31, which
-    never reach the low 32 bits of a sum or an xor, and stays below 2^38."""
+    """The same words on ``device`` as int32 bit patterns: the rounds a chunk
+    at a time, in place, in int64 holding uint32 values, each chunk's words
+    converted to int32 as it ends (a whole leaf never exists in int64). Only
+    ``x1`` is masked to 32 bits (before each rotate); ``x0`` carries its
+    carries above bit 31, which never reach the low 32 bits of a sum or an
+    xor, and stays below 2^38."""
     chunk = WORDS_CHUNK[device.type]
     ks = (k.k0, k.k1, k.k0 ^ k.k1 ^ _PARITY)
-    out = torch.empty(n, dtype=torch.int64, device=device)
+    out = torch.empty(n, dtype=torch.int32, device=device)
     buf = torch.empty((3, min(chunk, n)), dtype=torch.int64, device=device)
     for start in range(0, n, chunk):
         m = min(chunk, n - start)
@@ -149,7 +157,8 @@ def _device_words(k: Key, n: int, device) -> torch.Tensor:
                 x1.bitwise_left_shift_(r).bitwise_or_(t).bitwise_xor_(x0).bitwise_and_(_MASK32)
             x0.add_(ks[(i + 1) % 3])
             x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_MASK32)
-        torch.bitwise_xor(x0, x1, out=out[start:start + m]).bitwise_and_(_MASK32)
+        torch.bitwise_xor(x0, x1, out=t).bitwise_and_(_MASK32)
+        out[start:start + m] = to_int32(t)
     return out
 
 
@@ -161,7 +170,7 @@ def bits(k: Key, shape, device=None) -> torch.Tensor:
     if device.type == "cpu":
         words = torch.from_numpy(_host_words(k, n).view(np.int32))
     else:
-        words = to_int32(_device_words(k, n, device))
+        words = _device_words(k, n, device)
     return words.reshape(tuple(shape))
 
 
@@ -175,10 +184,60 @@ def uniform(k: Key, shape, device=None, minval: float = 0.0,
         return floats
     lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, _fma32(floats, hi - lo, lo))
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors, rounded once to f32, as a fused
+    multiply-add rounds it: the product is exact in f64 (24 + 24 bits), the
+    sum is rounded to odd in f64 (its rounding error, from TwoSum, moves an
+    inexact sum with an even last bit one ulp towards the exact one), and a
+    sum rounded to odd with 29 bits to spare rounds to f32 as the exact sum
+    does."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
+    return s.to(torch.float32)
 
 
 TINY32 = torch.finfo(torch.float32).tiny
+
+# Mike Giles' single-precision erfinv ("Approximating the erfinv function",
+# GPU Computing Gems, 2011), the polynomial XLA lowers f32 ``erf_inv`` to:
+# Horner coefficients, highest degree first, for w < 5 and for w >= 5.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """f32 erfinv of ``x`` in (-1, 1) as XLA computes it: w = -log1p(-x^2),
+    a degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3, each Horner
+    step one fused multiply-add, times x. The ``log1p`` runs in f64 and is
+    rounded to f32: torch's f32 ``log1p`` on the CPU gives a vectorised
+    result or a scalar one depending on where an element falls in a
+    thread's range, so its last bit would follow the thread count."""
+    w = -torch.log1p((-(x * x)).to(torch.float64)).to(torch.float32)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+
+    p = torch.where(small, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for lt5, ge5 in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma32(p, w, torch.where(small, lt5, ge5))
+    return p * x
+
+
+def normal(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(k, shape, float32)``: sqrt(2) * erfinv of the
+    uniform draw over [nextafter(-1, 0), 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, device, minval=lo, maxval=1.0)
+    return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=u.device) * erfinv32(u)
 
 
 def gumbel(k: Key, shape, device=None) -> torch.Tensor:

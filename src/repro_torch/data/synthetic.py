@@ -1,13 +1,16 @@
-"""Deterministic synthetic image data (the machines are offline).
+"""Deterministic synthetic data (the machines are offline).
 
 * ``mnist_like`` -- 784-dim images in [0, 1], 10 classes: class prototypes
   plus Gaussian noise.
 * ``cifar_like`` -- (32, 32, 3) NHWC images in [0, 1], 10 classes: 8x8x3
   prototypes upsampled bilinearly, plus low-frequency noise.
+* ``lm_tokens`` -- token streams with a Zipf marginal and a bigram drift.
 
-Each has the same distribution as the reference's generator (not the same
-numbers). Batch ``step`` is a pure function of (seed, step), drawn from
-seeded ``torch.Generator``s on the target device.
+The image generators have the same distribution as the reference's (not
+the same numbers): batch ``step`` is a pure function of (seed, step), drawn
+from seeded ``torch.Generator``s on the target device. ``lm_tokens`` is the
+reference's twin, token for token, through the threefry twin
+(``core.prng``).
 """
 from __future__ import annotations
 
@@ -16,16 +19,20 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
+
 N_CLASSES = 10
 _SEED_STRIDE = 1_000_003
 
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticSpec:
-    kind: str                 # "mnist" | "cifar"
+    kind: str                 # "mnist" | "cifar" | "lm"
     batch_size: int
     seed: int = 0
     n_train: int = 0          # the training set's size, for steps_per_epoch
+    seq_len: int = 0          # "lm": tokens a row, before the extra label
+    vocab_size: int = 0       # "lm"
 
     @property
     def steps_per_epoch(self) -> int:
@@ -63,12 +70,35 @@ def cifar_like(spec: SyntheticSpec, step: int, *, device):
     return x.contiguous(), labels
 
 
+def lm_tokens(spec: SyntheticSpec, step: int, *, device) -> torch.Tensor:
+    """-> tokens (B, S+1) int32, the reference's (``data.synthetic.lm_tokens``)
+    token for token; inputs are ``[:, :-1]``, labels ``[:, 1:]``.
+
+    A Zipf marginal, ranks ``floor(u^(-1/1.1)) % V`` of uniforms over
+    [1e-6, 1), with a deterministic bigram drift: where a Bernoulli(0.3)
+    draw says so, the token is ``(previous rank * 7 + 13) % V`` (the
+    previous of the first being the row's last). Computed on the CPU and
+    moved to ``device``: f32 ``pow`` differs between libraries in its last
+    ulp, and torch's CPU one gives the reference's floors where a card's
+    ``powf`` need not."""
+    k1, k2 = prng.split(prng.fold_in(prng.key(spec.seed + 2), step))
+    shape = (spec.batch_size, spec.seq_len + 1)
+    v = spec.vocab_size
+    u = prng.uniform(k1, shape, minval=1e-6)
+    base = (torch.floor(torch.pow(u, -1.0 / 1.1)) % v).to(torch.int32)
+    shifted = torch.roll(base, 1, dims=1)
+    mix = prng.uniform(k2, shape) < torch.tensor(0.3, dtype=torch.float32)
+    return torch.where(mix, (shifted * 7 + 13) % v, base).to(device)
+
+
 def train_batch(spec: SyntheticSpec, step: int, *, device):
     if spec.kind == "mnist":
         return mnist_like(spec, step, device=device)
     if spec.kind == "cifar":
         return cifar_like(spec, step, device=device)
-    raise ValueError(f"only the mnist and cifar generators are ported, not {spec.kind!r}")
+    if spec.kind == "lm":
+        return lm_tokens(spec, step, device=device)
+    raise ValueError(f"unknown synthetic data kind {spec.kind!r}")
 
 
 def eval_batch(spec: SyntheticSpec, step: int = 10_000_000, *, device):

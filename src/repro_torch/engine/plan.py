@@ -62,16 +62,18 @@ def tree_leaves_with_path(tree: Any, prefix: str = "") -> Iterator[tuple[str, An
 def tree_unflatten(tree: Any, leaves) -> Any:
     """A tree shaped like ``tree`` whose leaves are taken, in
     :func:`tree_leaves_with_path` order, from ``leaves``."""
-    it = iter(leaves)
+    return _rebuild(tree, iter(leaves))
 
-    def rebuild(node):
-        if isinstance(node, dict):
-            return {k: rebuild(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rebuild(v) for v in node)
-        return next(it)
 
-    return rebuild(tree)
+def _rebuild(node: Any, it) -> Any:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``leaves`` (a step's grads, or its
+    # +-1 weights on the card) alive until Python's cyclic collector runs
+    if isinstance(node, dict):
+        return {k: _rebuild(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(v, it) for v in node)
+    return next(it)
 
 
 def tree_map(fn, tree: Any) -> Any:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.packing import PACK
+from repro_torch.core.packing import PACK, pack_bits, pad_to_pack
 from repro_torch.kernels.binary_matmul import binary_matmul as _binary_matmul
 from repro_torch.kernels.binary_matmul import binary_matmul_batched as _binary_matmul_batched
 from repro_torch.kernels.stoch_binarize import binarize_pack
@@ -72,3 +72,10 @@ def binarize_and_pack(w: torch.Tensor, key: prng.Key | None = None, *,
     shape = (kp32, n) if kp * np_ > 4 * max(k, 1) * max(n, 1) else (kp, np_)
     bits = prng.bits(key, shape, w.device)[:k, :n].contiguous()
     return binarize_pack(w.contiguous(), bits, stochastic=True)
+
+
+def pack_master_weights(w: torch.Tensor) -> torch.Tensor:
+    """Deterministic pack of an already +-1 (K, ...) tensor to (ceil(K/32),
+    ...) int32 (``x > 0`` bit 1, K padded with -1), in plain torch as the
+    reference packs it outside any kernel."""
+    return pack_bits(pad_to_pack(w, axis=0))

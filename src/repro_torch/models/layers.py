@@ -412,6 +412,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    """Rows of ``embedding`` (V, D) at ``tokens`` (any shape), cast to ``dtype``."""
-    rows = embedding.index_select(0, tokens.reshape(-1))
-    return rows.reshape(*tokens.shape, embedding.shape[-1]).to(dtype)
+    """Rows of ``embedding`` (V, D) at ``tokens`` (any shape), cast to ``dtype``.
+    Through ``F.embedding``, whose backward on the card sums a repeated
+    token's rows in a fixed order (``index_select``'s adds them atomically,
+    so a training step's embedding grad would vary from run to run)."""
+    return F.embedding(tokens, embedding).to(dtype)

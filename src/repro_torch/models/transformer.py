@@ -28,15 +28,24 @@ cache holds both kinds of state: K/V of the attention layers, written in
 place, and the mixers' ``ssm`` and ``conv``, returned anew by
 ``decode_step``. Its masters are drawn one (K, N) matrix at a time
 (:func:`lm_draws`), so a packed serve can pack each matrix as it is drawn
-(``ExecutionPlan.pack_drawn``) and never hold the whole master tree. The
-frontend families wait for ROADMAP queue 1 item 6b and raise
-``NotImplementedError``.
+(``ExecutionPlan.pack_drawn``) and never hold the whole master tree.
+
+The frontend families (musicgen: audio frames, internvl2: image patches)
+run the uniform dense template on the embeddings of a stubbed frontend
+(``models.frontends``): every entry point takes float embeddings (B, S, D)
+in place of int tokens, as the reference's does.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+# torch's checkpoint (remat, :func:`_maybe_remat`) imports torch._dynamo at
+# its first call. Made inside a train step, that import leaves a reference
+# cycle through the frames on the stack, which keeps the step's +-1 weights
+# and grads (24 GB at StarCoder2-3B on the card) alive until Python's cyclic
+# collector runs; imported here, it is made before any step.
+import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
 
 from repro_torch.models import attention as A
@@ -46,22 +55,15 @@ from repro_torch.models import ssm as S
 from repro_torch.models.layers import (LeafDraw, embed_lookup, filled, lm_init, rms_norm,
                                        tree_from_paths)
 
-_ITEM_6B = "ROADMAP queue 1 item 6b"
-
 # The cache entries ``decode_step`` returns anew, where it writes the rest in
 # place; :func:`cache_keep` re-selects them for the slots a fused step keeps.
 STEP_STATE = ("pos", "ssm", "conv")
 
 
 def require_ported(cfg) -> None:
-    """Raises unless ``cfg`` runs a template the port runs on tokens: the
-    uniform one (the dense and MoE families), the SSM one or the hybrid one,
-    whose depth must then be a positive multiple of its period (the
+    """Raises unless ``cfg`` runs a template the port runs: every family's
+    does, but a hybrid's depth must be a positive multiple of its period (the
     reference's ``n_layers // attn_period`` would drop the rest)."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet ({_ITEM_6B}); "
-            f"the port runs the dense, MoE, SSM and hybrid families")
     if cfg.is_hybrid and (cfg.n_layers < cfg.attn_period or cfg.n_layers % cfg.attn_period):
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a positive multiple of "
                          f"the hybrid period attn_period={cfg.attn_period}")
@@ -229,30 +231,78 @@ def _period(cfg, lp: dict, x: torch.Tensor, attend, mix, aux: list | None = None
     return x
 
 
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_saved(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the matrix
+    products' outputs, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg, fn):
+    """``fn`` wrapped as the reference's ``_maybe_remat`` wraps its scan body
+    (with ``SUB_REMAT`` off: one checkpoint a layer, or a hybrid period):
+    ``"full"`` saves the layer's inputs and recomputes its forward in the
+    backward; ``"dots"`` also keeps the outputs of the matrix products
+    (``aten`` mm, bmm, addmm and baddbmm, through torch's selective
+    checkpointing), as ``dots_saveable`` keeps every ``dot_general``'s; an
+    einsum that torch runs as a broadcast multiply and sum is recomputed, so
+    ``"dots"`` may save less than JAX would; ``"none"`` saves everything.
+    Remat changes no number, only what the backward keeps. Without grad
+    mode (serving) nothing is wrapped."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from functools import partial
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_saved)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def forward(cfg, params: dict, tokens_or_embeds: torch.Tensor):
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux), aux's
-    ``lb_loss`` the MoE layers' load-balance losses summed (0 when dense)."""
+    """Full-sequence forward: tokens (B, S) or embeddings (B, S, D) -> (logits
+    (B, S, V), aux), aux's ``lb_loss`` the MoE layers' load-balance losses
+    summed in layer order (0 when dense). Each layer (each hybrid period)
+    is checkpointed as ``cfg.remat`` says (:func:`_maybe_remat`)."""
     require_ported(cfg)
     x = _embed_in(cfg, params, tokens_or_embeds)
-    if cfg.is_ssm_only:
-        for i in range(cfg.n_layers):
-            lp = layer_params(params["layers"], i)
-            x = x + S.ssm_forward(cfg, lp["ssm"], rms_norm(x, lp["ln1"]["scale"]))
-        return _head_out(cfg, params, x), {"lb_loss": torch.zeros((), device=x.device)}
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    aux: list[dict] = []
-    if cfg.is_hybrid:
-        for p in range(_hybrid_counts(cfg)[0]):
-            x = _period(cfg, layer_params(params["layers"], p), x,
-                        lambda ap, h: A.attention(cfg, ap, h, positions),
-                        lambda mi, mp, h: S.ssm_forward(cfg, mp, h), aux)
-    else:
-        for i in range(cfg.n_layers):
-            x = _block(cfg, layer_params(params["layers"], i), x,
-                       lambda ap, h: A.attention(cfg, ap, h, positions), aux)
     lb = torch.zeros((), device=x.device)
-    for a in aux:
-        lb = lb + a["lb_loss"]
+    if cfg.is_ssm_only:
+        def ssm_layer(lp, x):
+            return x + S.ssm_forward(cfg, lp["ssm"], rms_norm(x, lp["ln1"]["scale"]))
+
+        run = _maybe_remat(cfg, ssm_layer)
+        for i in range(cfg.n_layers):
+            x = run(layer_params(params["layers"], i), x)
+        return _head_out(cfg, params, x), {"lb_loss": lb}
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def attend(ap, h):
+        return A.attention(cfg, ap, h, positions)
+
+    def layer(lp, x):
+        """One layer (or hybrid period) -> (x, the MoE layers' lb_loss list)."""
+        aux: list[dict] = []
+        if cfg.is_hybrid:
+            x = _period(cfg, lp, x, attend, lambda mi, mp, h: S.ssm_forward(cfg, mp, h), aux)
+        else:
+            x = _block(cfg, lp, x, attend, aux)
+        return x, [a["lb_loss"] for a in aux]
+
+    run = _maybe_remat(cfg, layer)
+    n = _hybrid_counts(cfg)[0] if cfg.is_hybrid else cfg.n_layers
+    for i in range(n):
+        x, lbs = run(layer_params(params["layers"], i), x)
+        for v in lbs:
+            lb = lb + v
     return _head_out(cfg, params, x), {"lb_loss": lb}
 
 

@@ -137,6 +137,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, mode: BinarizeMode 
             grads, new_state["err"] = compression.compress_tree(grads, state["err"])
         params, opt = optimizer.update(grads, state["opt"], state["params"],
                                        state["step"])             # Alg. 1 (3)
+        del grads           # freed before the clip allocates its copies
         if mode is not BinarizeMode.NONE:
             params = binarize.clip_tree(params, policy)           # Alg. 1 (4)
         new_state.update(params=params, opt=opt, step=state["step"] + 1)
@@ -154,6 +155,28 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, mode: BinarizeMode 
 # ---------------------------------------------------------------------------
 # Ready-made loss functions
 # ---------------------------------------------------------------------------
+
+def make_lm_loss(cfg, lb_weight: float = 0.01):
+    """Next-token loss of the LM decoder stacks (``models.transformer``):
+    ``softmax_xent + lb_weight * lb_loss``, aux ``xent`` and ``lb_loss`` as
+    0-d tensors. Integer ``batch["tokens"]`` (B, S+1) give inputs
+    ``[:, :-1]`` and labels ``[:, 1:]``; float ones are a stubbed
+    frontend's embeddings (B, S, D), with ``batch["labels"]`` (B, S)."""
+    from repro_torch.models import transformer as T
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        if tokens.is_floating_point():
+            inputs, labels = tokens, batch["labels"]
+        else:
+            inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        logits, aux = T.forward(cfg, params, inputs)
+        xent = softmax_xent(logits, labels)
+        lb = aux["lb_loss"]
+        return xent + lb_weight * lb, {"xent": xent.detach(), "lb_loss": lb.detach()}
+
+    return loss_fn
+
 
 def make_classifier_loss(apply_fn):
     """For the paper's FC/VGG models (batch-norm state threaded through)."""

@@ -1286,3 +1286,120 @@ def test_hybrid_serve_on_the_card(cuda, mode):
     finally:
         ops._binary_matmul, ops._binary_matmul_batched = saved
     torch.testing.assert_close(logits, plain, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Alg.-1 training of the decoder LMs on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minval", [1e-6, float(np.nextafter(np.float32(-1), np.float32(0))),
+                                    float(np.finfo(np.float32).tiny)])
+def test_uniform_with_minval_and_normal_on_the_card_equal_the_cpu(cuda, minval):
+    """The twin's single-rounding scale and shift gives the CPU's uniforms on
+    the card bit for bit; its normals (f64 log1p and FMA steps) too."""
+    k = prng.key(9)
+    assert torch.equal(prng.uniform(k, (300, 700), cuda, minval=minval).cpu(),
+                       prng.uniform(k, (300, 700), minval=minval))
+    assert torch.equal(prng.normal(k, (300, 700), cuda).cpu(), prng.normal(k, (300, 700)))
+
+
+@pytest.mark.cuda
+def test_lm_tokens_and_frontend_stubs_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import frontends
+
+    spec = syn.SyntheticSpec("lm", batch_size=8, seq_len=128, vocab_size=49152)
+    for step in (0, 7):
+        assert torch.equal(syn.lm_tokens(spec, step, device=cuda).cpu(),
+                           syn.lm_tokens(spec, step, device="cpu"))
+    for stub in frontends.STUBS.values():
+        got = stub(prng.key(3), 2, 16, 64, device=cuda)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), stub(prng.key(3), 2, 16, 64))
+
+
+def _lm_steps(arch, mode, device, n=1, start=None):
+    """(start state, [(new state, metrics)] a step) of ``n`` SMOKE LM steps
+    through ``build_lm`` on ``device`` (from ``start``, moved there, when
+    given); a frontend arch trains on its stub's embeddings."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch.train import build_lm
+    from repro_torch.models import frontends
+
+    state, step_fn, batch_fn = build_lm(arch, binarize=mode, smoke=True, batch=4, seq=16,
+                                        device=device)
+    if start is not None:
+        state = {k: (v if k in ("key", "step") else tree_map(lambda t: t.to(device), v))
+                 for k, v in start.items()}
+    cfg = cb.get_config(arch, smoke=True)
+    out, start = [], state
+    for i in range(n):
+        batch = batch_fn(i)
+        if cfg.frontend:
+            batch = {"tokens": frontends.STUBS[cfg.frontend](prng.key(i), 4, 16, cfg.d_model,
+                                                              device=device),
+                     "labels": batch["tokens"][:, 1:]}
+        state, m = step_fn(state, batch)
+        out.append((state, m))
+    return start, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "stoch"])
+@pytest.mark.parametrize("arch", ["starcoder2_3b", "moonshot_v1_16b_a3b", "mamba2_130m",
+                                  "jamba_1_5_large", "musicgen_large"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch, mode):
+    """One SMOKE LM step (f32) on the card and on the CPU from the same
+    masters and batch: loss, xent and lb_loss within rtol 1e-4; momentum
+    (the step's grads) within 2e-5 + 1e-2 x the leaf's largest |grad|, and
+    the masters within the same x the leaf's largest update, as the CPU
+    parity tests hold the port to the reference (f32 grads through +-1
+    weights are that sensitive to the order of their sums); no port kernel
+    launches."""
+    names = (binary_matmul, binarize_pack, sign_pack, xnor_matmul)
+    before = [f.launches for f in names]
+    start, [(new, m)] = _lm_steps(arch, mode, cuda)
+    assert [f.launches for f in names] == before
+    _, [(new_cpu, m_cpu)] = _lm_steps(arch, mode, "cpu", start=start)
+    for k in ("loss", "xent", "lb_loss"):
+        torch.testing.assert_close(m[k].cpu(), m_cpu[k], rtol=1e-4, atol=1e-7)
+    old = dict(tree_leaves_with_path(start["params"]))
+    for name, got, want in (("mu", new["opt"]["mu"], new_cpu["opt"]["mu"]),
+                            ("params", new["params"], new_cpu["params"])):
+        for (path, a), (_, b) in zip(tree_leaves_with_path(got), tree_leaves_with_path(want)):
+            scale = float((b if name == "mu" else b - old[path].cpu()).abs().max())
+            err = float((a.cpu().double() - b.double()).abs().max())
+            assert err <= 2e-5 + 1e-2 * scale, (name, path, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2_3b", "mamba2_130m"])
+def test_lm_train_steps_replay_bit_for_bit_on_the_card(cuda, arch):
+    """Two runs of three SMOKE LM steps from one seed end bit for bit equal
+    (the embedding's backward sums a repeated token's rows in order)."""
+    a = _lm_steps(arch, "stoch", cuda, 3)[1][-1][0]
+    b = _lm_steps(arch, "stoch", cuda, 3)[1][-1][0]
+    for (path, x), (_, y) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
+        assert (x == y) if isinstance(x, prng.Key) else torch.equal(x, y), path
+
+
+@pytest.mark.cuda
+def test_lm_remat_changes_no_grad_on_the_card(cuda):
+    """Remat "full" and "dots" give the grads of "none" on the card too."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.launch.train import build_lm
+    from repro_torch.train import steps as ST
+
+    state, _, batch_fn = build_lm("jamba_1_5_large", smoke=True, batch=4, seq=16, device=cuda)
+    cfg = cb.get_config("jamba_1_5_large", smoke=True)
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        grads[remat] = ST.binarized_value_and_grad(
+            ST.make_lm_loss(dataclasses.replace(cfg, remat=remat)), state["params"],
+            batch_fn(0), mode="det", policy=DEFAULT_POLICY, key=None)[1]
+    for remat in ("full", "dots"):
+        for (path, a), (_, b) in zip(tree_leaves_with_path(grads[remat]),
+                                     tree_leaves_with_path(grads["none"])):
+            assert torch.equal(a, b), (remat, path)

@@ -233,11 +233,19 @@ def test_depth_must_be_a_multiple_of_the_period():
 
 @pytest.mark.parametrize("arch", ["musicgen_large", "internvl2_76b"])
 def test_frontend_families_still_raise(arch):
-    cfg = cb.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-        T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-        T.forward(cfg, {}, torch.zeros((1, 2), dtype=torch.int32))
+    """The frontend families, once refused, are ported: a forward from the
+    stub's embeddings (B, S, D) in place of tokens gives the reference's
+    logits."""
+    from repro.models import frontends as JF
+    from repro_torch.models import frontends as F
+
+    jcfg, cfg = jcb.get_config(arch, smoke=True), cb.get_config(arch, smoke=True)
+    jp = JT.init_lm(jcfg, jax.random.key(0))
+    jx = JF.STUBS[jcfg.frontend](jax.random.key(4), 2, 10, jcfg.d_model)
+    x = F.STUBS[cfg.frontend](prng.key(4), 2, 10, cfg.d_model)
+    want, _ = JT.forward(jcfg, jp, jx)
+    got, _ = T.forward(cfg, from_jax_tree(jp, device="cpu"), x)
+    np.testing.assert_allclose(_t(got), _np(want), **TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -141,11 +141,17 @@ def test_registry_names_and_aliases():
 
 @pytest.mark.parametrize("arch", ["musicgen_large", "internvl2_76b"])
 def test_other_families_raise_naming_the_roadmap(arch):
-    cfg = cb.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-        T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    """The frontend families, once refused, are ported: their masters and
+    decode cache have the reference's tree, shapes and dtypes."""
+    jcfg, cfg = jcb.get_config(arch, smoke=True), cb.get_config(arch, smoke=True)
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want = jax.eval_shape(lambda: JT.init_lm(jcfg, jax.random.key(0)))
+    assert [(p, tuple(t.shape)) for p, t in tree_leaves_with_path(params)] == [
+        (p, tuple(a.shape)) for p, a in tree_leaves_with_path(want)]
+    cache = T.init_cache(cfg, 1, 8, device="cpu")
+    jcache = JT.init_cache(jcfg, 1, 8)
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in cache.items()} == {
+        k: (tuple(v.shape), str(v.dtype)) for k, v in jcache.items()}
 
 
 @pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "grok_1_314b"])

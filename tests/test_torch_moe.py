@@ -415,6 +415,20 @@ def test_xnor_experts_are_refused_on_both_sides(models, arch):
 
 
 def test_other_families_still_raise():
+    """The frontend families, once refused, are ported: internvl2's packed
+    det forward from the stub's patch embeddings gives the reference's
+    logits (the K2 plain version on both sides' words)."""
+    from repro.models import frontends as JF
+    from repro_torch.models import frontends as F
+
     for arch in ("internvl2_76b",):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-            T.forward(cb.get_config(arch, smoke=True), {}, torch.zeros((1, 2), dtype=torch.int32))
+        jcfg, cfg = jcb.get_config(arch, smoke=True), cb.get_config(arch, smoke=True)
+        jp = JT.init_lm(jcfg, jax.random.key(0))
+        mp = from_jax_tree(jp, device="cpu")
+        jdet = j_compile_plan(jp, J_POLICY, "det").pack(jp)
+        det = compile_plan(mp, DEFAULT_POLICY, "det").pack(mp)
+        jx = JF.patch_embeddings(jax.random.key(6), 2, 8, jcfg.d_model)
+        x = F.patch_embeddings(prng.key(6), 2, 8, cfg.d_model)
+        want, _ = JT.forward(jcfg, jdet, jx)
+        got, _ = T.forward(cfg, det, x)
+        np.testing.assert_allclose(_t(got), _np(want), **TOL)

@@ -74,8 +74,13 @@ class TestServeEngine:
         cfg, params, engine = _engine()
         with pytest.raises(NotImplementedError, match="item 7"):
             ServeEngine(cfg, params, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            ServeEngine(cb.get_config("internvl2_76b", smoke=True), params)
+        # a frontend config, once refused, is served as the reference's
+        # engine serves it: its backbone on token prompts
+        vlm = cb.get_config("internvl2_76b", smoke=True)
+        vlm_engine = ServeEngine(vlm, T.init_lm(vlm, torch.Generator().manual_seed(0),
+                                                device="cpu"))
+        assert vlm_engine.generate(torch.zeros((1, 3), dtype=torch.int32),
+                                   max_new=2).tokens.shape == (1, 2)
         with pytest.raises(NotImplementedError, match="item 8"):
             stream_serve(engine, SlotBatcher(1, 4), sentinel=object())
 

@@ -418,9 +418,24 @@ def test_packed_equals_binarized_dense(models):
 
 
 def test_hybrid_and_frontend_families_still_raise():
+    """The frontend families, once refused, are ported: a prefill from the
+    stub's embeddings, then two decode steps, each from an embedding, give
+    the reference's logits and cache."""
+    from repro.models import frontends as JF
+    from repro_torch.models import frontends as F
+
     for arch in ("musicgen_large", "internvl2_76b"):
-        cfg = cb.get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-            T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6b"):
-            T.init_cache(cfg, 1, 8, device="cpu")
+        jcfg, cfg = jcb.get_config(arch, smoke=True), cb.get_config(arch, smoke=True)
+        jp = JT.init_lm(jcfg, jax.random.key(0))
+        mp = from_jax_tree(jp, device="cpu")
+        jx = JF.STUBS[jcfg.frontend](jax.random.key(5), 2, 8, jcfg.d_model)
+        x = F.STUBS[cfg.frontend](prng.key(5), 2, 8, cfg.d_model)
+        jlg, jc = JT.prefill(jcfg, jp, jx[:, :6], max_len=8)
+        lg, c = T.prefill(cfg, mp, x[:, :6], max_len=8)
+        for i in (6, 7):
+            np.testing.assert_allclose(_t(lg), _np(jlg), **TOL, err_msg=f"{arch} {i}")
+            jlg, jc = JT.decode_step(jcfg, jp, jc, jx[:, i:i + 1])
+            lg, c = T.decode_step(cfg, mp, c, x[:, i:i + 1])
+        np.testing.assert_allclose(_t(lg), _np(jlg), **TOL, err_msg=arch)
+        for name in jc:
+            np.testing.assert_allclose(_t(c[name]), _np(jc[name]), **TOL, err_msg=name)
