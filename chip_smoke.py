@@ -254,6 +254,24 @@ masters bit for bit those of a run without the crash); and one det step of
 Moonlight and jamba at SMOKE width against the CPU (the MoE backward:
 ``lb_loss`` and the router's grads).
 
+Since the dense family's mesh serving (phase 6k, after 6f; about two
+minutes more): StarCoder2-3B at its full CONFIG on a (2, 2) ("data",
+"model") mesh whose four positions share the card (``LM_MESH``), placed
+from 6e's packed det and xnor trees (``ServeEngine(mesh=, plan=)``): every
+projection's shards (K2 on N/2; xnor K3 + K4 on N/2, or on K/2 with K4's
+int32 partials summed, then scaled) equal the single-device call bit for
+bit; the ``LM_SERVE`` streams equal 6e's up to near ties (counted); the
+counters give 120 projections at each of a decode step's 4 positions and a
+slot's prefill's 2, the collectives the plan's prediction
+(``obs.collectives.predict_call_collectives``) for the serve and for one
+decode step; the first 4 requests' logits hold 2^-5 of the largest against
+the single-device engine's on the same tokens; tok/s, TTFT, the decode
+step's wall and device ms and launches, bytes a position and peak
+allocated; then a chunked det serve with the prefix cache at
+``LM_6F_LAYERS`` layers cut from 6e's det tree against whole-prompt
+admission on the mesh. Phase 7 times K2, K3 and K4 at a position's decode
+shapes (M = 2, ``LM_MESH_K2`` / ``LM_MESH_K4``).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -342,6 +360,20 @@ LM_MODES = ("det", "stoch", "xnor")
 LM_SERVE = dict(requests=16, slots=4, prompt_len=32, max_new=16, seed=0)
 # (K, N) of the 4 projections of a layer: qkv, w_o, wi, wo
 LM_KN = [(3072, 3584), (3072, 3072), (3072, 12288), (12288, 3072)]
+# Phase 6k: StarCoder2-3B served on a (2, 2) ("data", "model") mesh whose
+# four positions share the card, placed from 6e's packed det and xnor trees
+# (ServeEngine(mesh=, plan=)). A data group decodes 2 of the 4 slots; each
+# model position runs its shard of every projection: det, N/2 of each (K, N)
+# of LM_KN (column parallel, the outputs gathered); xnor, w_qkv and wi on N/2
+# (scaled K4) and w_o and wo on K/2 (row parallel: K3 on the activation's
+# range, then K4's unscaled int32 partial of the word range; the partials
+# summed, then scaled once). A decode step runs every projection at all 4
+# positions (4 x 120 K2, or K3 + K4), a slot's prefill at its group's 2.
+LM_MESH = ((2, 2), ("data", "model"))
+LM_MESH_K2 = [(k, n // 2) for k, n in LM_KN]
+# (K of the range, N of the shard, scaled) of the 4 xnor projections' K3 + K4
+LM_MESH_K4 = [(3072, 1792, True), (1536, 3072, False), (3072, 6144, True),
+              (6144, 3072, False)]
 # Logits against the same forward with the plain kernels on the card: the
 # largest |difference| at most LM_LOGIT_TOL x the largest |logit|, about four
 # bf16 ulps of it (K2's f32 sums differ from the plain version's only in
@@ -1335,6 +1367,7 @@ def main() -> int:
           f"f32 tolerance (products with +-1 are exact, both sides sum in f32)")
     lm_k2_cases = [(m, k, n, "k2_lm") for m in (4, 32) for k, n in LM_KN]
     lm_k2_cases += [(m, k, n, "k2_ssm") for m in (4, SSM_LONG_PROMPT) for k, n in SSM_KN]
+    lm_k2_cases += [(m, k, n, "k2_mesh") for m in (2, 32) for k, n in LM_MESH_K2]
     for m, k, n, key_ in lm_k2_cases:
         if key_ == "k2_ssm" and (m, k) == (4, SSM_KN[0][0]):
             print(f"== K2 at {SSM_ARCH}'s projection shapes, bf16 (decode M=4, a "
@@ -1352,7 +1385,7 @@ def main() -> int:
             torch.testing.assert_close(got, want, **F32_TOL, msg=f"K2 LM {m}x{k}x{n}")
             if not torch.equal(binary_matmul(x, wp, s_), got):
                 raise AssertionError(f"K2 LM {m}x{k}x{n}: two calls differ")
-            if m == 4:
+            if m == (2 if key_ == "k2_mesh" else 4):
                 errs[key_] = max(errs.get(key_, 0.0), err)
 
     # 5. K3, K4, K5 against their plain versions, exact
@@ -1373,6 +1406,11 @@ def main() -> int:
     for (m, k) in [(4, 3072), (4, 12288), (32, 3072), (32, 12288)]:
         x = acts((m, k), torch.bfloat16)
         exact(f"K3 {LM_ARCH} input {m}x{k} bf16", sign_pack(x), sign_pack_plain(x))
+    for m in (2, 32):
+        for k in sorted({k for k, _, _ in LM_MESH_K4}):
+            x = acts((m, k), torch.bfloat16)
+            exact(f"K3 {LM_ARCH} mesh position input {m}x{k} bf16", sign_pack(x),
+                  sign_pack_plain(x))
     for m in (4, SSM_LONG_PROMPT):
         for k, _ in SSM_KN:
             x = acts((m, k), torch.bfloat16)
@@ -1471,6 +1509,8 @@ def main() -> int:
                  for m in (4, 32) for k, n in LM_KN]
     k4_cases += [(m, k // 32, n, k, f"{SSM_ARCH} {'decode' if m == 4 else 'prefill'} {k}x{n}")
                  for m in (4, SSM_LONG_PROMPT) for k, n in SSM_KN]
+    k4_cases += [(m, k // 32, n, k, f"{LM_ARCH} mesh position {'decode' if m == 2 else 'prefill'}"
+                                    f" {k}x{n}") for m in (2, 32) for k, n, _ in LM_MESH_K4]
     for m, wds, n, k, what in k4_cases:
         a, w = words((m, wds)), words((wds, n))
         for s in (None, torch.rand(n, generator=g, device=dev) + 0.5):
@@ -2032,6 +2072,7 @@ def main() -> int:
     lm_cfg = cb.get_config(LM_ARCH)
     n_proj = 4 * lm_cfg.n_layers                  # projection launches a prefill or step
     lm_rows = {}
+    lm_keep = {}       # mode -> the served det / xnor tree, its plan and streams, for 6k
 
     def lm_greedy(engine, prompts, max_new):
         """(B, max_new, V) f32: each step's logits of greedy generation from
@@ -2122,7 +2163,7 @@ def main() -> int:
             row = plan["layers/attn/w_o"]
             keys = prng.split(prng.fold_in(prng.key(1), row.index), lm_cfg.n_layers)
             served = engine.params["layers"]["attn"]["w_o"].packed
-            for layer in (0, lm_cfg.n_layers - 1):
+            for layer in range(lm_cfg.n_layers):
                 cpu = kops_mod.binarize_and_pack(masters["layers"]["attn"]["w_o"][layer].cpu(),
                                                  keys[layer], stochastic=True)
                 if not torch.equal(served[layer].cpu(), cpu):
@@ -2168,6 +2209,10 @@ def main() -> int:
                 raise AssertionError(f"{LM_ARCH} {mode}: request {r.uid}'s stream differs "
                                      f"from its one-shot generate")
         print(f"  all {len(done)} streams equal the one-shot generate of their request")
+        if mode in ("det", "xnor"):
+            lm_keep[mode] = {"params": engine.params, "plan": res.plan,
+                             "prompts": [r.prompt for r in done],
+                             "streams": {r.uid: list(r.generated) for r in done}}
 
         # decode step: wall (synced), device time and launches (profiler)
         state = engine.init_decode(4, LM_SERVE["prompt_len"], LM_SERVE["max_new"])
@@ -2525,6 +2570,229 @@ def main() -> int:
           f"{secs:.3f} s); decode step wall {e_step[0]:.3f} ms, device {fmt(e_step[1])} ms "
           f"in {fmt_count(e_step[2])} device launches")
     del engine, state, rs, masters
+    torch.cuda.empty_cache()
+
+    phase_start["6k"] = time.perf_counter()
+    # 6k. StarCoder2-3B at full width and depth on a (2, 2) ("data", "model")
+    # mesh whose four positions share the card, placed from 6e's packed det
+    # and xnor trees; then a chunked det serve with the prefix cache at
+    # LM_6F_LAYERS layers, cut from 6e's det tree
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.layers import apply_linear
+    from repro_torch.obs.collectives import predict_call_collectives
+
+    lm_cfg = cb.get_config(LM_ARCH)
+    n_proj = 4 * lm_cfg.n_layers
+    mesh = SH.Mesh(*LM_MESH, device="cuda")
+    groups, n_model = mesh.shape[0], mesh.model_size
+    sizes = mesh.axis_sizes()
+    m_new, m_slots = LM_SERVE["max_new"], LM_SERVE["slots"]
+    proj_kernels = {"det": ("binary_matmul",), "xnor": ("sign_pack", "xnor_matmul")}
+    mesh6k = {}
+    print(f"== mesh: {mesh} ({mesh.size} positions on one card; single controller: one "
+          f"process launches every position's kernels and the collectives between them)")
+
+    def served_logits(engine, prompts, max_new, forced=None):
+        """((B, max_new, V) f32 logits, (B, max_new) tokens) of greedy serving
+        on B slots through the engine's entry points (prefill_into each slot,
+        then decode_step), decoding ``forced`` tokens where given."""
+        state = engine.init_decode(len(prompts), len(prompts[0]), max_new)
+        for slot, p_ in enumerate(prompts):
+            state = engine.prefill_into(state, slot, p_)
+        out, toks = [], []
+        for i in range(max_new):
+            out.append(state.logits.to(torch.float32))
+            toks.append(torch.argmax(state.logits, dim=-1) if forced is None else forced[:, i])
+            if i < max_new - 1:
+                state = engine.decode_step(state, toks[-1])
+        return torch.stack(out, 1), torch.stack(toks, 1)
+
+    def near_ties(tag, got, want, margin_of, tol_scale):
+        """Holds each stream of ``got`` against ``want`` (uid -> tokens): a
+        stream may part only at a step whose top-2 logit margin on the
+        single-device path is under ``tol_scale`` of the largest logit;
+        returns (streams equal, near ties)."""
+        n_eq = ties = 0
+        for uid, w_ in want.items():
+            if got[uid] == w_:
+                n_eq += 1
+                continue
+            i = first_diff(got[uid], w_)
+            lg_ = margin_of(uid)[i]
+            tol_, marg = tol_scale * lg_.abs().max().item(), top2_margin(lg_).item()
+            print(f"  {tag} request {uid}: equal up to step {i}, where the single-device "
+                  f"top-2 margin is {marg:.4g} (tolerance {tol_:.4g})")
+            if marg >= tol_:
+                raise AssertionError(f"{tag}: request {uid} parts from the single-device "
+                                     f"stream with a top-2 margin above the tolerance")
+            ties += 1
+        return n_eq, ties
+
+    for mode in ("det", "xnor"):
+        keep = lm_keep.pop(mode)
+        print(f"== serve {LM_ARCH} full width ({lm_cfg.n_layers} layers) --packed --binarize "
+              f"{mode} on the mesh, placed from 6e's tree: {LM_SERVE}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = ServeEngine(lm_cfg, keep["params"], mesh=mesh, plan=keep["plan"])
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        single = ServeEngine(lm_cfg, keep["params"])
+        per_pos = SH.position_nbytes(engine.params)
+        print(f"  placed in {place_s:.3f} s: {', '.join(f'{b_ / 1e6:.1f}' for b_ in per_pos.flat)}"
+              f" MB a position (row-major), {sum(per_pos.flat) / 1e6:.1f} MB in all")
+
+        # every projection at its mesh shards against the single-device call, bit
+        # for bit: K2's column sums and K4's popcounts do not depend on N or M
+        view = SH.group_view(engine.params, 0)
+        n_checked = 0
+        for blk, name in (("attn", "w_qkv"), ("attn", "w_o"), ("mlp", "wi"), ("mlp", "wo")):
+            whole_leaf = keep["params"]["layers"][blk][name]
+            for layer in range(lm_cfg.n_layers):
+                x = torch.randn(m_slots // groups, 1, whole_leaf.k, generator=g,
+                                device=dev).to(torch.bfloat16)
+                a_ = apply_linear(view["layers"][blk][name][layer], x)
+                b_ = apply_linear(whole_leaf[layer], x)
+                if not torch.equal(a_, b_):
+                    raise AssertionError(f"{LM_ARCH} {mode} mesh: {blk}/{name} layer {layer} "
+                                         f"differs from the single-device projection")
+                n_checked += 1
+        what = ("K2 column shards" if mode == "det"
+                else "K3 + K4 column shards and int32 row partials")
+        print(f"  all {n_checked} projections ({what}) equal the single-device call bit for "
+              f"bit on a group's 2 rows")
+
+        t_parts = {"place and projection checks": time.perf_counter() - t0}
+        reset_counts()
+        SH.reset_collective_counts()
+        t0 = time.perf_counter()
+        streams, b, steps, secs = serve_streams(engine, keep["prompts"], m_new, m_slots)
+        t_parts["serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        calls = LM_SERVE["requests"] * n_model + (steps - 1) * n_model * groups
+        print(f"  {LM_SERVE['requests']} prefills x {n_model} positions + {steps - 1} decode "
+              f"steps x {mesh.size} positions, x {n_proj} projections")
+        expect_counts(f"{LM_ARCH} {mode} mesh", (f"{mode} mesh", mode),
+                      {name: n_proj * calls for name in proj_kernels[mode]})
+        p1 = predict_call_collectives(keep["plan"], sizes, groups=1)
+        p2 = predict_call_collectives(keep["plan"], sizes, groups=groups)
+        want_c = {k_: LM_SERVE["requests"] * p1[k_] + (steps - 1) * p2[k_] for k_ in p1}
+        got_c = SH.collective_counts()
+        print(f"  collectives over the serve {got_c} (the plan's prediction {want_c})")
+        if got_c != want_c:
+            raise AssertionError(f"{LM_ARCH} {mode} mesh: collectives {got_c} != {want_c}")
+
+        # the streams against 6e's single-device ones, near ties counted
+        prompts_t = {uid: torch.from_numpy(p_[None]).to(dev)
+                     for uid, p_ in enumerate(keep["prompts"])}
+        n_eq, ties = near_ties(f"{LM_ARCH} {mode} mesh", streams, keep["streams"],
+                               lambda uid: lm_greedy(single, prompts_t[uid], m_new)[0],
+                               LM_LOGIT_TOL)
+        print(f"  {n_eq}/{len(streams)} mesh streams equal 6e's single-device streams, "
+              f"{ties} parting at a near tie")
+
+        # the logits of the first 4 requests, both engines decoding 6e's tokens
+        s_lg, s_tok = served_logits(single, keep["prompts"][:m_slots], m_new)
+        m_lg, _ = served_logits(engine, keep["prompts"][:m_slots], m_new, forced=s_tok)
+        err = (m_lg - s_lg).abs().amax(dim=-1)
+        tol = LM_LOGIT_TOL * s_lg.abs().amax(dim=-1)
+        n_bitwise = int((m_lg == s_lg).all(dim=-1).sum())
+        print(f"  logits of the first {m_slots} requests x {m_new} steps vs single-device: "
+              f"max_abs_err {err.max().item():.4g} (tolerance at least "
+              f"{tol.min().item():.4g}); {n_bitwise}/{err.numel()} steps bit for bit")
+        if (err > tol).any():
+            raise AssertionError(f"{LM_ARCH} {mode} mesh: logits past the tolerance")
+        t_parts["streams and logits checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # a decode step: wall, device ms, launches, collectives
+        state = engine.init_decode(m_slots, LM_SERVE["prompt_len"], m_new)
+        for slot in range(m_slots):
+            state = engine.prefill_into(state, slot, keep["prompts"][slot])
+        tok = torch.argmax(state.logits, dim=-1)
+        step_wall = []
+        for _ in range(m_new - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = engine.decode_step(state, tok)
+            torch.cuda.synchronize()
+            step_wall.append(time.perf_counter() - t0)
+        step_ms = statistics.median(step_wall) * 1e3
+        step_state = engine.init_decode(m_slots, LM_SERVE["prompt_len"], m_new)
+        SH.reset_collective_counts()
+        engine.decode_step(step_state, tok)
+        step_c = SH.collective_counts()
+        if step_c != p2:
+            raise AssertionError(f"{LM_ARCH} {mode} mesh: a decode step's collectives "
+                                 f"{step_c} != the plan's prediction {p2}")
+        # one profile for both numbers: a mesh step records ~5,500 launches a rep
+        events = profile_events(lambda: engine.decode_step(step_state, tok), reps=3)
+        step_dev = events and sum(t for t, _ in events.values()) / 3 / 1e3
+        step_n = events and sum(c for _, c in events.values()) / 3
+        peak = torch.cuda.max_memory_allocated() - live
+        t_parts["step timing"] = time.perf_counter() - t0
+        print("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t_parts.items()))
+        mesh6k[mode] = {"tok_s": b.tokens_generated / secs, "seconds": secs, "steps": steps,
+                        "ttft_ms": statistics.median(r.ttft for r in b.completed) * 1e3,
+                        "step_ms": step_ms, "step_device_ms": step_dev,
+                        "step_launches": step_n, "collectives": step_c,
+                        "bytes_per_position": [int(v) for v in per_pos.flat],
+                        "peak_gb": peak / 1e9, "place_s": place_s, "n_equal": n_eq,
+                        "near_ties": ties, "logit_err": err.max().item(),
+                        "steps_bitwise": n_bitwise, "proj_launches": n_proj * n_model * groups}
+        print(f"  {mesh6k[mode]['tok_s']:.1f} tok/s ({steps} steps in {secs:.3f} s), median "
+              f"TTFT {mesh6k[mode]['ttft_ms']:.1f} ms; decode step {step_ms:.3f} ms median "
+              f"(synced), device {fmt(step_dev)} ms in {fmt_count(step_n)} device launches "
+              f"({n_proj * n_model * groups} of them the projections' "
+              f"{'K2' if mode == 'det' else 'K3 + K4 pairs'}), collectives a step {step_c}; "
+              f"peak allocated {peak / 1e9:.2f} GB above the {live / 1e9:.2f} GB held")
+        if mode == "det":
+            det_tree = keep["params"]
+        del engine, single, state, step_state, keep, view
+
+    # chunked det with the prefix cache on the mesh, 6e's det tree cut to
+    # LM_6F_LAYERS layers, against whole-prompt admission on the same mesh
+    cfg10 = dataclasses.replace(lm_cfg, n_layers=LM_6F_LAYERS)
+    cut = dict(det_tree, layers=tree_map(lambda a: a[:LM_6F_LAYERS], det_tree["layers"]))
+    n_proj10 = 4 * LM_6F_LAYERS
+    print(f"== serve {LM_ARCH} det on the mesh, {LM_6F_LAYERS} of 30 layers cut from 6e's "
+          f"tree, chunked prefill and the prefix cache: {LM_CHUNK}, request {repeat} "
+          f"repeating request {LM_REPEAT_OF}'s prompt, against whole-prompt admission on "
+          f"the mesh")
+    engine = ServeEngine(cfg10, cut, mesh=mesh)
+    whole10, wb, _, wsecs = serve_streams(engine, chunk_prompts, c_new, c_slots)
+    pc, reg = PrefixCache(max_entries=LM_CHUNK["prefix_cache"]), MetricsRegistry()
+    reset_counts()
+    streams10, b, steps, secs = serve_streams(engine, chunk_prompts, c_new, c_slots,
+                                              prefill_chunk=c_len, prefix_cache=pc,
+                                              metrics=reg)
+    chunks = int(reg["serve_prefill_chunks_total"].value)
+    calls = n_model * (groups * (steps - 1) + chunks)
+    print(f"  {steps - 1} decode steps x {mesh.size} positions + {chunks} prefill chunks x "
+          f"{n_model} positions, x {n_proj10} projections")
+    expect_counts(f"{LM_ARCH} det mesh chunked", ("det mesh chunked", "det"),
+                  {"binary_matmul": n_proj10 * calls})
+    st = pc.stats()
+    print(f"  prefix cache: {st}")
+    if st["hits"] < 1 or streams10[repeat] != streams10[LM_REPEAT_OF]:
+        raise AssertionError(f"{LM_ARCH} det mesh chunked: no prefix hit, or request "
+                             f"{repeat}'s full-prompt hit differs from request "
+                             f"{LM_REPEAT_OF}'s stream")
+    single10 = ServeEngine(cfg10, cut)
+    lg10 = lm_greedy(single10, torch.from_numpy(np.stack(chunk_prompts)).to(dev), c_new)
+    n_eq10, ties10 = near_ties(f"{LM_ARCH} det mesh chunked", streams10, whole10,
+                               lambda uid: lg10[uid], LM_6F_LOGIT_TOL)
+    mesh6k["chunked"] = {"tok_s": b.tokens_generated / secs, "whole_tok_s":
+                         wb.tokens_generated / wsecs, "steps": steps, "chunks": chunks,
+                         "prefix": st, "n_equal": n_eq10, "near_ties": ties10,
+                         "n": len(chunk_prompts)}
+    print(f"  {n_eq10}/{len(chunk_prompts)} chunked mesh streams equal the whole-prompt mesh "
+          f"streams, {ties10} parting at a near tie; {mesh6k['chunked']['tok_s']:.1f} tok/s "
+          f"chunked, {mesh6k['chunked']['whole_tok_s']:.1f} whole-prompt")
+    del engine, single10, cut, det_tree, lg10
     torch.cuda.empty_cache()
 
     phase_start["6g"] = time.perf_counter()
@@ -4002,6 +4270,34 @@ def main() -> int:
                             total(launches["xnor_matmul"], lm_x), errs["k4"], lm_k4),
                     "device_ms_per_shape": [r[6] for r in lm_k4]})
 
+    print(f"== {LM_ARCH} on the (2, 2) mesh, decode shapes a position runs (M = 2: a data "
+          f"group's slots; det: N/2 of each projection; xnor: w_qkv and wi on N/2, w_o and "
+          f"wo on K/2, K4's int32 partial unscaled)")
+    mesh_k2 = [k2_lm_row(2, k, n) for k, n in LM_MESH_K2]
+    kernels.append({**entry(f"binary_matmul ({LM_ARCH} det on a (2, 2) mesh, decode: a "
+                            f"position's N shard at a group's M=2, bf16, scaled: the 4 "
+                            f"projections of a layer, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul"],
+                                  [(LM_ARCH, "det mesh"), (LM_ARCH, "det mesh chunked")]),
+                            errs["k2_mesh"], mesh_k2),
+                    "device_ms_per_shape": [r[6] for r in mesh_k2]})
+    mesh_x = [(LM_ARCH, "xnor mesh")]
+    mesh_k3 = [k3_row(2, k, torch.bfloat16) for k, _, _ in LM_MESH_K4]
+    kernels.append({**entry(f"sign_pack, no prologue ({LM_ARCH} xnor on a (2, 2) mesh, "
+                            f"decode: a position's input range at M=2, bf16: the 4 "
+                            f"projections of a layer, summed)", k3_src, k3_rep,
+                            total(launches["sign_pack"], mesh_x), errs["k3"], mesh_k3),
+                    "device_ms_per_shape": [r[6] for r in mesh_k3]})
+    mesh_k4 = [k4_row(2, k // 32, n, k, scaled) for k, n, scaled in LM_MESH_K4]
+    kernels.append({**entry(f"xnor_matmul ({LM_ARCH} xnor on a (2, 2) mesh, decode: a "
+                            f"position's shard at M=2, w_qkv and wi scaled on N/2, w_o and wo "
+                            f"int32 on K/2: the 4 projections of a layer, summed)",
+                            k4_src, k4_rep, total(launches["xnor_matmul"], mesh_x),
+                            errs["k4"], mesh_k4),
+                    "device_ms_per_shape": [r[6] for r in mesh_k4]})
+
     def k2_moe_row(e_, m, k, n, routings=None):
         """The expert-batched K2 at (E, M, K, N), bf16, scaled: all rows live,
         or cycling through ``routings`` (per-expert counts, one a call) with
@@ -4253,6 +4549,24 @@ def main() -> int:
           f"{e_['pack_s']:.3f} s, {e_['tok_s']:.1f} tok/s, decode step {e_['step'][0]:.3f} ms "
           f"wall, {fmt(e_['step'][1])} device, {fmt_count(e_['step'][2])} launches, mean "
           f"agreement {e_['agreement']:.3f}")
+    print(f"== {LM_ARCH} on the (2, 2) ('data', 'model') mesh, one card (full width, "
+          f"{LM_SERVE}) [{smi}]")
+    for mode in ("det", "xnor"):
+        r = mesh6k[mode]
+        print(f"  {mode}: placed in {r['place_s']:.3f} s, "
+              f"{', '.join(f'{v / 1e6:.1f}' for v in r['bytes_per_position'])} MB a position; "
+              f"{r['tok_s']:.1f} tok/s ({r['steps']} steps in {r['seconds']:.3f} s), median "
+              f"TTFT {r['ttft_ms']:.1f} ms, decode step {r['step_ms']:.3f} ms (device "
+              f"{fmt(r['step_device_ms'])} ms, {fmt_count(r['step_launches'])} launches, "
+              f"{r['proj_launches']} of them the projections'), collectives a step "
+              f"{r['collectives']}, peak {r['peak_gb']:.2f} GB; {r['n_equal']}/16 streams equal "
+              f"6e's, {r['near_ties']} near ties; logits vs single-device {r['logit_err']:.4g} "
+              f"({r['steps_bitwise']}/{m_slots * m_new} steps bit for bit)")
+    r = mesh6k["chunked"]
+    print(f"  chunked det ({LM_6F_LAYERS} layers): {r['tok_s']:.1f} tok/s ({r['steps']} steps, "
+          f"{r['chunks']} chunks; whole-prompt {r['whole_tok_s']:.1f} tok/s), prefix "
+          f"{r['prefix']['hits']} hits, {r['n_equal']}/{r['n']} streams equal the whole-prompt "
+          f"mesh streams, {r['near_ties']} near ties")
     print(f"== {MOE_ARCH} serving summary (full width, {MOE_LAYERS} of 48 layers, {LM_SERVE})")
     for mode in MOE_MODES:
         r = moe_rows[mode]

@@ -251,6 +251,32 @@ def _apply_xnor(w: XnorLinear, x: torch.Tensor | SignWords, rows=None) -> torch.
                             out_dtype=torch.float32).to(x.dtype)
 
 
+def row_partial(w, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel shard's partial product, ``x`` its range of the
+    contraction: an xnor shard's int32 popcount dot of its word range, with
+    no scale (K3 + K4 on the range; partials sum exactly), or a dense
+    shard's f32 product. A mesh position runs it; the sum is an all-reduce
+    (``distributed.sharding.sharded_linear``)."""
+    if isinstance(w, XnorLinear):
+        return xops.xnor_matmul(x, w.packed, None, k=w.k)
+    if isinstance(w, torch.Tensor):
+        return _apply_dense(w, x).to(torch.float32)
+    raise NotImplementedError(f"no row-parallel route for a {type(w).__name__} leaf "
+                              f"(only xnor and dense shard their contraction dim)")
+
+
+def row_finish(w, total: torch.Tensor, dtype) -> torch.Tensor:
+    """The summed partials of :func:`row_partial` as the unsharded apply
+    returns them: xnor scales the int32 sum once, ``f32(dot) * scale`` as
+    K4's flush does, then casts to ``dtype``."""
+    if isinstance(w, XnorLinear):
+        out = total.to(torch.float32)
+        if w.scale is not None:
+            out = out * w.scale.to(torch.float32).to(out.device)
+        return out.to(dtype)
+    return total.to(dtype)
+
+
 def _apply_packed_conv(w: PackedConv, x: torch.Tensor, *, stride=(1, 1), padding="SAME"):
     wb = unpack_bits(w.packed, dtype=torch.float32)[: w.k]   # drop the ragged pad
     if w.scale is not None:

@@ -13,8 +13,9 @@ sharding column. The :class:`ExecutionPlan`
   a key matches a leaf path exactly or as a '/'-prefix),
 * records each row's sharding column (the mesh placement of the master
   leaf: binary backends put "model" on the out-channel dim, dense leaves
-  follow the Megatron path rules; ``distributed.sharding``), which no
-  placement reads until the port has a mesh (ROADMAP, queue 7),
+  follow the Megatron path rules; ``distributed.sharding``), sanitized
+  against a concrete mesh when one is given, which
+  ``distributed.sharding.place_packed_params`` follows,
 * feeds ``plan_report``, which costs every row under every eligible
   backend, and ``lint`` (``repro_torch.analysis``).
 
@@ -94,6 +95,12 @@ class LayerAssignment:
     # Mesh placement of the master leaf: one entry per dim, each None, an
     # axis name or a list of names. None on the whole row: a v1 manifest.
     sharding: Optional[list] = None
+
+    @property
+    def pspec(self) -> Optional[tuple]:
+        """The sharding column as a spec tuple over the master shape (None
+        for an unannotated row)."""
+        return None if self.sharding is None else SH.spec_from_json(self.sharding)
 
     def to_json(self) -> dict:
         return {"path": self.path, "index": self.index, "shape": list(self.shape),
@@ -303,17 +310,19 @@ def _match_override(overrides: Mapping[str, str], path: str) -> tuple[str, str] 
     return best
 
 
-def _row_sharding(path: str, shape: tuple, backend: str) -> list:
+def _row_sharding(path: str, shape: tuple, backend: str, mesh=None) -> list:
     """The sharding column of one row: binary backends shard their
     registered ``tp_dim`` (the out-channel dim, so a packed int32 word never
     splits across devices), or the contraction dim of row-parallel
     projections where the backend declares ``tp_contract_dim``; dense
-    leaves follow the Megatron path rules. Mesh-independent axis names:
-    checking them against a concrete mesh waits for ROADMAP queue 7."""
+    leaves follow the Megatron path rules. With a concrete ``mesh``, axes it
+    cannot honour (a missing name, a dim that does not divide) replicate."""
     ndim = len(shape)
     spec = SH.backend_leaf_spec(path, ndim, registry.get_backend(backend))
     if spec is None:
         spec = SH.leaf_pspec(path, ndim)
+    if mesh is not None:
+        spec = SH.sanitize_spec(mesh, spec, shape)
     return SH.spec_to_json(spec)
 
 
@@ -331,11 +340,10 @@ def compile_plan(params: Any, policy, mode: str | BinarizeMode = "det", *,
     '/'-prefix) onto a named backend, which must be eligible there (``dense``
     always is); an exact path that is not raises, and so does a pattern
     that matched no leaf. ``replica_axis`` is recorded for an ensemble
-    (``stoch``). ``mesh`` raises ``NotImplementedError`` (queue 7)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "compile_plan(mesh=...): the port has no device mesh yet; the sharding column "
-            "is recorded mesh-independent (ROADMAP, queue 7)")
+    (``stoch``). The sharding column holds mesh-independent axis names;
+    with a concrete ``mesh`` (``distributed.sharding.Mesh``, or anything
+    with ``axis_names`` and ``devices.shape``) it is sanitized against it,
+    and ``replica_axis`` must be one of its axes."""
     mode_str = mode.value if isinstance(mode, BinarizeMode) else str(mode)
     if mode_str not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode_str!r}")
@@ -381,11 +389,14 @@ def compile_plan(params: Any, policy, mode: str | BinarizeMode = "det", *,
                     raise ValueError(f"override {path!r} -> {forced!r}: ineligible ({why})")
         rows.append(LayerAssignment(path=path, index=i, shape=shape, backend=chosen,
                                     reason=reason, eligible=elig,
-                                    sharding=_row_sharding(path, shape, chosen)))
+                                    sharding=_row_sharding(path, shape, chosen, mesh)))
     unused = [pat for pat, used in override_used.items() if not used]
     if unused:
         raise ValueError(f"overrides matched no applicable leaf: {unused} (paths are "
                          f"'/'-joined, e.g. 'conv/3' or 'conv/3/kernel')")
+    if replica_axis is not None and mesh is not None and replica_axis not in mesh.axis_names:
+        raise ValueError(f"replica_axis {replica_axis!r} is not a mesh axis "
+                         f"(mesh has {tuple(mesh.axis_names)})")
     plan = ExecutionPlan(mode=mode_str, with_scale=with_scale, layers=rows,
                          replica_axis=replica_axis)
     if warn:

@@ -70,10 +70,21 @@ the ensemble-mean logits and reports the replicas' vote agreement;
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mnist_fc \
       --binarize stoch --ensemble 8 --abstain-threshold 0.6
 
+Token archs of the dense family also serve on a device mesh: ``--mesh
+data,model --mesh-shape 2,2`` places the packed tree by the plan's sharding
+column (words split over "model") and the decode slots over "data"
+(``ServeEngine(mesh=, plan=)``); the mesh's positions go round-robin over
+the visible cards, so on one card all four share ``cuda:0``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
+      --smoke --device cpu --packed --binarize xnor --mesh data,model \
+      --mesh-shape 2,2
+
 Runs on the CUDA device unless ``--device cpu`` is given; asking for CUDA
-where there is none raises. The reference's mesh serving (ROADMAP queue 1
-item 7) and the collective audit and compiled-program analysis of a token
-arch (item 8) are not ported: their flags exit naming the item.
+where there is none raises. The collective audit and compiled-program
+analysis of a token arch (ROADMAP item 8) are not ported: their flags exit
+naming the item, and so do an ensemble, MoE, SSM or hybrid arch on a mesh
+(item 7b).
 """
 from __future__ import annotations
 
@@ -93,6 +104,7 @@ from repro_torch.configs import vgg16_cifar10 as VC
 from repro_torch.core import prng
 from repro_torch.core.policy import DEFAULT_POLICY, make_paper_policy
 from repro_torch.data import synthetic as syn
+from repro_torch.distributed.sharding import Mesh, position_nbytes
 from repro_torch.engine import ExecutionPlan, compile_plan, format_plan_table, plan_report
 from repro_torch.engine.backends import XNOR_EXPERTS_ABSENT
 from repro_torch.models import mnist_fc, vgg
@@ -167,6 +179,34 @@ def build_model(arch: str, seed: int, *, device, smoke: bool = False):
     raise ValueError(f"arch must be one of {ARCHS}, not {arch!r}")
 
 
+def make_serve_mesh(mesh: str, mesh_shape: str = "", *, device="cuda") -> Mesh | None:
+    """The serving mesh of ``--mesh`` (axis names, e.g. ``data,model``) and
+    ``--mesh-shape`` (sizes, e.g. ``2,2``; default: every visible card on
+    the last axis, one position on the CPU), or None without ``--mesh``."""
+    if not mesh:
+        if mesh_shape:
+            raise SystemExit("--mesh-shape requires --mesh (axis names)")
+        return None
+    axes = tuple(a.strip() for a in mesh.split(",") if a.strip())
+    if mesh_shape:
+        shape = tuple(int(n) for n in mesh_shape.split(","))
+    else:
+        cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+        shape = (1,) * (len(axes) - 1) + (max(cards, 1),)
+    if len(shape) != len(axes):
+        raise SystemExit(f"--mesh has {len(axes)} axes but --mesh-shape has {len(shape)} "
+                         f"entries")
+    m = Mesh(shape, axes, device=device)
+    devs = sorted({str(d) for d in m.devices.flat})
+    print(f"mesh: {m.axis_sizes()} over {m.size} positions on {', '.join(devs)}")
+    return m
+
+
+def mesh_axis_sizes(mesh) -> dict | None:
+    """{axis: size} for plan_report's predicted-collective column."""
+    return None if mesh is None else dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
 def parse_overrides(override) -> dict[str, str]:
     """``PATH=BACKEND`` strings -> {path: backend}, as the reference's CLI."""
     overrides = {}
@@ -182,11 +222,13 @@ def parse_overrides(override) -> dict[str, str]:
 def make_plan(params, policy, *, binarize: str = "det", with_scale: bool = True,
               plan_out: str = "", plan_from: str = "", show_report: bool = False,
               report_batch: int = C.BATCH_SIZE, override=(), ensemble: int = 1,
-              replica_axis: str = "data") -> ExecutionPlan:
+              replica_axis: str = "data", mesh=None) -> ExecutionPlan:
     """Compiles (or loads) the execution plan and runs the requested plan
     I/O, as the reference's ``make_plan``. A loaded plan is authoritative:
     its mode decides the packing and the sign-activation forward, whatever
-    ``binarize`` says."""
+    ``binarize`` says. With a ``mesh`` the compiled sharding column is
+    sanitized against it, and the report predicts its collectives at its
+    axis sizes."""
     if plan_from:
         if override:
             raise SystemExit("--override edits a plan at compile time; it cannot be "
@@ -197,7 +239,7 @@ def make_plan(params, policy, *, binarize: str = "det", with_scale: bool = True,
                   f"(--binarize {binarize} ignored)")
     else:
         plan = compile_plan(params, policy, binarize, with_scale=with_scale,
-                            overrides=parse_overrides(override) or None,
+                            overrides=parse_overrides(override) or None, mesh=mesh,
                             replica_axis=replica_axis if ensemble > 1 else None)
     if ensemble > 1 and plan.replica_axis is None:
         # a v2 manifest, or one compiled without an ensemble: adopt the CLI's
@@ -205,7 +247,8 @@ def make_plan(params, policy, *, binarize: str = "det", with_scale: bool = True,
     if plan_out:
         print(f"plan manifest -> {plan.save(plan_out)}")
     if show_report:
-        print(format_plan_table(plan_report(plan, batch=report_batch)))
+        print(format_plan_table(plan_report(plan, batch=report_batch,
+                                            axis_sizes=mesh_axis_sizes(mesh))))
     return plan
 
 
@@ -384,7 +427,7 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
              metrics_out: str = "", prefill_chunk: int = 0, prefix_cache: int = 0,
              shared_prefix: int = 0, ensemble: int = 1,
              abstain_threshold: float | None = None,
-             n_layers: int | None = None) -> LMServeResult:
+             n_layers: int | None = None, mesh: Mesh | None = None) -> LMServeResult:
     """Step-level continuous-batching serving of a token arch, as the
     reference's ``launch.serve`` token path: master weights drawn from
     ``seed`` (``torch.Generator``), packed at ``prng.key(seed + 1)`` when
@@ -406,7 +449,11 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     tree: the plan is compiled from the masters' shapes
     (``T.lm_shapes``) and ``plan.pack_drawn`` draws each (K, N) matrix and
     packs it at once, which gives ``plan.pack(T.init_lm(...))`` bit for
-    bit. Its ensemble, and every other family, draws the masters whole."""
+    bit. Its ensemble, and every other family, draws the masters whole.
+
+    ``mesh`` (``distributed.sharding.Mesh``, the dense family) serves the
+    tree placed on it by the plan's sharding column, the decode slots split
+    over its data groups (``ServeEngine(mesh=, plan=)``)."""
     arch = cb.canonical_arch(arch)
     if (prefill_chunk or prefix_cache) and ensemble > 1:
         raise SystemExit("--prefill-chunk/--prefix-cache are single-sample serving features; "
@@ -416,6 +463,10 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if cfg.frontend:
         raise SystemExit(f"{arch} uses a stubbed frontend; serve a token arch")
+    if mesh is not None and (ensemble > 1 or cfg.n_experts or cfg.is_ssm_only
+                             or cfg.is_hybrid):
+        what = "a K-replica ensemble" if ensemble > 1 else f"the {cfg.family} family"
+        raise SystemExit(f"--mesh: serving {what} on a mesh waits for ROADMAP item 7b")
     if (plan_from or override) and not packed:
         raise SystemExit("--plan-from/--override change how weights are packed; add "
                          "--packed (use --plan/--plan-report alone for a dry inspection)")
@@ -432,7 +483,7 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     if packed or plan_out or plan_from or show_report or override:
         plan = make_plan(params, DEFAULT_POLICY, binarize=binarize, plan_out=plan_out,
                          plan_from=plan_from, show_report=show_report, report_batch=slots,
-                         override=override)
+                         override=override, mesh=mesh)
     pack_seconds = replicas = None
     if cfg.n_experts and packed and plan.mode == "xnor":
         raise SystemExit(f"{arch}: {XNOR_EXPERTS_ABSENT}")
@@ -466,7 +517,13 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     tracer = Tracer(fence=trace_fence) if trace else None
     metrics = MetricsRegistry() if metrics_out else None
     engine = ServeEngine(cfg, None if replicas is not None else params, ensemble=replicas,
-                         abstain_threshold=abstain_threshold, tracer=tracer)
+                         abstain_threshold=abstain_threshold, tracer=tracer, mesh=mesh,
+                         plan=plan if packed and mesh is not None else None)
+    if mesh is not None:
+        del params          # the engine holds the placed tree
+        per = position_nbytes(engine.params)
+        print(f"placed on the mesh: {', '.join(f'{b / 1e6:.1f}' for b in per.flat)} MB "
+              f"a position (row-major)")
     pc = PrefixCache(max_entries=prefix_cache) if prefix_cache else None
     batcher = SlotBatcher(slots, prompt_len, tracer=tracer)
     rng = np.random.default_rng(seed)
@@ -525,9 +582,7 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
 
 #: The reference's token-arch flags whose features are not ported yet, and
 #: the ROADMAP item each waits for.
-_DEFERRED_LM_FLAGS = (("mesh", "--mesh", "queue 1 item 7"),
-                      ("mesh_shape", "--mesh-shape", "queue 1 item 7"),
-                      ("audit_collectives", "--audit-collectives", "queue 1 item 8"),
+_DEFERRED_LM_FLAGS = (("audit_collectives", "--audit-collectives", "queue 1 item 8"),
                       ("analyze", "--analyze", "queue 1 item 8"))
 
 
@@ -601,11 +656,17 @@ def main(argv=None) -> ServeResult | LMServeResult:
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="P",
                     help="token archs: give every request the same first P prompt tokens "
                          "(prefix-cache hits on the synthetic prompts)")
-    ap.add_argument("--mesh", default="", help="not ported (ROADMAP)")
-    ap.add_argument("--mesh-shape", default="", help="not ported (ROADMAP)")
+    ap.add_argument("--mesh", default="",
+                    help="token archs of the dense family: serve on a device mesh, comma-"
+                         "separated axis names (e.g. 'data,model')")
+    ap.add_argument("--mesh-shape", default="",
+                    help="per-axis sizes for --mesh, e.g. '2,2' (default: every visible "
+                         "card on the last axis); positions share the cards round-robin")
     ap.add_argument("--audit-collectives", action="store_true", help="not ported (ROADMAP)")
     args = ap.parse_args(argv)
     arch = cb.canonical_arch(args.arch)
+    if args.mesh_shape and not args.mesh:
+        raise SystemExit("--mesh-shape requires --mesh (axis names)")
     if (args.prefill_chunk or args.prefix_cache) and args.ensemble > 1:
         raise SystemExit("--prefill-chunk/--prefix-cache are single-sample serving features; "
                          "K-replica ensemble serving prefills whole prompts")
@@ -617,8 +678,9 @@ def main(argv=None) -> ServeResult | LMServeResult:
             raise SystemExit("--trace/--audit-collectives instrument the step-level token "
                              "serving loop; the classifier path is fixed-batch (use "
                              "--metrics-out)")
-        if args.mesh or args.mesh_shape:
-            raise SystemExit("--mesh: the port serves on one device (ROADMAP queue 1 item 7)")
+        if args.mesh:
+            raise SystemExit("--mesh serving covers the token archs; the classifier path is "
+                             "fixed-batch single-device")
         return serve_classifier(arch=arch, binarize=args.binarize, slots=args.slots,
                                 requests=64 if args.requests is None else args.requests,
                                 seed=args.seed, device=args.device, smoke=args.smoke,
@@ -641,7 +703,8 @@ def main(argv=None) -> ServeResult | LMServeResult:
                     trace_fence=not args.no_trace_fence, metrics_out=args.metrics_out,
                     prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
                     shared_prefix=args.shared_prefix, ensemble=args.ensemble,
-                    abstain_threshold=args.abstain_threshold)
+                    abstain_threshold=args.abstain_threshold,
+                    mesh=make_serve_mesh(args.mesh, args.mesh_shape, device=args.device))
 
 
 if __name__ == "__main__":

@@ -179,10 +179,16 @@ def apply_linear(w, x, bias: torch.Tensor | None = None, *,
                  rows: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w (+ bias); the leaf type of ``w`` selects its backend. ``x`` is a
     tensor, or :class:`SignWords` where ``takes_sign_words(w)`` holds.
-    ``rows`` (E,): for an MoE expert leaf, each expert's live rows of x."""
+    ``rows`` (E,): for an MoE expert leaf, each expert's live rows of x.
+    ``w`` may be a mesh group's ``distributed.sharding.ModelShards``: its
+    column- or row-parallel product and collective."""
+    from repro_torch.distributed import sharding
     from repro_torch.engine import registry
 
-    out = registry.apply_linear(w, x, rows)
+    if isinstance(w, sharding.ModelShards):     # a mesh group's shards
+        out = sharding.sharded_linear(w, x)
+    else:
+        out = registry.apply_linear(w, x, rows)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -415,5 +421,12 @@ def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.
     """Rows of ``embedding`` (V, D) at ``tokens`` (any shape), cast to ``dtype``.
     Through ``F.embedding``, whose backward on the card sums a repeated
     token's rows in a fixed order (``index_select``'s adds them atomically,
-    so a training step's embedding grad would vary from run to run)."""
+    so a training step's embedding grad would vary from run to run).
+    ``embedding`` may be a mesh group's vocab shards
+    (``distributed.sharding.ModelShards``): each shard's ``F.embedding``,
+    then an exact sum."""
+    from repro_torch.distributed import sharding
+
+    if isinstance(embedding, sharding.ModelShards):
+        return sharding.sharded_embed_lookup(embedding, tokens, dtype)
     return F.embedding(tokens, embedding).to(dtype)

@@ -48,6 +48,7 @@ import torch
 import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as MOE
@@ -177,13 +178,15 @@ def _embed_in(cfg, params: dict, tokens_or_embeds: torch.Tensor) -> torch.Tensor
 
 def _head_out(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the dense head; the f32 head master is cast to the
-    activation dtype every call, as the reference casts it."""
+    activation dtype every call, as the reference casts it. On a mesh
+    group's vocab shards the head is vocab-parallel: each shard cast and
+    multiplied, the logits gathered (``distributed.sharding.sharded_head``)."""
     x = rms_norm(x, params["final_norm"]["scale"])
-    if cfg.tie_embeddings:
-        w = params["embed"]["embedding"].to(x.dtype).T
-    else:
-        w = params["lm_head"]["kernel"].to(x.dtype)
-    return torch.matmul(x, w)
+    w = params["embed"]["embedding"] if cfg.tie_embeddings else params["lm_head"]["kernel"]
+    if isinstance(w, SH.ModelShards):
+        return SH.sharded_head(w, x, tied=cfg.tie_embeddings)
+    w = w.to(x.dtype)
+    return torch.matmul(x, w.T if cfg.tie_embeddings else w)
 
 
 def _block(cfg, lp: dict, x: torch.Tensor, attend, aux: list | None = None) -> torch.Tensor:
@@ -344,6 +347,23 @@ def cache_slot_axes(cfg) -> dict[str, int]:
     if cfg.is_hybrid:
         return {"pos": 0, "k": 1, "v": 1, "ssm": 2, "conv": 2}
     return {"pos": 0, "k": 1, "v": 1}
+
+
+def cache_pspecs(cfg, dp_axes=("data",)) -> dict:
+    """Spec of every decode-cache entry on a mesh, keyed like
+    :func:`cache_slot_axes`: the slot axis splits over ``dp_axes`` and
+    every other axis, the KV sequence included, is replicated over "model"
+    (the reference's serving layout: a decode step's cache writes stay on
+    the position). ``dp_axes`` may be empty (a mesh with no data axis): the
+    whole cache replicates. A spec shorter than an entry's rank replicates
+    the trailing dims."""
+    dp = tuple(dp_axes) if len(dp_axes) > 1 else dp_axes[0] if dp_axes else None
+    if cfg.is_ssm_only:
+        return {"pos": (dp,), "ssm": (None, dp), "conv": (None, dp)}
+    if cfg.is_hybrid:
+        return {"pos": (dp,), "k": (None, dp), "v": (None, dp),
+                "ssm": (None, None, dp), "conv": (None, None, dp)}
+    return {"pos": (dp,), "k": (None, dp), "v": (None, dp)}
 
 
 def cache_insert(cfg, cache: dict, one: dict, slot: int) -> dict:

@@ -1,8 +1,10 @@
 """The collective a plan row's sharding column implies, per application: the
 static prediction column of ``plan_report`` (a copy of the reference's
-``obs/collectives.py: predict_row_collective``). Counting the collectives a
-compiled program really runs waits for a mesh on the card (ROADMAP,
-queue 8).
+``obs/collectives.py: predict_row_collective``), and its sum over a model
+call (:func:`predict_call_collectives`), which a mesh serve's counters
+(``distributed.sharding.collective_counts``) equal. The reference's audit
+of the collectives in a compiled program reads XLA's HLO, which the eager
+port does not have (ROADMAP item 8).
 """
 from __future__ import annotations
 
@@ -49,3 +51,23 @@ def predict_row_collective(sharding: Optional[list], shape: tuple, batch: int = 
                 return {"kind": kind, "axes": axes, "parts": parts,
                         "bytes_per_app": batch * n * ACT_BYTES}
     return None
+
+
+def predict_call_collectives(plan, axis_sizes: dict, *, groups: int = 1) -> dict[str, int]:
+    """{kind: count} of the collectives one model call (a prefill, a decode
+    step or a prefill chunk) runs on a mesh of ``axis_sizes``: every
+    compute row's :func:`predict_row_collective`, once per application (a
+    stacked (L, K, N) row applies once a layer, any other row once: the
+    embedding's lookup, the head's product), times ``groups``, the data
+    groups that run the call. The port's single controller runs a
+    group's model-axis collectives for that group alone, where one HLO op
+    of the reference spans the groups as its replica groups."""
+    out = {"all-gather": 0, "all-reduce": 0}
+    for a in plan.compute_rows():
+        c = predict_row_collective(a.sharding, a.shape, axis_sizes=axis_sizes)
+        if c is not None:
+            apps = 1
+            for d in a.shape[:-2]:
+                apps *= d
+            out[c["kind"]] += apps * groups
+    return out

@@ -23,8 +23,18 @@ reference donates it.
 A K-replica stochastic ensemble (``ServeEngine(ensemble=ReplicaSet)``)
 decodes from the replicas' mean logits over a (K, ...) cache: where the
 reference vmaps over the replicas, the port loops over them, each replica's
-forward on its own view of the one cache. A mesh (``mesh=``) waits for
-ROADMAP queue 1 item 7, the retrace sentinel for item 8.
+forward on its own view of the one cache.
+
+On a device mesh (``ServeEngine(cfg, params, mesh=Mesh(...), plan=plan)``,
+the dense family) the engine places the tree as the plan's sharding column
+says (``distributed.sharding.place_packed_params``: packed words split over
+"model" on N, an xnor row-parallel projection on whole words) and the
+decode cache as ``T.cache_pspecs`` says: the slots split over the data
+groups (:class:`MeshCache`). Every entry point runs each data group's model
+call on its own slots with the group's shards, running the model-axis
+collectives itself (``distributed.sharding``); the groups' logits rows come
+back to the lead position, so ``stream_serve``, sampling and the prefix
+cache stay one host loop. The retrace sentinel waits for ROADMAP item 8.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.distributed import sharding as SH
 from repro_torch.engine.plan import tree_leaves_with_path
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
@@ -140,6 +151,31 @@ def sample_tokens(logits: torch.Tensor, temperature: float = 0.0, key=None):
     return tok, lp.gather(-1, tok[:, None].long())[:, 0]
 
 
+@dataclasses.dataclass
+class MeshCache:
+    """A decode cache placed on a mesh: the slots split over the data
+    groups (``T.cache_pspecs``), ``parts[g]`` a cache dict of group g's
+    ``per`` slots on its lead position (one part, all slots, when the slots
+    do not divide over the groups: the cache then replicates over the data
+    axis and group 0 serves it). ``cache[name]`` reads an entry of every
+    slot, concatenated on the first part's device."""
+
+    parts: list
+    per: int
+    axes: dict                 # entry -> slot axis (T.cache_slot_axes)
+
+    def locate(self, slot: int) -> tuple[int, int]:
+        """(group, the slot's index within the group's part)."""
+        return divmod(slot, self.per)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        dev = self.parts[0][name].device
+        return torch.cat([p[name].to(dev) for p in self.parts], dim=self.axes[name])
+
+    def with_parts(self, parts: list) -> "MeshCache":
+        return dataclasses.replace(self, parts=parts)
+
+
 def _replica_cache(cache: dict, r: int) -> dict:
     """Replica ``r``'s view of a (K, ...) ensemble cache: writes through the
     views land in the stacked tensors."""
@@ -165,6 +201,14 @@ class ServeEngine:
       ``ensemble.base``, bit for bit. ``abstain_threshold`` flags
       generations whose worst-step vote agreement is below it.
 
+    * mesh: ``mesh=`` (``distributed.sharding.Mesh``, axes among "pod",
+      "data" and "model") places ``params`` by ``plan``'s sharding column
+      (or the same rules re-derived without a plan) and splits the decode
+      slots over the data groups; streams equal the single-device engine's
+      where the arithmetic allows it (every K2 and K4 column sums in an
+      order N and M do not change). The dense family only: an ensemble,
+      MoE, SSM or hybrid cfg on a mesh waits for ROADMAP item 7b.
+
     ``tracer`` (``repro_torch.obs.Tracer``) wraps every entry point in a
     span with a ``dispatch`` child (the call returns with its kernels
     queued) and a ``device`` child (the tracer's fence waits for the card);
@@ -172,11 +216,13 @@ class ServeEngine:
 
     def __init__(self, cfg, params, *, mesh=None, plan=None, ensemble=None,
                  abstain_threshold: Optional[float] = None, tracer=None):
-        if mesh is not None or plan is not None:
-            raise _not_ported("mesh-placed serving (ServeEngine(mesh=..., plan=...))",
-                              "ROADMAP queue 1 item 7")
         T.require_ported(cfg)
+        if plan is not None and mesh is None:
+            raise ValueError("ServeEngine(plan=...) only places params on a mesh; pass "
+                             "mesh= as well (or drop plan=)")
         self.cfg = cfg
+        self.mesh = mesh
+        self._views = None
         self.abstain_threshold = abstain_threshold
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._replicas = None
@@ -193,8 +239,106 @@ class ServeEngine:
             if ensemble.k > 1 and ensemble.stacked:
                 self._replicas = ensemble
                 self._trees = [ensemble.merge_replica(r) for r in range(ensemble.k)]
-        self.params = params
-        self.device = params["embed"]["embedding"].device
+        if mesh is not None:
+            self._views = self._place(mesh, params, plan, ensemble)
+            params = self.params
+        else:
+            self.params = params
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else params["embed"]["embedding"].device)
+
+    def _place(self, mesh, params, plan, ensemble) -> list:
+        """Places ``params`` on ``mesh`` (``self.params``) and returns each
+        data group's view of it."""
+        cfg = self.cfg
+        if ensemble is not None:
+            raise NotImplementedError("ServeEngine(mesh=..., ensemble=...): placing a "
+                                      "K-replica ensemble on a mesh waits for ROADMAP item 7b")
+        if cfg.n_experts or cfg.is_ssm_only or cfg.is_hybrid:
+            raise NotImplementedError(
+                f"{cfg.name}: serving the {cfg.family} family on a mesh waits for ROADMAP "
+                f"item 7b (an MoE layer's capacity follows the tokens of a call, so a data "
+                f"split would change it; the SSM and hybrid caches are not placed yet)")
+        odd = set(mesh.axis_names) - {SH.MODEL, *SH.BATCH_AXES}
+        if odd:
+            raise ValueError(f"a serving mesh has axes among {SH.BATCH_AXES + (SH.MODEL,)}, "
+                             f"got {mesh.axis_names}")
+        self.params = SH.place_packed_params(mesh, params, plan)
+        self._group_devs = [mesh.devices.flat[row[0]] for row in mesh.groups()]
+        return [SH.group_view(self.params, g) for g in range(len(self._group_devs))]
+
+    def _split(self, n: int) -> int:
+        """How many data groups ``n`` slots (or prompt rows) split over: the
+        sanitized slot spec of ``T.cache_pspecs`` (1 when they do not
+        divide)."""
+        spec = SH.sanitize_spec(self.mesh, T.cache_pspecs(self.cfg, SH.batch_axes(self.mesh))
+                                ["pos"], (n,))
+        sizes = self.mesh.axis_sizes()
+        return math.prod(sizes[a] for a in SH.entry_axes(spec[0])) if spec else 1
+
+    # -- one model call, on one device or over a mesh's data groups ---------
+
+    def _prefill(self, tokens: torch.Tensor, max_len: int):
+        """(last-token logits (B, V), cache) of a batched prefill; on a mesh
+        the rows split over the data groups."""
+        if self.mesh is None:
+            return T.prefill(self.cfg, self.params, tokens, max_len=max_len)
+        per = tokens.shape[0] // self._split(tokens.shape[0])
+        lgs, parts = [], []
+        for g in range(tokens.shape[0] // per):
+            lg, part = T.prefill(self.cfg, self._views[g],
+                                 tokens[g * per:(g + 1) * per].to(self._group_devs[g]),
+                                 max_len=max_len)
+            lgs.append(lg.to(self.device))
+            parts.append(part)
+        return torch.cat(lgs), MeshCache(parts, per, T.cache_slot_axes(self.cfg))
+
+    def _decode(self, cache, tokens: torch.Tensor):
+        """One decode step of every slot: (logits (n_slots, V), cache)."""
+        if self.mesh is None:
+            return T.decode_step(self.cfg, self.params, cache, tokens)
+        lgs, parts = [], []
+        for g, part in enumerate(cache.parts):
+            lg, new = T.decode_step(self.cfg, self._views[g], part,
+                                    tokens[g * cache.per:(g + 1) * cache.per].to(
+                                        self._group_devs[g]))
+            lgs.append(lg.to(self.device))
+            parts.append(new)
+        return torch.cat(lgs), cache.with_parts(parts)
+
+    def _prefill_chunk(self, cache, toks: torch.Tensor, slot: int, offset: int):
+        if self.mesh is None:
+            return T.prefill_chunk(self.cfg, self.params, cache, toks, slot, offset)
+        g, local = cache.locate(slot)
+        lg, new = T.prefill_chunk(self.cfg, self._views[g], cache.parts[g],
+                                  toks.to(self._group_devs[g]), local, offset)
+        parts = list(cache.parts)
+        parts[g] = new
+        return lg.to(self.device), cache.with_parts(parts)
+
+    def _keep(self, old, new, keep: torch.Tensor):
+        if self.mesh is None:
+            return T.cache_keep(self.cfg, old, new, keep)
+        return new.with_parts([
+            T.cache_keep(self.cfg, o, n, keep[g * new.per:(g + 1) * new.per].to(
+                self._group_devs[g]))
+            for g, (o, n) in enumerate(zip(old.parts, new.parts))])
+
+    def _insert(self, cache, one: dict, slot: int) -> None:
+        """Writes batch-1 cache rows ``one`` into ``cache`` at ``slot``, in place."""
+        if self.mesh is None:
+            T.cache_insert(self.cfg, cache, one, slot)
+            return
+        g, local = cache.locate(slot)
+        dev = self._group_devs[g]
+        T.cache_insert(self.cfg, cache.parts[g], {k: v.to(dev) for k, v in one.items()},
+                       local)
+
+    def _extract(self, cache, slot: int) -> dict:
+        if self.mesh is None:
+            return T.cache_extract(self.cfg, cache, slot)
+        g, local = cache.locate(slot)
+        return T.cache_extract(self.cfg, cache.parts[g], local)
 
     def _tokens(self, tokens, shape) -> torch.Tensor:
         """``tokens`` (a tensor, array or list) as int32 on the engine's device."""
@@ -242,8 +386,7 @@ class ServeEngine:
         prompts = self._tokens(prompts, (len(prompts), -1))
         if self._replicas is not None:
             return self._generate_ensemble(prompts, max_new, temperature, key)
-        logits, cache = T.prefill(self.cfg, self.params, prompts,
-                                  max_len=prompts.shape[1] + max_new)
+        logits, cache = self._prefill(prompts, prompts.shape[1] + max_new)
         toks, lps = [], []
         for i in range(max_new):
             sub = None
@@ -253,7 +396,7 @@ class ServeEngine:
             toks.append(tok)
             lps.append(lp)
             if i < max_new - 1:
-                logits, cache = T.decode_step(self.cfg, self.params, cache, tok[:, None])
+                logits, cache = self._decode(cache, tok[:, None])
         return GenerationResult(torch.stack(toks, 1), torch.stack(lps, 1), max_new)
 
     def _generate_ensemble(self, prompts, max_new, temperature, key) -> GenerationResult:
@@ -290,8 +433,19 @@ class ServeEngine:
         ``prefill_into``, and empty slots decode padding. An ensemble gets
         one cache a replica on a leading (K,) axis, f32 logits, and the
         uncertainty columns at their no-signal values (agreement 1,
-        variance 0)."""
-        cache = T.init_cache(self.cfg, n_slots, prompt_len + max_new_cap, device=self.device)
+        variance 0). On a mesh the cache is placed: a :class:`MeshCache` of
+        the slots split over the data groups, each part on its group's lead
+        position; the logits stay on the lead position."""
+        ctx = prompt_len + max_new_cap
+        if self.mesh is not None:
+            per = n_slots // self._split(n_slots)
+            cache = MeshCache([T.init_cache(self.cfg, per, ctx, device=self._group_devs[g])
+                               for g in range(n_slots // per)], per,
+                              T.cache_slot_axes(self.cfg))
+            logits = torch.zeros((n_slots, self.cfg.vocab_size),
+                                 dtype=self.cfg.activation_dtype, device=self.device)
+            return DecodeState(cache, logits, n_slots, prompt_len, max_new_cap)
+        cache = T.init_cache(self.cfg, n_slots, ctx, device=self.device)
         ens = self._replicas
         agreement = variance = None
         if ens is not None:
@@ -314,7 +468,14 @@ class ServeEngine:
         prompt = self._tokens(prompt, (1, state.prompt_len))
         with tr.span("prefill_into", slot=slot):
             with tr.span("dispatch"):
-                if self._replicas is None:
+                if self.mesh is not None:    # the slot's data group prefills it
+                    g, local = state.cache.locate(slot)
+                    lg, one = T.prefill(self.cfg, self._views[g],
+                                        prompt.to(self._group_devs[g]),
+                                        max_len=state.context_len)
+                    state.logits[slot] = lg[0].to(self.device, state.logits.dtype)
+                    T.cache_insert(self.cfg, state.cache.parts[g], one, local)
+                elif self._replicas is None:
                     lg, one = T.prefill(self.cfg, self.params, prompt,
                                         max_len=state.context_len)
                     state.logits[slot] = lg[0].to(state.logits.dtype)
@@ -343,7 +504,7 @@ class ServeEngine:
         with tr.span("decode_step"):
             with tr.span("dispatch"):
                 if self._replicas is None:
-                    logits, cache = T.decode_step(self.cfg, self.params, state.cache, tokens)
+                    logits, cache = self._decode(state.cache, tokens)
                     new = dataclasses.replace(state, cache=cache, logits=logits)
                 else:
                     es, cache = self._ens_decode(state.cache, tokens)
@@ -369,7 +530,7 @@ class ServeEngine:
             with tr.span("dispatch"):
                 for _ in range(d):
                     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-                    lg, cache = T.decode_step(self.cfg, self.params, cache, tok[:, None])
+                    lg, cache = self._decode(cache, tok[:, None])
                     logits = lg.to(logits.dtype)
                     toks.append(tok)
             with tr.span("device"):
@@ -395,8 +556,7 @@ class ServeEngine:
         toks = self._tokens(tokens, (1, -1))
         with tr.span("prefill_chunk", slot=slot, offset=int(offset), c=int(toks.shape[1])):
             with tr.span("dispatch"):
-                lg, cache = T.prefill_chunk(self.cfg, self.params, state.cache, toks, slot,
-                                            int(offset))
+                lg, cache = self._prefill_chunk(state.cache, toks, slot, int(offset))
                 state.logits[slot] = lg[0].to(state.logits.dtype)
             with tr.span("device"):
                 tr.fence(state.logits)
@@ -424,12 +584,11 @@ class ServeEngine:
         toks = self._tokens(chunk_tokens, (1, -1))
         with tr.span("decode_prefill", slot=slot, offset=int(offset), c=int(toks.shape[1])):
             with tr.span("dispatch"):
-                dec_lg, dec_cache = T.decode_step(self.cfg, self.params, state.cache, tokens)
-                cache = T.cache_keep(self.cfg, state.cache, dec_cache, keep)
+                dec_lg, dec_cache = self._decode(state.cache, tokens)
+                cache = self._keep(state.cache, dec_cache, keep)
                 logits = torch.where(keep[:, None], state.logits,
                                      dec_lg.to(state.logits.dtype))
-                lg, cache = T.prefill_chunk(self.cfg, self.params, cache, toks, slot,
-                                            int(offset))
+                lg, cache = self._prefill_chunk(cache, toks, slot, int(offset))
                 logits[slot] = lg[0].to(logits.dtype)
             with tr.span("device"):
                 tr.fence(logits)
@@ -442,7 +601,7 @@ class ServeEngine:
         copy, at a chunk boundary."""
         self._require_single_sample("capture_slot")
         with self.tracer.span("prefix_capture", slot=slot):
-            one = T.cache_extract(self.cfg, state.cache, slot)
+            one = self._extract(state.cache, slot)
             lg = state.logits[slot:slot + 1]
             return {k: v.cpu() for k, v in one.items()}, lg.cpu()
 
@@ -459,7 +618,7 @@ class ServeEngine:
         with tr.span("prefix_splice", slot=slot, full=bool(use_lg)):
             with tr.span("dispatch"):
                 one = {k: torch.as_tensor(v).to(self.device) for k, v in cache_rows.items()}
-                T.cache_insert(self.cfg, state.cache, one, slot)
+                self._insert(state.cache, one, slot)
                 if use_lg:
                     state.logits[slot] = torch.as_tensor(logits_row).reshape(-1).to(
                         self.device, state.logits.dtype)

@@ -8,7 +8,8 @@ into mean logits, logit variance and vote agreement. Leaves the plan does
 not binarize are stored once and shared by every replica.
 
 Placing replicas on a mesh (the reference's ``replica_specs`` and
-``place_replicas``) waits for a mesh on the card (ROADMAP, queue 7).
+``place_replicas``) waits for ROADMAP item 7b; ``ServeEngine(mesh=...,
+ensemble=...)`` refuses it.
 """
 from repro_torch.stoch.ensemble import EnsembleStats, ensemble_forward, ensemble_stats
 from repro_torch.stoch.replicas import ReplicaSet, replica_key, sample_replicas

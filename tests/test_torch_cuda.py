@@ -1403,3 +1403,81 @@ def test_lm_remat_changes_no_grad_on_the_card(cuda):
         for (path, a), (_, b) in zip(tree_leaves_with_path(grads[remat]),
                                      tree_leaves_with_path(grads["none"])):
             assert torch.equal(a, b), (remat, path)
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh whose positions share the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "xnor"])
+def test_mesh_stream_equals_single_device_on_the_card(cuda, mode):
+    """starcoder2's SMOKE config on a (2, 2) ("data", "model") mesh whose four
+    positions share the card: every stream equals the single-device
+    engine's, each decode step launches each projection once a position
+    (4 x 4 x 2 a step: K2, or K3 and K4), and its collectives are the
+    plan's prediction."""
+    from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.obs.collectives import predict_call_collectives
+    from repro_torch.serve import ServeEngine, SlotBatcher, stream_serve
+
+    cfg = cb.get_config("starcoder2_3b", smoke=True)
+    mesh = SH.Mesh((2, 2), ("data", "model"), device="cuda")
+    assert all(d == torch.device("cuda", p % torch.cuda.device_count())
+               for p, d in enumerate(mesh.devices.flat))
+    params = T.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    plan = compile_plan(params, DEFAULT_POLICY, mode, mesh=mesh)
+    packed = plan.pack(params)
+
+    def run(engine):
+        rng = np.random.default_rng(0)
+        b = SlotBatcher(4, 8)
+        for m in (3, 5, 2, 4, 3, 4):
+            b.submit(rng.integers(0, cfg.vocab_size, 8), m)
+        stream_serve(engine, b, max_new_cap=5)
+        return {r.uid: r.generated for r in b.completed}
+
+    eng = ServeEngine(cfg, packed, mesh=mesh, plan=plan)
+    assert run(eng) == run(ServeEngine(cfg, packed))
+    state = eng.init_decode(4, 8, 4)
+    for s in range(4):
+        state = eng.prefill_into(state, s, np.arange(8) + s)
+    counts = (binary_matmul, sign_pack, xnor_matmul)
+    before = [f.launches for f in counts]
+    SH.reset_collective_counts()
+    eng.decode_step(state, np.zeros(4, np.int32))
+    calls = 4 * 4 * cfg.n_layers
+    got = [f.launches - b for f, b in zip(counts, before)]
+    assert got == ([calls, 0, 0] if mode == "det" else [0, calls, calls])
+    assert SH.collective_counts() == predict_call_collectives(plan, mesh.axis_sizes(), groups=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_xnor_row_partials_are_exact_on_the_card(cuda, n_model):
+    """A row-parallel xnor projection at StarCoder2's w_down shape (12288 x
+    3072) and smoke's: each range's int32 K3 + K4 partial, summed, then
+    scaled once, equals the unsharded K4 with its scale bit for bit."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.layers import XnorLinear, apply_linear
+
+    for m, k, n in ((4, 12288, 3072), (3, 512, 128)):
+        w, _ = _weights(k, n, k + n, cuda)
+        x = torch.randn(m, k, generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda, dtype=torch.bfloat16)
+        words, scale = ops.binarize_and_pack(w), w.abs().mean(0)
+        want = xops.xnor_matmul(x, words, scale, k=k, out_dtype=torch.float32).to(x.dtype)
+        mesh = SH.Mesh((1, n_model), ("data", "model"), device="cuda")
+        leaf = XnorLinear(words, scale, k)
+        view = SH.group_view(SH.place_packed_params(mesh, {"w_o": leaf}), 0)["w_o"]
+        assert torch.equal(apply_linear(view, x), want)
+
+
+@pytest.mark.cuda
+def test_a_cuda_mesh_without_a_card_raises(cuda, monkeypatch):
+    from repro_torch.distributed import sharding as SH
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        SH.Mesh((2, 2), ("data", "model"))

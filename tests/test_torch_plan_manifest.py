@@ -191,8 +191,27 @@ def test_replica_axis_round_trips(axis, tmp_path):
 
 
 def test_mesh_waits_for_the_card():
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        compile_plan(_shapes("mnist_fc"), make_paper_policy(4), "det", mesh=object())
+    """``compile_plan(mesh=)`` sanitizes the column as the reference's does
+    (a dim the mesh cannot split replicates; a mesh reading only
+    ``axis_names`` and ``devices.shape`` will do), and a CUDA mesh needs a
+    card: where torch sees none, building one raises."""
+    class StandIn:
+        axis_names = ("data", "model")
+        devices = np.empty((2, 3), dtype=object)      # model axis 3
+
+    tree = _shapes("mnist_fc")
+    j_tree = jax.eval_shape(lambda: jfc.init(jax.random.key(0))["params"])
+    want = j_compile_plan(j_tree, j_make_paper_policy(4), "det", mesh=StandIn())
+    got = compile_plan(tree, make_paper_policy(4), "det", mesh=StandIn())
+    assert got.to_json() == want.to_json()
+    assert [a.sharding for a in got.layers] != [
+        a.sharding for a in compile_plan(tree, make_paper_policy(4), "det").layers]
+    mesh = sh.Mesh((2, 2), ("data", "model"), device="cpu")
+    assert compile_plan(tree, make_paper_policy(4), "det", mesh=mesh).to_json() == \
+        j_compile_plan(j_tree, j_make_paper_policy(4), "det", mesh=mesh).to_json()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            sh.Mesh((2, 2), ("data", "model"))
 
 
 # ---------------------------------------------------------------------------

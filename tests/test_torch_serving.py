@@ -12,7 +12,7 @@ and weights (carried with ``interop.from_jax_tree``), each test printing
 the smallest top-2 logit margin it met (``-s``), so a near tie shows; the
 CLI serves a token arch on the CPU, chunked prefill, the prefix cache and
 the LM ensemble included; and every feature still deferred raises naming
-ROADMAP.
+ROADMAP (a mesh serves; an ensemble or MoE arch on it waits for item 7b).
 """
 import json
 
@@ -30,6 +30,7 @@ from repro.serve.batcher import SlotBatcher as JSlotBatcher
 from repro_torch.configs import base as cb
 from repro_torch.core import prng
 from repro_torch.core.policy import DEFAULT_POLICY, make_paper_policy
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.engine import compile_plan
 from repro_torch.engine.plan import tree_leaves_with_path
 from repro_torch.interop import from_jax_tree
@@ -72,8 +73,17 @@ class TestServeEngine:
 
     def test_deferred_engine_options_raise(self):
         cfg, params, engine = _engine()
+        # a mesh, once refused, serves the dense family: generate on a 2x2
+        # CPU mesh equals the single-device engine; the MoE family on a
+        # mesh still waits (ROADMAP item 7b)
+        mesh = Mesh((2, 2), ("data", "model"), device="cpu")
+        prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 6))
+        assert torch.equal(ServeEngine(cfg, params, mesh=mesh).generate(prompts, 3).tokens,
+                           engine.generate(prompts, 3).tokens)
+        moe = cb.get_config("moonshot_v1_16b_a3b", smoke=True)
         with pytest.raises(NotImplementedError, match="item 7"):
-            ServeEngine(cfg, params, mesh=object())
+            ServeEngine(moe, T.init_lm(moe, torch.Generator().manual_seed(0), device="cpu"),
+                        mesh=mesh)
         # a frontend config, once refused, is served as the reference's
         # engine serves it: its backbone on token prompts
         vlm = cb.get_config("internvl2_76b", smoke=True)
@@ -285,7 +295,8 @@ def test_cli_classifier_metrics(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "data,model"], "item 7"),
+    (["--mesh", "data,model", "--mesh-shape", "2,2", "--packed", "--binarize", "stoch",
+      "--ensemble", "2"], "item 7"),
     (["--audit-collectives"], "item 8"),
     (["--analyze", "--packed"], "item 8"),
 ])
