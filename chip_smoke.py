@@ -8,15 +8,24 @@ Phases, each on its own lines of output; any failure exits non-zero:
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the CUDA kernels K1-K5 from ``src/repro_torch/kernels/csrc`` (timed);
 3. K1 binarize + bitpack against its plain version, det and stoch with the
-   same words, at 2048x2048 and ragged shapes: the words must be equal; and
+   same words, at 2048x2048 and the edges of its tiling (``K1_EDGE_SHAPES``:
+   K < 32, K % 32 != 0, N = 1, N % 4 != 0, a leaf too small for 16-byte
+   tiles, word rows past 65,535), f32 and bf16: the words must be equal; K1's
+   threefry mode (the reference's threefry words computed in the kernel: the
+   route of every served stochastic pack) at the same shapes, exact against
+   the operand mode fed the twin's words on the card, its plain version and a
+   CPU pack at the same key, and on a bf16 (65,536 x 65,792) draw whose flat
+   counter passes 2^32, its word rows there against the twin's threefry2x32
+   at the same flat indices; and
    K1's on-chip variant (in-kernel Philox words, ``on_chip_prng=True``)
    against its plain version, bit for bit, at 2048x2048, 512x512 and
    ragged shapes (K < 32, K % 32 != 0, N % 32 != 0, word rows past grid.y's
    65,535), with the Eq.-3 frequency within 4 sigma and the exact
-   endpoints on the card; then the threefry twin (``core.prng``) that
-   draws every stochastic pack's words: its words on the card equal its
-   words on the CPU, and full-width mnist_fc and VGG-16 stochastic packs on
-   the card equal the same packs on the CPU at the same key;
+   endpoints on the card; then the threefry twin (``core.prng``), whose
+   words every CPU stochastic pack thresholds: its words on the card equal
+   its words on the CPU, and full-width mnist_fc and VGG-16 stochastic packs
+   on the card (K1's threefry mode) equal the same packs on the CPU at the
+   same key;
 4. K2 packed-weight matmul against its plain version, f32 and bf16, with
    and without scale, at M in {4, 256} x 2048 x 2048, 4 x 512 x 512 and a
    ragged shape, within rtol 1e-4 / atol 1e-3 (f32: only the order of the
@@ -72,7 +81,7 @@ Phases, each on its own lines of output; any failure exits non-zero:
    against the plain-kernel forward;
 6c. the stochastic ensemble: mnist_fc and VGG-16 stoch at full width, K = 8
    replicas, 4 slots, 64 requests, through ``serve_classifier(ensemble=8)``;
-   counters exact (K1's operand mode 8 x the stochastic leaves at pack time,
+   counters exact (K1's threefry mode 8 x the stochastic leaves at pack time,
    K2 8 x its single-sample count a batch); a K = 1 ensemble gives the
    single-sample serve's logits bit for bit; every replica's words on the
    card equal a CPU pack at the same key; each replica's logits match its
@@ -80,9 +89,11 @@ Phases, each on its own lines of output; any failure exits non-zero:
    agreement and the replicas' bytes are printed;
 7. time each kernel at the path shapes with CUDA events, beside its plain
    version, a library call where one computes the same function, and the
-   least time the card could take (the stochastic pack route, twin words +
-   K1, beside K1 alone; the on-chip K1 variant, which no path runs, beside
-   that route; K3 with its prologue beside the unfused chain's device time
+   least time the card could take (K1's det, operand and threefry modes, cold
+   with L2 evicted by a read, beside the stochastic pack route
+   ``ops.binarize_and_pack`` and the twin's words + K1's operand mode it
+   replaced; the on-chip K1 variant, which no path runs, beside those; K3
+   with its prologue beside the unfused chain's device time
    and launches, and K3 without it; K4 at each VGG shape as the conv path
    calls it, fused; K5 at each VGG conv input); and
    each xnor conv layer as a whole against F.conv2d on +-1 f32, with the
@@ -223,6 +234,12 @@ exact (1,980 K1 at pack; 252 K2 and 108 expert-batched K2 a model call), the
 first four streams equal to their one-shot ``generate``, pack s,
 served GB against bf16 dense, peak allocated, tok/s, median TTFT, the decode
 step's wall ms, device ms and launches with the 2-D and batched K2's shares;
+then, the det tree freed, all 72 layers in stoch (``HYB_STOCH_SERVE``: 4
+requests of 8 new tokens), every matrix packed by K1's threefry mode
+(1,980 threefry launches, no operand launch): draw + pack s, peak
+allocated, tok/s, and an attention, a mixer and an expert matrix of the
+first period (replayed from the draw order) equal to the operand route on
+the card and to a CPU pack at their split keys;
 one period (8 layers) in det and stoch: counters exact, det words equal to
 a plain pack of the same draws, a stoch expert matrix equal to a CPU pack at
 its split key, logits of the first four requests against the plain kernels
@@ -303,6 +320,28 @@ PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # Integer instructions per Philox4x32-10 call: 10 rounds of four multiply
 # halves, two three-way XORs and two key bumps (csrc/binarize_pack.cu).
 PHILOX_INT32_OPS = 10 * 8
+
+# K1's tiled modes at the edges of the tiling (phase 3; f32 and bf16): a
+# vector crossing N on unaligned rows (N % 4 != 0 at a leaf with 16-byte
+# tiles), K < 32, K % 32 != 0, N = 1, a leaf too small for 16-byte tiles (one
+# column a thread), and word rows past 65,535 (tiles walked with a grid stride)
+K1_EDGE_SHAPES = [(784, 2047), (31, 5), (65, 33), (100, 301), (4000, 1), (64, 64),
+                  (65535 * 32 + 100, 3)]
+# A bf16 (K, N) whose threefry draw passes 2^32 flat indices (8.6 GB of masters)
+K1_PAST_2_32 = (65536, 65792)
+# Served leaves of the classifiers whose 16-byte tiles would leave an SM
+# without a block, so K1 takes one column a thread (phase 7): VGG-16's
+# conv/0, conv/2, conv/4 and a head layer, its logits, mnist_fc's logits
+K1_SMALL_LEAVES = [(27, 64), (576, 128), (1152, 256), (512, 512), (512, 10), (2048, 10)]
+# 32-bit integer operations per threefry word (csrc/binarize_pack.cu): 20
+# rounds of an add, a funnel shift and an xor, 5 key injections of two adds,
+# the 64-bit counter and the final xor, ~75 in all. The 20 shifts and 21 xors
+# issue only on the ALU pipe (PEAK_INT32_OPS_PER_S); the adds also issue on
+# the FMA pipe as IMAD, so all 75 share twice that rate. The least time is
+# the larger of the two: the shifts and xors (41 / 64 against 75 / 128 clocks
+# a word and SM).
+THREEFRY_INT32_OPS = 75
+THREEFRY_ALU_OPS = 41
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -472,6 +511,8 @@ HYB_K2 = [(16, 8, 8192, 24576), (16, 8, 24576, 8192)]
 # twin draws ~1 G stochastic words a second on the card (a period's 44 G)
 HYB_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
                  prefix_cache=16, shared_prefix=16)
+# all 72 layers in stoch (the words from K1's threefry mode): a short serve
+HYB_STOCH_SERVE = dict(requests=4, slots=4, prompt_len=32, max_new=8, seed=0)
 
 # Alg.-1 training of the decoder LMs (phase 6j), through launch.train.build_lm
 # (its masters and batches) and the step function (the Trainer is not used:
@@ -1076,7 +1117,7 @@ def main() -> int:
     import repro_torch.xnor.conv.ops as cops_mod
     import repro_torch.xnor.ops as xops_mod
     from repro_torch.core import prng
-    from repro_torch.core.packing import unpack_bits
+    from repro_torch.core.packing import to_int32, unpack_bits
     from repro_torch.core.policy import make_paper_policy
     from repro_torch.engine import ExecutionPlan, compile_plan
     from repro_torch.engine.plan import tree_leaves_with_path, tree_map
@@ -1084,7 +1125,8 @@ def main() -> int:
     from repro_torch.kernels.binary_matmul import (binary_matmul, binary_matmul_batched,
                                                    binary_matmul_batched_plain,
                                                    binary_matmul_plain)
-    from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
+    from repro_torch.kernels.stoch_binarize import (binarize_pack, binarize_pack_plain,
+                                                    threefry_words)
     from repro_torch.launch.serve import build_model, serve_classifier
     from repro_torch.models import mnist_fc, vgg
     from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
@@ -1105,9 +1147,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     # name -> (wrapper, its counter attribute); binarize_pack counts its
-    # on-chip-PRNG launches apart as well, and sign_pack those with the
-    # batch-norm prologue (bn_sign_pack's)
+    # threefry-mode and on-chip-PRNG launches apart as well, and sign_pack
+    # those with the batch-norm prologue (bn_sign_pack's)
     counters = {"binarize_pack": (binarize_pack, "launches"),
+                "binarize_pack_threefry": (binarize_pack, "launches_threefry"),
                 "binarize_pack_on_chip": (binarize_pack, "launches_on_chip"),
                 "binary_matmul": (binary_matmul, "launches"),
                 "binary_matmul_batched": (binary_matmul_batched, "launches"),
@@ -1123,9 +1166,12 @@ def main() -> int:
     def plain_kernels():
         """Every call site of a kernel wrapper takes its plain version, on
         whatever device the tensors are; no kernel may launch meanwhile."""
-        swaps = [(kops_mod, "binarize_pack",
-                  lambda w, bits=None, *, stochastic: binarize_pack_plain(
-                      w, bits, stochastic=stochastic)),
+        def k1_plain(w, bits=None, *, stochastic, key=None, draw_cols=None):
+            if key is not None:
+                bits = threefry_words(key, *w.shape, draw_cols, w.device)
+            return binarize_pack_plain(w, bits, stochastic=stochastic)
+
+        swaps = [(kops_mod, "binarize_pack", k1_plain),
                  (kops_mod, "_binary_matmul", binary_matmul_plain),
                  (kops_mod, "_binary_matmul_batched", binary_matmul_batched_plain),
                  (xops_mod, "_sign_pack", sign_pack_plain),
@@ -1274,14 +1320,16 @@ def main() -> int:
     phase_start["3"] = time.perf_counter()
     # 3. K1 against its plain version
     print("== K1 binarize_pack vs plain (exact)")
-    for (k, n), dtype in [((2048, 2048), torch.float32), ((784, 2048), torch.float32),
-                          ((784, 2048), torch.bfloat16), ((100, 300), torch.float32)]:
+    for (k, n), dtype in ([((2048, 2048), torch.float32), ((784, 2048), torch.float32),
+                           ((784, 2048), torch.bfloat16), ((100, 300), torch.float32)]
+                          + [(shape, dtype) for shape in K1_EDGE_SHAPES
+                             for dtype in (torch.float32, torch.bfloat16)]):
         w = torch.randn(k, n, generator=g, device=dev) * 0.7
-        w[0], w[1], w[2], w[3, :7] = 1.0, -1.0, -0.0, float("nan")   # endpoints
-        w[4] = torch.rand(n, generator=g, device=dev) + 1.0           # all-positive column
+        w[0], w[1 % k], w[2 % k], w[3 % k, :7] = 1.0, -1.0, -0.0, float("nan")   # endpoints
+        w[4 % k] = torch.rand(n, generator=g, device=dev) + 1.0     # all-positive row
         w = w.to(dtype)
         bits = rand_words((k, n))
-        top = torch.arange(k * 3, device=dev, dtype=torch.int32).reshape(k, 3) % 128
+        top = torch.arange(k * 3, device=dev, dtype=torch.int32).reshape(k, 3)[:, :n] % 128
         bits[:, :3] = -1 - top                   # uint32 words >= 2^32 - 128
         for stoch in (False, True):
             mode = "stoch" if stoch else "det"
@@ -1314,6 +1362,41 @@ def main() -> int:
         if abs(f - p) > 4 * (p * (1 - p) / (2048 * 512)) ** 0.5:
             raise AssertionError(f"on-chip K1: frequency {f} at p={p} is off by > 4 sigma")
     errs["k1_onchip"] = 0.0
+
+    print("== K1 threefry mode (the reference's threefry words computed in the kernel) vs the "
+          "operand mode fed the twin's words, vs its plain version and vs a CPU pack (exact)")
+    for (k, n), dtype in [(shape, dtype) for shape in [(2048, 2048)] + K1_EDGE_SHAPES
+                          for dtype in (torch.float32, torch.bfloat16)]:
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.7).to(dtype)
+        w[0, : min(n, 3)] = torch.tensor([1.0, -1.0, 1.5], device=dev)[: min(n, 3)].to(dtype)
+        key = prng.split(prng.fold_in(prng.key(1), k), 3)[1]
+        dc = kops_mod.draw_cols(k, n)
+        got = binarize_pack(w, key=key, draw_cols=dc, stochastic=True)
+        tf_words = threefry_words(key, k, n, dc, dev).contiguous()
+        tag = f"K1 threefry {k}x{n} {str(dtype)[6:]} (draw columns {dc})"
+        exact(f"{tag} vs operand mode", got, binarize_pack(w, tf_words, stochastic=True))
+        exact(f"{tag} vs plain", got, binarize_pack_plain(w, tf_words, stochastic=True))
+        exact(f"{tag} vs CPU pack", got.cpu(),
+              binarize_pack(w.cpu(), key=key, draw_cols=dc, stochastic=True))
+        del tf_words
+    # a bf16 draw whose flat counter passes 2^32: word rows 2040 (its row
+    # 65,280 crosses 2^32 at column 65,536) and the last two, against the
+    # twin's threefry2x32 at the same flat indices
+    k, n = K1_PAST_2_32
+    w = torch.randn(k, n, generator=g, device=dev, dtype=torch.bfloat16) * 0.7
+    key = prng.fold_in(prng.key(1), 31)
+    got = binarize_pack(w, key=key, draw_cols=n, stochastic=True)
+    for r0, r1 in [(65280, 65312), (k - 64, k)]:
+        i = (torch.arange(r0, r1, device=dev, dtype=torch.int64)[:, None] * n
+             + torch.arange(n, device=dev, dtype=torch.int64)[None, :])
+        x0, x1 = prng.threefry2x32(key, i >> 32, i & 0xFFFFFFFF)
+        tf_words = to_int32(x0 ^ x1)
+        exact(f"K1 threefry {k}x{n} bf16 rows {r0}..{r1 - 1} (flat index "
+              f"{r0 * n} to {r1 * n - 1}, past 2^32 = {1 << 32})", got[r0 // 32:r1 // 32],
+              binarize_pack_plain(w[r0:r1], tf_words, stochastic=True))
+    del w, got, i, x0, x1, tf_words
+    torch.cuda.empty_cache()
+    errs["k1_threefry"] = 0.0
 
     print("== threefry twin (core.prng): words on the card vs the CPU, and stochastic "
           "packs on the card vs the CPU at the same key (exact)")
@@ -1641,6 +1724,8 @@ def main() -> int:
         n_batches = len(res.batch_seconds) + res.warmup
         want = {name: per_batch.get(name, 0) * n_batches for name in counters}
         want["binarize_pack"] = packs
+        # every stochastic pack takes K1's threefry mode (no operand launch)
+        want["binarize_pack_threefry"] = packs if res.plan.mode == "stoch" else 0
         print(f"  launches {got} over {n_batches} batches ({res.warmup} untimed warm-up); "
               f"{res.img_per_s:.1f} img/s, {res.ms_per_batch:.4f} ms/batch median, "
               f"packed {res.packed_bytes} B vs {res.dense_bytes} B bf16 dense")
@@ -2128,6 +2213,7 @@ def main() -> int:
         calls = LM_SERVE["requests"] + res.steps - 1      # prefills + decode steps
         want = {name: 0 for name in counters}
         want["binarize_pack"] = n_proj
+        want["binarize_pack_threefry"] = n_proj if mode == "stoch" else 0
         for name in (("sign_pack", "xnor_matmul") if mode == "xnor" else ("binary_matmul",)):
             want[name] = n_proj * calls
         print(f"  launches {got}: {LM_SERVE['requests']} prefills + {res.steps - 1} decode "
@@ -2533,7 +2619,7 @@ def main() -> int:
     print(f"  {ek} x {n_proj} K1 at pack; {LM_ENSEMBLE['requests']} prefills + {steps - 1} "
           f"decode steps x {ek} replicas x {n_proj} projections")
     expect_counts(f"{LM_ARCH} ensemble", ("stoch ensemble", "stoch"),
-                  {"binarize_pack": n_proj * ek,
+                  {"binarize_pack": n_proj * ek, "binarize_pack_threefry": n_proj * ek,
                    "binary_matmul": n_proj * ek * (LM_ENSEMBLE["requests"] + steps - 1)})
     agr = [a for r in b.completed for a in r.agreement]
     var = [v for r in b.completed for v in r.variance]
@@ -2983,6 +3069,7 @@ def main() -> int:
         got = launch_counts()
         want = {name: 0 for name in counters}
         want.update(binarize_pack=k1_moe, binary_matmul=n_attn_proj * calls,
+                    binarize_pack_threefry=k1_moe if mode == "stoch" else 0,
                     binary_matmul_batched=n_exp_proj * calls)
         print(f"  launches {got}")
         if got != want:
@@ -3302,7 +3389,8 @@ def main() -> int:
               f"{n_ssm_proj} projections, {n_ssm_proj} K1 at pack time")
         got = launch_counts()
         want = {name: 0 for name in counters}
-        want.update(binarize_pack=n_ssm_proj, **ssm_want(mode, calls))
+        want.update(binarize_pack=n_ssm_proj, **ssm_want(mode, calls),
+                    binarize_pack_threefry=n_ssm_proj if mode == "stoch" else 0)
         print(f"  launches {got}")
         if got != want:
             raise AssertionError(f"{SSM_ARCH} {mode}: expected launches {want}")
@@ -3489,12 +3577,14 @@ def main() -> int:
     hyb_k2b = 3 * n_moe_per                             # expert-batched K2 likewise
     hyb_rows = {}
 
-    def hyb_want(n_per, calls, packs=True):
+    def hyb_want(n_per, calls, packs=True, mode="det"):
         want = {name: 0 for name in counters}
         want.update(binary_matmul=hyb_k2 * n_per * calls,
                     binary_matmul_batched=hyb_k2b * n_per * calls)
         if packs:
             want["binarize_pack"] = hyb_k1 * n_per
+            if mode == "stoch":
+                want["binarize_pack_threefry"] = hyb_k1 * n_per
         return want
 
     def hyb_counted(tag, run, mode, want):
@@ -3688,6 +3778,73 @@ def main() -> int:
     del res, engine, state, leaves
     torch.cuda.empty_cache()
 
+    # all 72 layers at full width in stoch, the det tree freed: every (K, N)
+    # master drawn and packed at once through K1's threefry mode
+    print(f"== serve {HYB_ARCH} full width, all {hyb_cfg.n_layers} layers --packed --binarize "
+          f"stoch, each (K, N) master drawn and packed at once (K1's threefry mode): "
+          f"{HYB_STOCH_SERVE}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    reset_counts()
+    res = serve_lm(arch=HYB_ARCH, packed=True, binarize="stoch", device="cuda",
+                   **HYB_STOCH_SERVE)
+    peak_serve = torch.cuda.max_memory_allocated()
+    calls = HYB_STOCH_SERVE["requests"] + res.steps - 1
+    print(f"  {HYB_STOCH_SERVE['requests']} prefills + {res.steps - 1} decode steps x {n_per} "
+          f"periods, {hyb_k1 * n_per} K1 (threefry) at pack time")
+    hyb_counted("stoch", "stoch", "stoch", hyb_want(n_per, calls, mode="stoch"))
+    if res.tokens != HYB_STOCH_SERVE["requests"] * HYB_STOCH_SERVE["max_new"]:
+        raise AssertionError(f"{HYB_ARCH} stoch: served {res.tokens} tokens")
+    # an attention, a mixer and an expert matrix of the first period, replayed
+    # from the draw order (seed 0, as the serve drew them), against the served
+    # words, the operand route on the card (the twin's words, then K1's operand
+    # mode) and a CPU pack at their split keys
+    held = {"layers/attn/w_o": 0, "layers/mamba/out_proj": 0, "layers/moe/w_gate": 0}
+    picked, gen_ = {}, torch.Generator(device=dev).manual_seed(0)
+    for d in T.lm_draws(hyb_cfg):
+        if len(picked) == len(held):
+            break
+        if d.whole is not None:
+            d.whole(gen_, dev)
+            continue
+        for i, w in enumerate(d.matrices(gen_, dev)):
+            if held.get(d.path) == i:
+                picked[d.path] = w
+            if len(picked) == len(held):     # the last matrix held: stop drawing
+                break
+    t0 = time.perf_counter()
+    for path, i in held.items():
+        row = res.plan[path]
+        key = prng.split(prng.fold_in(prng.key(HYB_STOCH_SERVE["seed"] + 1), row.index),
+                         math.prod(row.shape[:-2]))[i]
+        w = picked.pop(path)
+        k_, n_ = w.shape
+        leaf = res.engine.params
+        for part in path.split("/"):
+            leaf = leaf[part]
+        served = leaf.packed.reshape(-1, *leaf.packed.shape[-2:])[i]
+        tf_words = threefry_words(key, k_, n_, kops_mod.draw_cols(k_, n_), dev).contiguous()
+        exact(f"{HYB_ARCH} stoch {path}[{i}] ({k_}x{n_}) served vs the operand route", served,
+              binarize_pack(w, tf_words, stochastic=True))
+        del tf_words
+        exact(f"{HYB_ARCH} stoch {path}[{i}] served vs a CPU pack", served.cpu(),
+              kops_mod.binarize_and_pack(w.cpu(), key, stochastic=True))
+        del w
+    check_s = time.perf_counter() - t0
+    hyb_rows["stoch full"] = {"pack_s": res.pack_seconds, "served_gb": res.packed_bytes / 1e9,
+                              "peak_serve_gb": peak_serve / 1e9, "live_gb": live / 1e9,
+                              "tok_s": res.tok_per_s, "ttft_ms": res.median_ttft * 1e3,
+                              "steps": res.steps, "seconds": res.seconds}
+    print(f"  draw + pack {res.pack_seconds:.3f} s ({hyb_k1 * n_per} K1 threefry launches); "
+          f"{res.packed_bytes / 1e9:.2f} GB served; peak allocated "
+          f"{peak_serve / 1e9:.2f} GB ({live / 1e9:.2f} GB held by earlier phases); "
+          f"{res.tok_per_s:.2f} tok/s ({res.tokens} tokens, {res.steps} steps in "
+          f"{res.seconds:.3f} s), median TTFT {res.median_ttft * 1e3:.1f} ms; the three "
+          f"matrices held in {check_s:.1f} s")
+    del res, leaf, served
+    torch.cuda.empty_cache()
+
     # one period (8 layers) in det and stoch, against the plain kernels; the
     # det engine also serves the chunked admission
     per_cfg = dataclasses.replace(hyb_cfg, n_layers=hyb_per)
@@ -3799,7 +3956,7 @@ def main() -> int:
         res = serve_lm(arch=HYB_ARCH, n_layers=hyb_per, packed=True, binarize=mode,
                        device="cuda", **LM_SERVE)
         calls = LM_SERVE["requests"] + res.steps - 1
-        hyb_counted(f"{mode} period", f"{mode} period", mode, hyb_want(1, calls))
+        hyb_counted(f"{mode} period", f"{mode} period", mode, hyb_want(1, calls, mode=mode))
         engine = res.engine
         done = sorted(res.batcher.completed, key=lambda r: r.uid)
         if len(done) != LM_SERVE["requests"] or res.tokens != 16 * LM_SERVE["max_new"]:
@@ -3919,13 +4076,22 @@ def main() -> int:
           "cold with L2 flushed before each call, as at pack time; device_ms: the "
           "kernel's own device time from torch.profiler)")
     flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    flush_twice = torch.empty(2 * L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def cold_l2():
+        """Evicts the 50 MB L2 by reading a larger buffer, which leaves its
+        lines clean (a write flush, as ``zero_``, leaves them dirty, and the
+        next kernel then pays their write-back to device memory). K1's rows
+        at 2048x2048 show it evicts: warm (no flush) reads far less time,
+        and a read of twice the bytes the same."""
+        flush_buf.max()
 
     def time_cold(fn, iters=20) -> float:
         for _ in range(3):
             fn()
         times = []
         for _ in range(iters):
-            flush_buf.zero_()
+            cold_l2()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
@@ -3948,54 +4114,117 @@ def main() -> int:
     def total(counts: dict, keys) -> int:
         return sum(v for key, v in counts.items() if key in keys)
 
+    def k1_dev(fn) -> float | None:
+        """K1's device ms in ``fn``: the median of three profiles (one
+        profile of a run read 0.0095 ms, under the bytes' bound, where the
+        same call read 0.0168 in every other)."""
+        got = [device_ms(fn, "binarize_pack_kernel") for _ in range(3)]
+        got = [t for t in got if t is not None]
+        return statistics.median(got) if got else None
+
     kernels = []
     k, n = 2048, 2048
     w = torch.randn(k, n, generator=g, device=dev) * 0.7
     bits = rand_words((k, n))
-    # the stochastic pack route as plan.pack runs it: the twin's words over
-    # the reference's draw shape, then K1's operand mode
+    # the stochastic pack route as plan.pack runs it (ops.binarize_and_pack:
+    # K1's threefry mode), beside the route it replaced: the twin's words
+    # over the reference's draw shape on the card, then K1's operand mode
     pack_key = prng.fold_in(prng.key(1), 3)
+    pack_cols = kops_mod.draw_cols(k, n)
     route_ms = time_cold(lambda: kops_mod.binarize_and_pack(w, pack_key, stochastic=True))
-    print(f"  stochastic pack route {k}x{n} f32 (twin words + K1 operand mode), cold: "
-          f"{route_ms:.4f} ms")
-    k1_serves = {"det": [r for r, m in run_mode.items() if m != "stoch"],
-                 "stoch": [r for r, m in run_mode.items() if m == "stoch"]}
-    for mode in ("det", "stoch"):
-        st = mode == "stoch"
-        b_ = bits if st else None
-        ms = time_cold(lambda: binarize_pack(w, b_, stochastic=st))
-        plain_ms = time_cold(lambda: binarize_pack_plain(w, b_, stochastic=st))
-        dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(w, b_, stochastic=st)),
-                           "binarize_pack_kernel")
-        nbytes = k * n * 4 * (2 if st else 1) + (k // 32) * n * 4
-        bms, by = bound(nbytes, 0, PEAK_F32_FLOP_PER_S)
-        print(f"  K1 {mode} {k}x{n} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, "
-              f"plain_ms {plain_ms:.4f}, library_ms none, bound_ms {bms:.4f} ({by}, {nbytes} B)")
+    twin_route_ms = time_cold(lambda: binarize_pack(
+        w, threefry_words(pack_key, k, n, pack_cols, dev).contiguous(), stochastic=True))
+    print(f"  stochastic pack route {k}x{n} f32 (ops.binarize_and_pack: K1 threefry mode), "
+          f"cold: {route_ms:.4f} ms; the twin's words + K1 operand mode: {twin_route_ms:.4f} ms")
+
+    def k1_launches(mode, runs):
+        """K1 launches of a mode over ``runs``: det in det runs; the operand
+        and threefry modes in stoch runs (the operand's: every launch that is
+        neither threefry nor on-chip)."""
+        runs = [r for r in runs if (run_mode[r] == "stoch") == (mode != "det")]
+        if mode == "threefry":
+            return total(launches["binarize_pack_threefry"], runs)
+        n_all = total(launches["binarize_pack"], runs)
+        if mode == "det":
+            return n_all
+        return (n_all - total(launches["binarize_pack_threefry"], runs)
+                - total(launches["binarize_pack_on_chip"], runs))
+
+    def k1_call(mode, w_, b_):
+        if mode == "threefry":
+            return lambda: binarize_pack(w_, key=pack_key, stochastic=True)
+        return lambda: binarize_pack(w_, b_ if mode == "stoch" else None,
+                                     stochastic=mode == "stoch")
+
+    def k1_plain_call(mode, w_, b_):
+        if mode == "threefry":
+            return lambda: binarize_pack_plain(
+                w_, threefry_words(pack_key, *w_.shape, w_.shape[1], dev), stochastic=True)
+        return lambda: binarize_pack_plain(w_, b_ if mode == "stoch" else None,
+                                           stochastic=mode == "stoch")
+
+    def k1_bound(mode, k_, n_):
+        """(bound ms, by, t_bytes ms, t_ops ms): the master read once (and
+        the operand's words), the words written; the threefry mode's integer
+        work at the int32 peak."""
+        nbytes = k_ * n_ * 4 * (2 if mode == "stoch" else 1) + (k_ + 31) // 32 * n_ * 4
+        # in ALU-pipe operations: max(41, 75 / 2) a word at PEAK_INT32_OPS_PER_S
+        ops_ = (k_ * n_ * max(THREEFRY_ALU_OPS, THREEFRY_INT32_OPS / 2)
+                if mode == "threefry" else 0)
+        bms, by = bound(nbytes, ops_, PEAK_INT32_OPS_PER_S)
+        return bms, by, nbytes / PEAK_BYTES_PER_S * 1e3, ops_ / PEAK_INT32_OPS_PER_S * 1e3
+
+    k1_names = {"det": "binarize_pack (det)", "stoch": "binarize_pack (stoch)",
+                "threefry": "binarize_pack (stoch, threefry)"}
+    for mode in ("det", "stoch", "threefry"):
+        call, plain_call = k1_call(mode, w, bits), k1_plain_call(mode, w, bits)
+        ms = time_cold(call)
+        plain_ms = time_cold(plain_call)
+        dev_ms = k1_dev(lambda: (cold_l2(), call()))
+        dev_dirty = k1_dev(lambda: (flush_buf.zero_(), call()))
+        dev_warm = k1_dev(call)
+        dev_twice = k1_dev(lambda: (flush_twice.max(), call()))
+        bms, by, t_b, t_o = k1_bound(mode, k, n)
+        print(f"  K1 {mode} {k}x{n} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)} (after a "
+              f"write flush of L2: {fmt(dev_dirty)}; warm, no flush: {fmt(dev_warm)}; after a "
+              f"read of twice the bytes: {fmt(dev_twice)}), plain_ms {plain_ms:.4f}, library_ms "
+              f"none, bound_ms {bms:.4f} ({by}; bytes {t_b:.4f}, integer operations {t_o:.4f})")
+        small = {}
+        if mode != "stoch":     # the served modes, at the leaves of one column a thread
+            for k_, n_ in K1_SMALL_LEAVES:
+                w_ = torch.randn(k_, n_, generator=g, device=dev) * 0.7
+                small[f"{k_}x{n_}"] = k1_dev(lambda: (cold_l2(), k1_call(mode, w_, None)()))
+            print(f"  K1 {mode} f32 device_ms at the small served leaves (cold): "
+                  + ", ".join(f"{s_} {fmt(t)}" for s_, t in small.items()))
         kernels.append({
-            "name": f"binarize_pack ({mode})", "route": "cuda",
+            "name": k1_names[mode], "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/binarize_pack.cu",
-            "replaces": ("src/repro/kernels/stoch_binarize.py:118" if st
-                         else "src/repro/kernels/stoch_binarize.py:98"),
-            "launches": total(launches["binarize_pack"], k1_serves[mode]),
+            "replaces": ("src/repro/kernels/stoch_binarize.py:98" if mode == "det"
+                         else "src/repro/kernels/stoch_binarize.py:118"),
+            "launches": k1_launches(mode, run_mode),
             "max_abs_err": errs[f"k1_{mode}"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "device_ms": dev_ms,
-            **({"pack_route_ms": route_ms} if st else {})})
+            "library_ms": None, "device_ms": dev_ms, "device_ms_after_write_flush": dev_dirty,
+            "device_ms_warm": dev_warm, "device_ms_after_double_read_flush": dev_twice,
+            **({"device_ms_small_leaves": small} if small else {}),
+            **({"pack_route_ms": route_ms, "twin_route_ms": twin_route_ms}
+               if mode == "threefry" else {})})
 
-    # the on-chip variant (no path runs it), beside the operand route it
-    # would replace: the twin's words, then K1 on them
+    # the on-chip variant (no path runs it), beside the two routes of the
+    # reference's words: the threefry mode, and the twin's words, then K1 on
+    # them
     seed = 2024
     ms = time_cold(lambda: binarize_pack(w, stochastic=True, seed=seed, on_chip_prng=True))
     plain_ms = time_cold(lambda: binarize_pack_plain(w, None, stochastic=True, seed=seed,
                                                      on_chip_prng=True))
-    dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(
+    dev_ms = device_ms(lambda: (cold_l2(), binarize_pack(
         w, stochastic=True, seed=seed, on_chip_prng=True)), "binarize_pack_onchip_kernel")
     nbytes = k * n * 4 + (k // 32) * n * 4
     int_ops = (k // 4) * n * PHILOX_INT32_OPS        # one Philox call per 4 weights
     bms, by = bound(nbytes, int_ops, PEAK_INT32_OPS_PER_S)
     print(f"  K1 stoch on-chip Philox {k}x{n} f32: kernel_ms {ms:.4f}, device_ms "
-          f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms none, operand route "
-          f"(twin words + K1) {route_ms:.4f}, bound_ms {bms:.4f} ({by}; bytes "
+          f"{fmt(dev_ms)}, plain_ms {plain_ms:.4f}, library_ms none, threefry route "
+          f"{route_ms:.4f}, twin words + K1 {twin_route_ms:.4f}, bound_ms {bms:.4f} ({by}; bytes "
           f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms for {nbytes} B, Philox integer ops "
           f"{int_ops / PEAK_INT32_OPS_PER_S * 1e3:.4f} ms for {int_ops})")
     kernels.append({
@@ -4005,7 +4234,8 @@ def main() -> int:
         "launches": total(launches["binarize_pack_on_chip"], run_mode),
         "max_abs_err": errs["k1_onchip"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None, "device_ms": dev_ms, "operand_route_ms": route_ms})
+        "library_ms": None, "device_ms": dev_ms, "pack_route_ms": route_ms,
+        "twin_route_ms": twin_route_ms})
 
     # K2 at the serving shapes (mnist_fc's two hidden layers, VGG fc/1) and M=256
     runs_of = {arch: [r for r in run_mode if r[0] == arch]
@@ -4387,32 +4617,32 @@ def main() -> int:
           f"slots; a layer runs in_proj and out_proj)")
     ssm_runs = [r for r in run_mode if r[0] == SSM_ARCH]
     ssm_k1 = {}
-    for mode in ("det", "stoch"):
-        st = mode == "stoch"
+    for mode in ("det", "stoch", "threefry"):
         rows_ = []
         for k_, n_ in SSM_KN:
             w_ = torch.randn(k_, n_, generator=g, device=dev) * 0.7
-            b_ = rand_words((k_, n_)) if st else None
-            ms = time_cold(lambda: binarize_pack(w_, b_, stochastic=st))
-            plain_ms = time_cold(lambda: binarize_pack_plain(w_, b_, stochastic=st))
-            dev_ms = device_ms(lambda: (flush_buf.zero_(), binarize_pack(w_, b_, stochastic=st)),
-                               "binarize_pack_kernel")
-            nbytes = k_ * n_ * 4 * (2 if st else 1) + (k_ + 31) // 32 * n_ * 4
-            t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-            print(f"  K1 {mode} {k_}x{n_} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)}, "
-                  f"plain_ms {plain_ms:.4f}, library_ms none, bound_ms {t_b:.5f} (bytes, "
-                  f"{nbytes} B)")
-            rows_.append((ms, plain_ms, t_b, t_b, 0.0, None, dev_ms))
+            b_ = rand_words((k_, n_)) if mode == "stoch" else None
+            call, plain_call = k1_call(mode, w_, b_), k1_plain_call(mode, w_, b_)
+            ms = time_cold(call)
+            plain_ms = time_cold(plain_call)
+            dev_ms = k1_dev(lambda: (cold_l2(), call()))
+            dev_dirty = k1_dev(lambda: (flush_buf.zero_(), call()))
+            bms, by, t_b, t_o = k1_bound(mode, k_, n_)
+            print(f"  K1 {mode} {k_}x{n_} f32: kernel_ms {ms:.4f}, device_ms {fmt(dev_ms)} "
+                  f"(after a write flush of L2: {fmt(dev_dirty)}), plain_ms {plain_ms:.4f}, "
+                  f"library_ms none, bound_ms {bms:.5f} ({by}; bytes {t_b:.5f}, integer "
+                  f"operations {t_o:.5f})")
+            rows_.append((ms, plain_ms, bms, t_b, t_o, None, dev_ms, dev_dirty))
         ssm_k1[mode] = rows_
-        kernels.append({**entry(f"binarize_pack ({mode}, {SSM_ARCH}: in_proj and out_proj of "
-                                f"a layer, summed)",
+        kernels.append({**entry(f"{k1_names[mode]} ({SSM_ARCH}: in_proj and out_proj of a "
+                                f"layer, summed)",
                                 "src/repro_torch/kernels/csrc/binarize_pack.cu",
-                                ("src/repro/kernels/stoch_binarize.py:118" if st
-                                 else "src/repro/kernels/stoch_binarize.py:98"),
-                                total(launches["binarize_pack"],
-                                      [r for r in ssm_runs if (run_mode[r] == "stoch") == st]),
-                                errs[f"k1_{mode}"], rows_),
-                        "device_ms_per_shape": [r[6] for r in rows_]})
+                                ("src/repro/kernels/stoch_binarize.py:98" if mode == "det"
+                                 else "src/repro/kernels/stoch_binarize.py:118"),
+                                k1_launches(mode, ssm_runs), errs[f"k1_{mode}"], rows_),
+                        "device_ms_per_shape": [r[6] for r in rows_],
+                        "device_ms_after_write_flush_per_shape": [r[7] for r in rows_]})
+    del flush_twice
     ssm_k2 = [k2_lm_row(4, k_, n_) for k_, n_ in SSM_KN]
     kernels.append({**entry(f"binary_matmul ({SSM_ARCH} det/stoch decode, bf16 M=4, scaled: "
                             f"in_proj and out_proj of a layer, summed)",
@@ -4612,6 +4842,11 @@ def main() -> int:
           f"{fmt(r['step_device_ms'])} ms, 2-D K2 {fmt(r['k2_ms'])} ms, expert-batched K2 "
           f"{fmt(r['k2b_ms'])} ms, {fmt_count(r['step_launches'])} launches), peak allocated "
           f"{r['peak_serve_gb']:.2f} GB (serve), {r['peak_gb']:.2f} GB (with the checks)")
+    r = hyb_rows["stoch full"]
+    print(f"  all {hyb_cfg.n_layers} layers, stoch ({HYB_STOCH_SERVE}): draw + pack "
+          f"{r['pack_s']:.3f} s, {r['served_gb']:.2f} GB served, peak allocated "
+          f"{r['peak_serve_gb']:.2f} GB, {r['tok_s']:.2f} tok/s ({r['steps']} steps in "
+          f"{r['seconds']:.3f} s), median TTFT {r['ttft_ms']:.1f} ms")
     for mode in MOE_MODES:
         r = hyb_rows[mode]
         print(f"  one period, {mode}: draw + pack {r['pack_s']:.3f} s, {r['served_gb']:.2f} GB, "

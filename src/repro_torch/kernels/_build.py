@@ -96,7 +96,7 @@ def library() -> ctypes.CDLL:
     point's argument and result types declared."""
     lib = ctypes.CDLL(str(build_library()))
     vp, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
-    lib.bnn_binarize_pack.argtypes = [vp, vp, vp, i64, i64, i32, i32, u32, vp]
+    lib.bnn_binarize_pack.argtypes = [vp, vp, vp, i64, i64, i32, i32, u32, u32, u32, i64, vp]
     lib.bnn_binarize_pack.restype = i32
     lib.bnn_binary_matmul.argtypes = [vp, vp, vp, vp, i64, i64, i64, i32, vp]
     lib.bnn_binary_matmul.restype = i32

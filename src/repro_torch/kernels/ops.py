@@ -1,6 +1,7 @@
 """Public wrappers around the kernels: leading-dim flattening, the
-compute-dtype rule and the random words for stochastic packing (drawn from
-the threefry twin, ``core.prng``, over the reference's padded shape).
+compute-dtype rule and the random words for stochastic packing (the
+threefry twin's, ``core.prng``, over the reference's padded shape; on a
+card K1 computes them itself).
 
 Unlike the reference's ops, nothing here pads to blocks or cuts tiny shapes
 over to the plain version: the CUDA kernels mask ragged edges themselves,
@@ -55,23 +56,30 @@ def binarize_and_pack(w: torch.Tensor, key: prng.Key | None = None, *,
     """Fused binarize (Eq. 1 or 2) + bitpack of a (K, N) master weight to
     (ceil(K/32), N) int32.
 
-    The stochastic rule draws its words from ``key`` (``core.prng``) over the
-    shape the reference draws them over, so the words equal the reference's
-    at the same key: the 32-padded (Kp, N) where the reference cuts a tiny
-    shape over to its plain version (256-block padding would more than
-    quadruple it), else the 256x256 block-padded (kp, np_). Only the draw
-    needs that shape: the words are sliced back to (K, N), and K1 packs the
-    ragged pad rows as -1 (bit 0) whatever their words."""
+    The stochastic rule takes the words of ``key`` (``core.prng``) drawn
+    over the shape the reference draws them over, so they equal the
+    reference's at the same key: the 32-padded (Kp, N) where the reference
+    cuts a tiny shape over to its plain version (256-block padding would
+    more than quadruple it), else the 256x256 block-padded (kp, np_). A
+    word's row-major index in that draw depends only on its (row, column)
+    and the draw's column count, which is all K1 is handed: on a card its
+    threefry mode computes each (K, N) word in its loop (none reach
+    memory), on the CPU the twin draws them (``stoch_binarize``:
+    ``threefry_words``). The ragged pad rows pack as -1 (bit 0)."""
     if not stochastic:
         return binarize_pack(w.contiguous(), stochastic=False)
     if key is None:
         raise ValueError("stochastic binarization requires a key")
-    k, n = w.shape
-    kp32 = _ceil_to(k, PACK)
-    kp, np_ = _ceil_to(kp32, _BLOCK), _ceil_to(n, _BLOCK)
-    shape = (kp32, n) if kp * np_ > 4 * max(k, 1) * max(n, 1) else (kp, np_)
-    bits = prng.bits(key, shape, w.device)[:k, :n].contiguous()
-    return binarize_pack(w.contiguous(), bits, stochastic=True)
+    return binarize_pack(w.contiguous(), key=key, draw_cols=draw_cols(*w.shape),
+                         stochastic=True)
+
+
+def draw_cols(k: int, n: int) -> int:
+    """Columns of the shape the reference draws a (k, n) leaf's stochastic
+    words over (:func:`binarize_and_pack`): n on its tiny cut, else n padded
+    to its 256 block."""
+    kp, np_ = _ceil_to(_ceil_to(k, PACK), _BLOCK), _ceil_to(n, _BLOCK)
+    return n if kp * np_ > 4 * max(k, 1) * max(n, 1) else np_
 
 
 def pack_master_weights(w: torch.Tensor) -> torch.Tensor:

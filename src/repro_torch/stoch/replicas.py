@@ -109,7 +109,7 @@ def _substitute(base, picked: dict[str, Any]):
 def sample_replicas(params, plan: ExecutionPlan, key: prng.Key, k: int) -> ReplicaSet:
     """Draws ``k`` stochastic-binarization samples of ``params`` under
     ``plan``: only ``plan.stochastic_rows()`` are packed anew for each
-    replica (K1's operand mode, once a leaf a replica), everything else is
+    replica (K1's threefry mode, once a leaf a replica), everything else is
     packed once and shared. Replica 0 reuses ``plan.pack(params, key)``."""
     if k < 1:
         raise ValueError(f"ensemble size k must be >= 1, got {k}")

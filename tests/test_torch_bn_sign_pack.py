@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.core.binarize import binarize as j_binarize
 from repro.core.binarize import deterministic_binarize as j_deterministic_binarize

@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro_torch.core import prng
 from repro_torch.core.packing import unpack_bits
@@ -22,7 +23,8 @@ from repro_torch.engine.plan import tree_leaves_with_path, tree_map
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.binary_matmul import (binary_matmul, binary_matmul_batched,
                                                binary_matmul_batched_plain, binary_matmul_plain)
-from repro_torch.kernels.stoch_binarize import binarize_pack, binarize_pack_plain
+from repro_torch.kernels.stoch_binarize import (binarize_pack, binarize_pack_plain,
+                                                threefry_words)
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import XnorConv, apply_conv2d, conv2d_nhwc
@@ -160,6 +162,80 @@ def test_k1_onchip_launches_are_counted_apart(cuda):
     assert (binarize_pack.launches - total, binarize_pack.launches_on_chip - on_chip) == (2, 0)
     binarize_pack(w, stochastic=True, seed=3, on_chip_prng=True)
     assert (binarize_pack.launches - total, binarize_pack.launches_on_chip - on_chip) == (3, 1)
+
+
+# K1's tiled modes at the edges of the redesign: 2048 x 2048, a vector
+# crossing N on unaligned rows (N % 4 != 0, at a leaf with 16-byte tiles),
+# K < 32, K % 32 != 0, N = 1, a leaf too small for 16-byte tiles (one column
+# a thread), and word rows past 65,535 (tiles walked with a grid stride)
+K1_TILE_SHAPES = [(2048, 2048), (784, 2047), (31, 5), (65, 33), (100, 301), (4000, 1),
+                  (64, 64), (65535 * 32 + 100, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", K1_TILE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_k1_tiles_match_plain_at_the_edges(cuda, k, n, dtype, stochastic):
+    """The det and operand modes equal their plain versions bit for bit."""
+    w, bits = _weights(k, n, k + n, cuda, dtype)
+    b = bits if stochastic else None
+    assert torch.equal(binarize_pack(w, b, stochastic=stochastic),
+                       binarize_pack_plain(w, b, stochastic=stochastic))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,draw_cols", [(2048, 2048, 2048), (784, 2047, 2048),
+                                           (31, 5, 5), (65, 33, 256), (100, 301, 512),
+                                           (4000, 1, 1), (64, 64, 64),
+                                           (65535 * 32 + 100, 3, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_threefry_matches_the_operand_mode_on_the_twins_words(cuda, k, n, draw_cols,
+                                                                 dtype):
+    """The threefry mode equals the operand mode fed the twin's words of the
+    same key and draw, computed on the card, and their plain version."""
+    w, _ = _weights(k, n, k + n, cuda, dtype)
+    key = prng.split(prng.fold_in(prng.key(k), n), 3)[1]
+    words = threefry_words(key, k, n, draw_cols, cuda).contiguous()
+    got = binarize_pack(w, key=key, draw_cols=draw_cols, stochastic=True)
+    assert torch.equal(got, binarize_pack(w, words, stochastic=True))
+    assert torch.equal(got, binarize_pack_plain(w, words, stochastic=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 2048), (200, 230), (33, 7), (100, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_threefry_on_the_card_equals_a_cpu_pack(cuda, k, n, dtype):
+    """ops.binarize_and_pack's route on the card (the threefry mode) and on
+    the CPU (the twin, then the plain operand rule) give the same words."""
+    w, _ = _weights(k, n, k * n, "cpu", dtype)
+    key = prng.split(prng.fold_in(prng.key(4), 9), 2)[0]
+    before = binarize_pack.launches_threefry
+    got = ops.binarize_and_pack(w.to(cuda), key, stochastic=True)
+    assert binarize_pack.launches_threefry == before + 1
+    assert torch.equal(got.cpu(), ops.binarize_and_pack(w, key, stochastic=True))
+
+
+@pytest.mark.cuda
+def test_k1_threefry_launches_are_counted_apart(cuda):
+    """launches counts every K1 mode; launches_threefry only the threefry
+    mode, which a stochastic ops.binarize_and_pack launches."""
+    w, bits = _weights(64, 128, 0, cuda)
+    names = ("launches", "launches_threefry", "launches_on_chip")
+    before = [getattr(binarize_pack, a) for a in names]
+
+    def delta():
+        return tuple(getattr(binarize_pack, a) - b for a, b in zip(names, before))
+
+    binarize_pack(w, bits, stochastic=True)
+    binarize_pack(w, stochastic=False)
+    ops.binarize_and_pack(w, stochastic=False)
+    assert delta() == (3, 0, 0)
+    ops.binarize_and_pack(w, prng.key(1), stochastic=True)
+    binarize_pack(w, key=prng.key(2), draw_cols=256, stochastic=True)
+    assert delta() == (5, 2, 0)
+    binarize_pack(w, stochastic=True, seed=3, on_chip_prng=True)
+    assert delta() == (6, 2, 1)
 
 
 @pytest.mark.cuda
@@ -570,8 +646,9 @@ def test_twin_words_on_cuda_equal_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(2048, 2048), (784, 2048), (64, 64), (300, 100)])
 def test_stoch_pack_on_cuda_equals_cpu(cuda, k, n):
-    """Twin words on the card, then K1's operand mode, equal the CPU pack at
-    the same key (both of the reference's draw shapes)."""
+    """K1's threefry mode (the words computed in its loop) equals the CPU
+    pack (the twin's words, then the operand rule) at the same key, on both
+    of the reference's draw shapes."""
     w, _ = _weights(k, n, k + n, "cpu")
     key = prng.key(k + n)
     got = ops.binarize_and_pack(w.to(cuda), key, stochastic=True)

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.checkpoint.manager import CheckpointManager as JCheckpointManager
 from repro.configs import base as jcb

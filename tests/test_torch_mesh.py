@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.configs import base as jcb
 from repro.core.binarize import _path_str

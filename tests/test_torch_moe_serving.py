@@ -12,6 +12,7 @@ archs (det, stoch, chunked with a prefix cache, the K = 2 ensemble), and
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.configs import base as jcb
 from repro.core.policy import DEFAULT_POLICY as J_POLICY

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.obs import metrics as j_metrics
 from repro.obs import trace as j_trace

@@ -11,6 +11,7 @@ for both variants); and the Eq.-3 frequency with exact endpoints, as
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro_torch.core import packing as P
 from repro_torch.kernels.stoch_binarize import (binarize_pack, binarize_pack_plain,

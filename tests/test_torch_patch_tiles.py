@@ -15,6 +15,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro_torch.xnor.conv.cases import (PAST_2_31_INPUTS, PAST_2_31_OUTPUT,
                                          PAST_2_31_OUTPUT_CHUNK, TILE_EDGES,

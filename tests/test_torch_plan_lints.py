@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.analysis import format_findings as j_format_findings
 from repro.analysis import gate as j_gate

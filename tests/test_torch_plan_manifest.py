@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.core.policy import DEFAULT_POLICY as J_DEFAULT_POLICY
 from repro.core.policy import NONE_POLICY as J_NONE_POLICY

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.serve.prefix_cache import PrefixCache as JPrefixCache
 from repro_torch.serve import PrefixCache, PrefixEntry

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.configs import vgg16_cifar10 as JC
 from repro.core.binarize import BinarizeMode as JMode

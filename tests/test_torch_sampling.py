@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.configs import base as jcb
 from repro.core.policy import DEFAULT_POLICY as J_POLICY

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.engine import compile_plan as j_compile_plan
 from repro.launch.train import make_paper_policy as j_make_paper_policy

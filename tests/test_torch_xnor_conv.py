@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 from repro.models.layers import XnorConv as JXnorConv
 from repro.models.layers import apply_conv2d as j_apply_conv2d
