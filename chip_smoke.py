@@ -289,6 +289,26 @@ allocated; then a chunked det serve with the prefix cache at
 admission on the mesh. Phase 7 times K2, K3 and K4 at a position's decode
 shapes (M = 2, ``LM_MESH_K2`` / ``LM_MESH_K4``).
 
+Since the ensemble and the SSM family on the mesh (phase 6k, about a minute
+and a half more): 6f's K = 4 stochastic ensemble (StarCoder2-3B at full
+width, ``LM_6F_LAYERS`` layers) drawn again by K1's threefry mode with a
+plan compiled for the mesh (words equal 6f's) and served with its replicas
+split over "data" and then over "model" (``ServeEngine(ensemble=, mesh=,
+plan=)``): the stacked leaves' lead spec names the axis, the counters and
+the collectives follow the placement (``ens_collectives``), and the streams,
+mean logits, vote agreement and variance equal 6f's single-device ensemble
+bit for bit; then, after 6h, mamba2-130m at its full CONFIG on the same
+mesh from 6h's served det, stoch and xnor trees: in_proj, out_proj and the
+conv's channel shards bit for bit the single-device call, every head input
+bit for bit, streams equal 6h's up to near ties and logits within 2^-5 of
+the largest (the tied head's cuBLAS GEMM splits K by shape), the
+collectives the plan's prediction and
+one all-gather a group call more (the tied head), tok/s, the decode step's
+wall and device ms, launches, bytes a position and peak; and 6h's chunked
+det serve with the prefix cache on the mesh, its streams 6h's. Phase 7
+times K2, K3 and K4 at those position shapes (``ENS_MESH_K2``,
+``SSM_MESH_K2`` / ``SSM_MESH_K4``).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -487,6 +507,21 @@ SSM_KN = [(768, 3352), (1536, 768)]
 SSM_LONG_PROMPT = 200
 SSM_CHUNK = dict(requests=8, slots=4, prompt_len=32, max_new=8, prefill_chunk=8,
                  prefix_cache=16, shared_prefix=16)
+# Phase 6k's mamba2-130m on the (2, 2) mesh (LM_MESH), after 6h: a model
+# position runs in_proj on N/2 (det/stoch: K2; xnor: K3 on the whole input,
+# scaled K4) and out_proj on N/2 (K2) or, in xnor, on K/2 (row parallel: K3
+# on the activation's range, K4's int32 partial, the partials summed and
+# scaled once); the conv's depthwise taps on half of its 1792 channels. A
+# decode step runs the 48 projections at all 4 positions, a slot's prefill
+# at its group's 2.
+SSM_MESH_K2 = [(k, n // 2) for k, n in SSM_KN]
+# (K of the range, N of the shard, scaled) of the xnor projections' K3 + K4
+SSM_MESH_K4 = [(768, 1676, True), (768, 768, False)]
+# Phase 6k's ensemble on the mesh: under "data" a group runs its 2 replicas
+# over all 4 slots with every projection on N/2 (M = 4); under "model" a
+# replica's words sit whole on one position and a group runs each replica
+# over its 2 slots (M = 2, whole N)
+ENS_MESH_K2 = {"data": [(4, k, n // 2) for k, n in LM_KN], "model": [(2, k, n) for k, n in LM_KN]}
 
 # The hybrid (phase 6i): jamba-1.5-large at its full CONFIG width (d_model
 # 8192, 64 heads with 8 KV heads of 128, GLU d_ff 24576, 16 experts top-2 on
@@ -1225,19 +1260,24 @@ def main() -> int:
         finally:
             module.takes_sign_words = orig
 
-    def profiled(fn, reps: int) -> dict[str, float] | None:
-        """Device time per rep of each CUDA kernel ``fn`` launches, in ms, by
-        kernel name, from torch.profiler; None if the profiler records no
-        device activity on this machine."""
+    def profiled_n(fn, reps: int) -> tuple[dict[str, float] | None, float | None]:
+        """From one torch.profiler session over ``reps`` reps of ``fn``: the
+        device time per rep of each CUDA kernel it launches, in ms, by kernel
+        name, and the device kernels it launches per rep; (None, None) if the
+        profiler records no device activity on this machine."""
         events = profile_events(fn, reps)
-        if events is None:
-            return None
-        return {k: t / reps / 1e3 for k, (t, _) in events.items()} or None
+        if not events:
+            return None, None
+        return ({k: t / reps / 1e3 for k, (t, _) in events.items()},
+                sum(c for _, c in events.values()) / reps)
+
+    def profiled(fn, reps: int) -> dict[str, float] | None:
+        """``profiled_n``'s device time by kernel name."""
+        return profiled_n(fn, reps)[0]
 
     def kernels_per_rep(fn, reps: int = 20) -> float | None:
-        """Device kernels ``fn`` launches per rep, counted by torch.profiler."""
-        events = profile_events(fn, reps)
-        return None if not events else sum(c for _, c in events.values()) / reps
+        """``profiled_n``'s device kernels a rep."""
+        return profiled_n(fn, reps)[1]
 
     def profile_events(fn, reps: int) -> dict[str, tuple[float, int]] | None:
         """(device us, launches) over ``reps`` reps of ``fn``, by CUDA kernel
@@ -1451,6 +1491,9 @@ def main() -> int:
     lm_k2_cases = [(m, k, n, "k2_lm") for m in (4, 32) for k, n in LM_KN]
     lm_k2_cases += [(m, k, n, "k2_ssm") for m in (4, SSM_LONG_PROMPT) for k, n in SSM_KN]
     lm_k2_cases += [(m, k, n, "k2_mesh") for m in (2, 32) for k, n in LM_MESH_K2]
+    lm_k2_cases += [(m, k, n, "k2_ens_mesh") for rows in ENS_MESH_K2.values()
+                    for m, k, n in rows]
+    lm_k2_cases += [(m, k, n, "k2_ssm_mesh") for m in (2, 32) for k, n in SSM_MESH_K2]
     for m, k, n, key_ in lm_k2_cases:
         if key_ == "k2_ssm" and (m, k) == (4, SSM_KN[0][0]):
             print(f"== K2 at {SSM_ARCH}'s projection shapes, bf16 (decode M=4, a "
@@ -1468,7 +1511,7 @@ def main() -> int:
             torch.testing.assert_close(got, want, **F32_TOL, msg=f"K2 LM {m}x{k}x{n}")
             if not torch.equal(binary_matmul(x, wp, s_), got):
                 raise AssertionError(f"K2 LM {m}x{k}x{n}: two calls differ")
-            if m == (2 if key_ == "k2_mesh" else 4):
+            if m == (2 if key_ in ("k2_mesh", "k2_ssm_mesh") else 4) or key_ == "k2_ens_mesh":
                 errs[key_] = max(errs.get(key_, 0.0), err)
 
     # 5. K3, K4, K5 against their plain versions, exact
@@ -1498,6 +1541,11 @@ def main() -> int:
         for k, _ in SSM_KN:
             x = acts((m, k), torch.bfloat16)
             exact(f"K3 {SSM_ARCH} input {m}x{k} bf16", sign_pack(x), sign_pack_plain(x))
+    for m in (2, 32):
+        for k in sorted({k for k, _, _ in SSM_MESH_K4}):
+            x = acts((m, k), torch.bfloat16)
+            exact(f"K3 {SSM_ARCH} mesh position input {m}x{k} bf16", sign_pack(x),
+                  sign_pack_plain(x))
 
     print("== K3 with the producer prologue (bias, eval batch norm, Eq.-1 sign) vs its "
           "plain chain (exact; BN outputs 0.0, -0.0, NaN, 0 * inf, +-2^-149 planted, and "
@@ -1594,6 +1642,8 @@ def main() -> int:
                  for m in (4, SSM_LONG_PROMPT) for k, n in SSM_KN]
     k4_cases += [(m, k // 32, n, k, f"{LM_ARCH} mesh position {'decode' if m == 2 else 'prefill'}"
                                     f" {k}x{n}") for m in (2, 32) for k, n, _ in LM_MESH_K4]
+    k4_cases += [(m, k // 32, n, k, f"{SSM_ARCH} mesh position {'decode' if m == 2 else 'prefill'}"
+                                    f" {k}x{n}") for m in (2, 32) for k, n, _ in SSM_MESH_K4]
     for m, wds, n, k, what in k4_cases:
         a, w = words((m, wds)), words((wds, n))
         for s in (None, torch.rand(n, generator=g, device=dev) + 0.5):
@@ -2318,9 +2368,8 @@ def main() -> int:
         def one_step():
             engine.decode_step(step_state, tok)
 
-        step_kern = profiled(one_step, reps=5)
+        step_kern, step_n = profiled_n(one_step, reps=3)
         step_dev = step_kern and sum(step_kern.values())
-        step_n = kernels_per_rep(one_step, reps=5)
         # where the host's time goes: cProfile over 3 decode steps (it adds a
         # cost to every Python call, so read it for ranking, not for totals)
         host = cProfile.Profile()
@@ -2346,7 +2395,7 @@ def main() -> int:
               f"{res.tok_per_s:.1f} tok/s, median TTFT {res.median_ttft * 1e3:.1f} ms, median "
               f"latency {res.median_latency * 1e3:.1f} ms; decode step {step_ms:.3f} ms median "
               f"(synced), device {fmt(step_dev)} ms in {fmt_count(step_n)} device launches "
-              f"(torch.profiler, 5 steps); peak allocated {peak / 1e9:.2f} GB above the "
+              f"(torch.profiler, 3 steps); peak allocated {peak / 1e9:.2f} GB above the "
               f"{live / 1e9:.2f} GB earlier phases hold; top: "
               + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
         del res, engine, state, step_state, k_lg, p_lg
@@ -2425,8 +2474,8 @@ def main() -> int:
 
     def step_costs(fn, reps=5):
         """(wall ms synced median, device ms, device launches) of one call."""
-        dev_k = profiled(fn, reps=3)
-        return synced_ms(fn, reps), dev_k and sum(dev_k.values()), kernels_per_rep(fn, reps=3)
+        dev_k, n_ = profiled_n(fn, reps=3)
+        return synced_ms(fn, reps), dev_k and sum(dev_k.values()), n_
 
     def first_diff(a, b):
         return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
@@ -2655,8 +2704,10 @@ def main() -> int:
           f"{e_pack_s:.3f} s; {lm6f['ensemble']['tok_s']:.1f} tok/s ({steps} steps in "
           f"{secs:.3f} s); decode step wall {e_step[0]:.3f} ms, device {fmt(e_step[1])} ms "
           f"in {fmt_count(e_step[2])} device launches")
+    # 6k serves these replicas on the mesh, drawn again from the same masters
+    ens_keep = {"cfg": lm_cfg, "masters": masters, "rs": rs, "engine": engine,
+                "prompts": e_prompts, "streams": streams}
     del engine, state, rs, masters
-    torch.cuda.empty_cache()
 
     phase_start["6k"] = time.perf_counter()
     # 6k. StarCoder2-3B at full width and depth on a (2, 2) ("data", "model")
@@ -2665,7 +2716,7 @@ def main() -> int:
     # LM_6F_LAYERS layers, cut from 6e's det tree
     from repro_torch.distributed import sharding as SH
     from repro_torch.models.layers import apply_linear
-    from repro_torch.obs.collectives import predict_call_collectives
+    from repro_torch.obs.collectives import predict_call_collectives, predict_row_collective
 
     lm_cfg = cb.get_config(LM_ARCH)
     n_proj = 4 * lm_cfg.n_layers
@@ -2692,6 +2743,21 @@ def main() -> int:
             if i < max_new - 1:
                 state = engine.decode_step(state, toks[-1])
         return torch.stack(out, 1), torch.stack(toks, 1)
+
+    def ens_served(engine, prompts, max_new, forced=None):
+        """[(B, max_new, V) mean logits, (B, max_new) vote agreement, logit
+        variance and tokens] of greedy ensemble serving on B slots through
+        the engine's entry points, decoding ``forced`` tokens where given."""
+        state = engine.init_decode(len(prompts), len(prompts[0]), max_new)
+        for slot, p_ in enumerate(prompts):
+            state = engine.prefill_into(state, slot, p_)
+        out = []
+        for i in range(max_new):
+            tok_ = torch.argmax(state.logits, dim=-1) if forced is None else forced[:, i]
+            out.append((state.logits, state.agreement, state.variance, tok_))
+            if i < max_new - 1:
+                state = engine.decode_step(state, tok_)
+        return [torch.stack(t, 1) for t in zip(*out)]
 
     def near_ties(tag, got, want, margin_of, tol_scale):
         """Holds each stream of ``got`` against ``want`` (uid -> tokens): a
@@ -2879,6 +2945,112 @@ def main() -> int:
           f"streams, {ties10} parting at a near tie; {mesh6k['chunked']['tok_s']:.1f} tok/s "
           f"chunked, {mesh6k['chunked']['whole_tok_s']:.1f} whole-prompt")
     del engine, single10, cut, det_tree, lg10
+    torch.cuda.empty_cache()
+
+    # 6f's K = 4 ensemble on the mesh, its replicas over "data" and then over
+    # "model", each drawn again by K1's threefry mode from 6f's masters with a
+    # plan compiled for the mesh; held bit for bit against 6f's single-device
+    # ensemble engine
+    ens = ens_keep
+    cfg6f, ek = ens["cfg"], LM_ENSEMBLE["k"]
+    e_new, e_slots = LM_ENSEMBLE["max_new"], LM_ENSEMBLE["slots"]
+    e_req, n_proj6f = LM_ENSEMBLE["requests"], 4 * cfg6f.n_layers
+    s_lg, s_agr, s_var, s_tok = ens_served(ens["engine"], ens["prompts"][:e_slots], e_new)
+
+    def ens_collectives(plan, rs_, rax):
+        """{kind: count} of one replica's model call over a data group's
+        slots on the mesh, and how many such calls a decode step runs. Under
+        "data" a group runs its replicas' whole calls (every row's
+        collective, the plan's prediction for one group) and each replica
+        runs once a step; under "model" a replica's stacked words sit whole
+        on one position, so its call runs only the shared rows'
+        collectives (the embedding's and the head's), once a group. The
+        predictor counts rows, not replicas, so the reckoning is here."""
+        if rax == "data":
+            return predict_call_collectives(plan, sizes, groups=1), ek
+        shared = {"all-gather": 0, "all-reduce": 0}
+        for row in plan.compute_rows():
+            c = predict_row_collective(row.sharding, row.shape, axis_sizes=sizes)
+            if c is not None and row.path not in rs_.paths:
+                shared[c["kind"]] += 1
+        return shared, ek * groups
+
+    for rax in ("data", "model"):
+        print(f"== {LM_ARCH} full width, {LM_6F_LAYERS} of 30 layers, the K = {ek} stoch "
+              f"ensemble on the mesh, replicas over {rax!r}: {LM_ENSEMBLE}")
+        plan_r = compile_plan(ens["masters"], DEFAULT_POLICY, "stoch", mesh=mesh,
+                              replica_axis=rax)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs_r = sample_replicas(ens["masters"], plan_r, prng.key(1), ek)
+        engine = ServeEngine(cfg6f, None, ensemble=rs_r, mesh=mesh, plan=plan_r)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        for path in rs_r.paths:
+            if not torch.equal(rs_r.stacked[path].packed, ens["rs"].stacked[path].packed):
+                raise AssertionError(f"ensemble mesh {rax}: {path}'s replica words differ "
+                                     f"from 6f's")
+        lead = engine._replicas.stacked["layers/attn/w_qkv"].spec
+        if lead[0] != rax:
+            raise AssertionError(f"ensemble mesh {rax}: the stacked w_qkv's spec is {lead}")
+        per_pos = SH.position_nbytes(engine.params) + sum(
+            leaf.position_nbytes() for leaf in engine._replicas.stacked.values())
+        print(f"  {ek} x {n_proj6f} K1 (threefry) and placed in {place_s:.3f} s; words equal "
+              f"6f's; the stacked w_qkv's spec {lead}; "
+              f"{', '.join(f'{b_ / 1e6:.1f}' for b_ in per_pos.flat)} MB a position")
+        per_call, calls_a_step = ens_collectives(plan_r, rs_r, rax)
+        SH.reset_collective_counts()
+        streams, b, steps, secs = serve_streams(engine, ens["prompts"], e_new, e_slots)
+        # a replica's projections run on n_model positions under "data" (its
+        # N shards) and on one under "model" (whole); a prefill is one group's
+        on_pos = n_model if rax == "data" else 1
+        proj = n_proj6f * ek * on_pos * (e_req + (steps - 1) * (1 if rax == "data" else groups))
+        print(f"  {e_req} prefills + {steps - 1} decode steps x {ek} replicas x {n_proj6f} "
+              f"projections, each on {on_pos} position(s), {'once' if rax == 'data' else 'in each group'} a step")
+        expect_counts(f"{LM_ARCH} ensemble mesh {rax}", (f"stoch ensemble mesh {rax}", "stoch"),
+                      {"binarize_pack": n_proj6f * ek, "binarize_pack_threefry": n_proj6f * ek,
+                       "binary_matmul": proj})
+        pre_calls = ek * e_req
+        want_c = {k_: v * (pre_calls + (steps - 1) * calls_a_step) for k_, v in per_call.items()}
+        got_c = SH.collective_counts()
+        print(f"  collectives over the serve {got_c} (reckoned: {per_call} a replica call, "
+              f"{pre_calls} prefill calls + {calls_a_step} a decode step: {want_c})")
+        if got_c != want_c:
+            raise AssertionError(f"ensemble mesh {rax}: collectives {got_c} != {want_c}")
+        if streams != ens["streams"]:
+            raise AssertionError(f"ensemble mesh {rax}: streams differ from 6f's single-device "
+                                 f"ensemble")
+        m_lg, m_agr, m_var, _ = ens_served(engine, ens["prompts"][:e_slots], e_new, forced=s_tok)
+        for what, a_, b_ in (("mean logits", m_lg, s_lg), ("agreement", m_agr, s_agr),
+                             ("variance", m_var, s_var)):
+            if not torch.equal(a_, b_):
+                raise AssertionError(f"ensemble mesh {rax}: {what} differ from 6f's "
+                                     f"single-device ensemble (max |diff| "
+                                     f"{(a_ - b_).abs().max().item():.4g})")
+        print(f"  all {len(streams)} streams equal 6f's single-device ensemble's; the first "
+              f"{e_slots} requests' mean logits, vote agreement (mean "
+              f"{m_agr.mean().item():.3f}) and variance bit for bit its")
+        state = engine.init_decode(e_slots, LM_ENSEMBLE["prompt_len"], e_new)
+        for slot in range(e_slots):
+            state = engine.prefill_into(state, slot, ens["prompts"][slot])
+        tok = torch.argmax(state.logits, dim=-1)
+        SH.reset_collective_counts()
+        engine.decode_step(state, tok)
+        step_c = SH.collective_counts()
+        if step_c != {k_: v * calls_a_step for k_, v in per_call.items()}:
+            raise AssertionError(f"ensemble mesh {rax}: a decode step's collectives {step_c}")
+        e_step = step_costs(lambda: engine.decode_step(state, tok), reps=5)
+        mesh6k[f"ensemble {rax}"] = {
+            "tok_s": b.tokens_generated / secs, "seconds": secs, "steps": steps,
+            "step": e_step, "collectives": step_c, "place_s": place_s,
+            "bytes_per_position": [int(v) for v in per_pos.flat],
+            "agreement": m_agr.mean().item()}
+        print(f"  {mesh6k[f'ensemble {rax}']['tok_s']:.1f} tok/s ({steps} steps in "
+              f"{secs:.3f} s); decode step wall {e_step[0]:.3f} ms, device {fmt(e_step[1])} ms "
+              f"in {fmt_count(e_step[2])} device launches, collectives a step {step_c}")
+        del engine, state, rs_r
+    del ens, ens_keep, s_lg, s_agr, s_var, s_tok
     torch.cuda.empty_cache()
 
     phase_start["6g"] = time.perf_counter()
@@ -3209,9 +3381,8 @@ def main() -> int:
         def one_step():
             engine.decode_step(step_state, tok)
 
-        step_kern = profiled(one_step, reps=5)
+        step_kern, step_n = profiled_n(one_step, reps=3)
         step_dev = step_kern and sum(step_kern.values())
-        step_n = kernels_per_rep(one_step, reps=5)
         top = sorted((step_kern or {}).items(), key=lambda kv: -kv[1])[:4]
         step_k2b = step_kern and sum(v for name, v in step_kern.items()
                                      if "binary_matmul_batched_kernel" in name)
@@ -3228,7 +3399,7 @@ def main() -> int:
               f"{res.packed_bytes / 1e6:.1f} MB served; {res.tok_per_s:.1f} tok/s, median TTFT "
               f"{res.median_ttft * 1e3:.1f} ms, median latency {res.median_latency * 1e3:.1f} ms; "
               f"decode step {step_ms:.3f} ms median (synced), device {fmt(step_dev)} ms in "
-              f"{fmt_count(step_n)} device launches (torch.profiler, 5 steps), of which "
+              f"{fmt_count(step_n)} device launches (torch.profiler, 3 steps), of which "
               f"expert-batched K2 {fmt(step_k2b)} ms; peak allocated "
               f"{peak / 1e9:.2f} GB above the {live / 1e9:.2f} GB earlier phases hold; top: "
               + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
@@ -3357,6 +3528,7 @@ def main() -> int:
     n_ssm_proj = 2 * ssm_cfg.n_layers              # in_proj and out_proj a model call
     ssm_kern_names = ("binary_matmul", "sign_pack", "xnor_")
     ssm_rows = {}
+    ssm_keep = {}      # mode -> the served tree, its plan, engine and streams, for 6k
 
     def ssm_want(mode, calls):
         return {name: n_ssm_proj * calls for name in
@@ -3482,9 +3654,8 @@ def main() -> int:
             state = engine.prefill_into(state, slot, done[slot].prompt)
         tok = torch.argmax(state.logits, dim=-1)
         step_ms = synced_ms(lambda: engine.decode_step(state, tok), LM_SERVE["max_new"] - 1)
-        step_kern = profiled(lambda: engine.decode_step(state, tok), reps=5)
+        step_kern, step_n = profiled_n(lambda: engine.decode_step(state, tok), reps=3)
         step_dev = step_kern and sum(step_kern.values())
-        step_n = kernels_per_rep(lambda: engine.decode_step(state, tok), reps=5)
         kern_dev = step_kern and sum(v for k_, v in step_kern.items()
                                      if any(s in k_ for s in ssm_kern_names))
         top = sorted((step_kern or {}).items(), key=lambda kv: -kv[1])[:4]
@@ -3504,6 +3675,9 @@ def main() -> int:
               f"{fmt_count(step_n)} device launches, K2/K3/K4 {fmt(kern_dev)} ms of it "
               f"({share}; the rest the SSD's plain ops, the norms and the head); peak allocated "
               f"{peak / 1e9:.2f} GB; top: " + "; ".join(f"{k_[:50]} {v:.4f}" for k_, v in top))
+        ssm_keep[mode] = {"params": engine.params, "plan": res.plan, "engine": engine,
+                          "prompts": [r.prompt for r in done],
+                          "streams": {r.uid: list(r.generated) for r in done}}
         del res, engine, state
 
     # chunked prefill with the prefix cache (det) against whole-prompt admission
@@ -3559,7 +3733,208 @@ def main() -> int:
           f"(smallest top-2 margin on the whole-prompt path {margin.min().item():.4g}); "
           f"{ssm_rows['chunked']['tok_s']:.1f} tok/s, median TTFT "
           f"{ssm_rows['chunked']['ttft_ms']:.1f} ms")
+    ssm_keep["chunked"] = {"params": engine.params, "prompts": sprompts, "streams": streams}
     del engine, lg
+    torch.cuda.empty_cache()
+
+    phase_start["6k mamba2"] = time.perf_counter()
+    # 6k, continued: mamba2-130m at full width and depth on the (2, 2) mesh,
+    # placed from 6h's served det, stoch and xnor trees and held bit for bit
+    # against 6h's single-device serves; then 6h's chunked det serve with the
+    # prefix cache on the mesh
+    from repro_torch.models import ssm as ssm_mod
+
+    ssm_mesh = {}
+    ssm_view_names = ("in_proj", "out_proj")
+
+    def head_inputs(engine, prompts, max_new, forced=None):
+        """``served_logits`` and the rows of every head call's input, in call
+        order (a prefill's positions, then a decode step's slots, a mesh's
+        data groups in order), as one (rows, D) tensor."""
+        seen, orig = [], T._head_out
+
+        def rec(cfg_, params_, x):
+            seen.append(x.reshape(-1, x.shape[-1]).clone())
+            return orig(cfg_, params_, x)
+
+        T._head_out = rec
+        try:
+            lg_, tok_ = served_logits(engine, prompts, max_new, forced)
+        finally:
+            T._head_out = orig
+        return lg_, tok_, torch.cat(seen)
+
+    def ssm_collectives(plan, calls):
+        """The plan's prediction for ``calls`` group calls, and one
+        all-gather more a call: the tied head's vocab-parallel product runs
+        on the embedding's row, which the predictor counts once (the
+        lookup's all-reduce)."""
+        p_ = predict_call_collectives(plan, sizes, groups=1)
+        return {k_: v * calls + (calls if k_ == "all-gather" else 0) for k_, v in p_.items()}
+
+    for mode in LM_MODES:
+        keep = ssm_keep.pop(mode)
+        print(f"== serve {SSM_ARCH} full width ({ssm_cfg.n_layers} layers) --packed --binarize "
+              f"{mode} on the mesh, placed from 6h's tree: {LM_SERVE}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = ServeEngine(ssm_cfg, keep["params"], mesh=mesh, plan=keep["plan"])
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        single = keep["engine"]
+        per_pos = SH.position_nbytes(engine.params)
+        print(f"  placed in {place_s:.3f} s: {', '.join(f'{b_ / 1e6:.1f}' for b_ in per_pos.flat)}"
+              f" MB a position (row-major), {sum(per_pos.flat) / 1e6:.1f} MB in all")
+
+        # in_proj, out_proj and the conv at their shards against the
+        # single-device call, bit for bit, every layer
+        view = SH.group_view(engine.params, 0)["layers"]["ssm"]
+        whole = keep["params"]["layers"]["ssm"]
+        n_checked = 0
+        for layer in range(ssm_cfg.n_layers):
+            for name in ssm_view_names:
+                x = torch.randn(m_slots // groups, 1, whole[name].k, generator=g,
+                                device=dev).to(torch.bfloat16)
+                if not torch.equal(apply_linear(view[name][layer], x),
+                                   apply_linear(whole[name][layer], x)):
+                    raise AssertionError(f"{SSM_ARCH} {mode} mesh: {name} layer {layer} differs "
+                                         f"from the single-device projection")
+            xbc = torch.randn(m_slots // groups, 1, whole["conv"].shape[-1], generator=g,
+                              device=dev).to(torch.bfloat16)
+            hist = torch.randn(m_slots // groups, ssm_cfg.ssm_conv_width - 1, xbc.shape[-1],
+                               generator=g, device=dev).to(torch.bfloat16)
+            if not torch.equal(ssm_mod._causal_conv(xbc, view["conv"][layer], hist),
+                               ssm_mod._causal_conv(xbc, whole["conv"][layer], hist)):
+                raise AssertionError(f"{SSM_ARCH} {mode} mesh: the conv's channel shards of "
+                                     f"layer {layer} differ from the single-device taps")
+            n_checked += 3
+        what = ("K2 column shards" if mode != "xnor"
+                else "K3 + K4 column shards and int32 row partials")
+        print(f"  all {n_checked} projections and convs ({what}; the conv's taps on half the "
+              f"channels) equal the single-device call bit for bit on a group's 2 rows")
+
+        reset_counts()
+        SH.reset_collective_counts()
+        streams, b, steps, secs = serve_streams(engine, keep["prompts"], m_new, m_slots)
+        calls = LM_SERVE["requests"] * n_model + (steps - 1) * n_model * groups
+        print(f"  {LM_SERVE['requests']} prefills x {n_model} positions + {steps - 1} decode "
+              f"steps x {mesh.size} positions, x {n_ssm_proj} projections")
+        got = launch_counts()
+        want = {name: 0 for name in counters}
+        want.update(ssm_want(mode, calls))
+        print(f"  launches {got}")
+        if got != want:
+            raise AssertionError(f"{SSM_ARCH} {mode} mesh: expected launches {want}")
+        for name, count in got.items():
+            launches[name][(SSM_ARCH, f"{mode} mesh")] = count
+        run_mode[(SSM_ARCH, f"{mode} mesh")] = mode
+        want_c = ssm_collectives(keep["plan"], LM_SERVE["requests"] + (steps - 1) * groups)
+        got_c = SH.collective_counts()
+        print(f"  collectives over the serve {got_c} (the plan's prediction, and the tied "
+              f"head's all-gather a group call: {want_c})")
+        if got_c != want_c:
+            raise AssertionError(f"{SSM_ARCH} {mode} mesh: collectives {got_c} != {want_c}")
+        prompts_t = {uid: torch.from_numpy(p_[None]).to(dev)
+                     for uid, p_ in enumerate(keep["prompts"])}
+        n_eq, ties = near_ties(f"{SSM_ARCH} {mode} mesh", streams, keep["streams"],
+                               lambda uid: lm_greedy(single, prompts_t[uid], m_new)[0],
+                               LM_LOGIT_TOL)
+        # the first 4 requests, both engines decoding 6h's tokens: every head
+        # call's input (the last layer's output, after 24 layers of K2 or K3 +
+        # K4 shards, conv shards and the groups' own state updates) equals the
+        # single-device one bit for bit. The tied head is cuBLAS's bf16 GEMM,
+        # whose K split for a group's (2, 768) x (768, 25140) vocab shard is
+        # not the one it takes for (4, 768) x (768, 50280), so the logits are
+        # held within LM_LOGIT_TOL of the largest, as 6k's StarCoder2-3B's are
+        s_lg, s_tok, s_in = head_inputs(single, keep["prompts"][:m_slots], m_new)
+        m_lg, _, m_in = head_inputs(engine, keep["prompts"][:m_slots], m_new, forced=s_tok)
+        if not torch.equal(m_in, s_in):
+            raise AssertionError(f"{SSM_ARCH} {mode} mesh: the head's inputs differ from the "
+                                 f"single-device engine's")
+        diff = (m_lg - s_lg).abs()
+        err, tol = diff.amax(dim=-1), LM_LOGIT_TOL * s_lg.abs().amax(dim=-1)
+        n_bitwise = int((m_lg == s_lg).all(dim=-1).sum())
+        n_off = int((diff > 0).sum())
+        if (err > tol).any():
+            raise AssertionError(f"{SSM_ARCH} {mode} mesh: logits past the tolerance (max |diff| "
+                                 f"{err.max().item():.4g})")
+        print(f"  {n_eq}/{len(streams)} streams equal 6h's, {ties} parting at a near tie; the "
+              f"first {m_slots} requests x {m_new} steps: the head's {s_in.shape[0]} input rows "
+              f"equal the single-device engine's bit for bit; logits {n_bitwise}/"
+              f"{m_slots * m_new} steps bit for bit, {n_off} of {diff.numel()} logits off, max "
+              f"|diff| {err.max().item():.4g} (tolerance at least {tol.min().item():.4g}; the "
+              f"tied head's GEMM)")
+
+        state = engine.init_decode(m_slots, LM_SERVE["prompt_len"], m_new)
+        for slot in range(m_slots):
+            state = engine.prefill_into(state, slot, keep["prompts"][slot])
+        tok = torch.argmax(state.logits, dim=-1)
+        step_ms = synced_ms(lambda: engine.decode_step(state, tok), m_new - 1)
+        SH.reset_collective_counts()
+        engine.decode_step(state, tok)
+        step_c = SH.collective_counts()
+        if step_c != ssm_collectives(keep["plan"], groups):
+            raise AssertionError(f"{SSM_ARCH} {mode} mesh: a decode step's collectives {step_c}")
+        events = profile_events(lambda: engine.decode_step(state, tok), reps=3)
+        step_dev = events and sum(t for t, _ in events.values()) / 3 / 1e3
+        step_n = events and sum(c for _, c in events.values()) / 3
+        kern_dev = events and sum(t for k_, (t, _) in events.items()
+                                  if any(s_ in k_ for s_ in ssm_kern_names)) / 3 / 1e3
+        peak = torch.cuda.max_memory_allocated() - live
+        ssm_mesh[mode] = {"tok_s": b.tokens_generated / secs, "seconds": secs, "steps": steps,
+                          "ttft_ms": statistics.median(r.ttft for r in b.completed) * 1e3,
+                          "step_ms": step_ms, "step_device_ms": step_dev,
+                          "step_kernel_ms": kern_dev, "step_launches": step_n,
+                          "collectives": step_c, "place_s": place_s, "peak_gb": peak / 1e9,
+                          "bytes_per_position": [int(v) for v in per_pos.flat],
+                          "steps_bitwise": n_bitwise, "logits_off": n_off,
+                          "logit_err": err.max().item(), "n_equal": n_eq, "ties": ties}
+        print(f"  {ssm_mesh[mode]['tok_s']:.1f} tok/s ({steps} steps in {secs:.3f} s), median "
+              f"TTFT {ssm_mesh[mode]['ttft_ms']:.1f} ms; decode step {step_ms:.3f} ms median "
+              f"(synced), device {fmt(step_dev)} ms in {fmt_count(step_n)} device launches "
+              f"(K2/K3/K4 {fmt(kern_dev)} ms), collectives a step {step_c}; peak allocated "
+              f"{peak / 1e9:.2f} GB above the {live / 1e9:.2f} GB held")
+        del engine, single, state, keep, view, whole
+
+    # 6h's chunked det serve with the prefix cache, on the mesh (no plan: the
+    # placement re-derived from the leaves' types and paths)
+    keep = ssm_keep.pop("chunked")
+    print(f"== serve {SSM_ARCH} full width det on the mesh, chunked prefill and the prefix "
+          f"cache: {SSM_CHUNK}, against 6h's chunked single-device streams")
+    engine = ServeEngine(ssm_cfg, keep["params"], mesh=mesh)
+    pc, reg = PrefixCache(max_entries=SSM_CHUNK["prefix_cache"]), MetricsRegistry()
+    reset_counts()
+    streams, sb, ssteps, ssecs = serve_streams(engine, keep["prompts"], SSM_CHUNK["max_new"],
+                                               SSM_CHUNK["slots"],
+                                               prefill_chunk=SSM_CHUNK["prefill_chunk"],
+                                               prefix_cache=pc, metrics=reg)
+    chunks = int(reg["serve_prefill_chunks_total"].value)
+    got = launch_counts()
+    want = {name: 0 for name in counters}
+    want.update(ssm_want("det", n_model * (groups * (ssteps - 1) + chunks)))
+    print(f"  {ssteps - 1} decode steps x {mesh.size} positions + {chunks} prefill chunks x "
+          f"{n_model} positions, x {n_ssm_proj} projections; launches {got}; prefix cache "
+          f"{pc.stats()}")
+    if got != want:
+        raise AssertionError(f"{SSM_ARCH} det mesh chunked: expected launches {want}")
+    for name, count in got.items():
+        launches[name][(SSM_ARCH, "det mesh chunked")] = count
+    run_mode[(SSM_ARCH, "det mesh chunked")] = "det"
+    if pc.hits < 1:
+        raise AssertionError(f"{SSM_ARCH} det mesh chunked: no prefix hit")
+    lg = lm_greedy(ServeEngine(ssm_cfg, keep["params"]),
+                   torch.from_numpy(np.stack(keep["prompts"])).to(dev), SSM_CHUNK["max_new"])
+    n_eq, ties = near_ties(f"{SSM_ARCH} det mesh chunked", streams, keep["streams"],
+                           lambda uid: lg[uid], LM_LOGIT_TOL)
+    ssm_mesh["chunked"] = {"tok_s": sb.tokens_generated / ssecs, "steps": ssteps,
+                           "chunks": chunks, "prefix": pc.stats(), "n": len(streams),
+                           "n_equal": n_eq, "ties": ties}
+    print(f"  {n_eq}/{len(streams)} chunked mesh streams equal 6h's, {ties} parting at a near "
+          f"tie; {ssm_mesh['chunked']['tok_s']:.1f} tok/s")
+    del engine, keep, ssm_keep, lg
     torch.cuda.empty_cache()
 
     phase_start["6i"] = time.perf_counter()
@@ -3615,8 +3990,7 @@ def main() -> int:
         """(wall ms synced median, device ms, device launches, 2-D K2 ms,
         expert-batched K2 ms) of one decode step."""
         step_ms = synced_ms(lambda: engine.decode_step(state, tok), LM_SERVE["max_new"] - 2)
-        kern = profiled(lambda: engine.decode_step(state, tok), reps=3)
-        n_ = kernels_per_rep(lambda: engine.decode_step(state, tok), reps=3)
+        kern, n_ = profiled_n(lambda: engine.decode_step(state, tok), reps=3)
         if not kern:
             return step_ms, None, n_, None, None
         return (step_ms, sum(kern.values()), n_,
@@ -4527,6 +4901,21 @@ def main() -> int:
                             k4_src, k4_rep, total(launches["xnor_matmul"], mesh_x),
                             errs["k4"], mesh_k4),
                     "device_ms_per_shape": [r[6] for r in mesh_k4]})
+    for rax, rows_ in ENS_MESH_K2.items():
+        what = ("a position's N shard at M=4 (a group runs its replicas over every slot)"
+                if rax == "data" else "a replica's whole projection at a group's M=2")
+        print(f"== {LM_ARCH}'s K = {LM_ENSEMBLE['k']} ensemble on the (2, 2) mesh, replicas "
+              f"over {rax!r}: {what}")
+        ens_k2 = [k2_lm_row(m, k, n) for m, k, n in rows_]
+        kernels.append({**entry(f"binary_matmul ({LM_ARCH} K = {LM_ENSEMBLE['k']} stoch "
+                                f"ensemble on a (2, 2) mesh, replicas over {rax!r}, decode: "
+                                f"{what}, bf16, scaled: the 4 projections of a layer, summed)",
+                                "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                                "src/repro/kernels/binary_matmul.py:125",
+                                total(launches["binary_matmul"],
+                                      [(LM_ARCH, f"stoch ensemble mesh {rax}")]),
+                                errs["k2_ens_mesh"], ens_k2),
+                        "device_ms_per_shape": [r[6] for r in ens_k2]})
 
     def k2_moe_row(e_, m, k, n, routings=None):
         """The expert-batched K2 at (E, M, K, N), bf16, scaled: all rows live,
@@ -4615,7 +5004,7 @@ def main() -> int:
 
     print(f"== {SSM_ARCH} shapes: K1 at pack time (cold), and the decode projections (M = 4 "
           f"slots; a layer runs in_proj and out_proj)")
-    ssm_runs = [r for r in run_mode if r[0] == SSM_ARCH]
+    ssm_runs = [r for r in run_mode if r[0] == SSM_ARCH and "mesh" not in r[1]]
     ssm_k1 = {}
     for mode in ("det", "stoch", "threefry"):
         rows_ = []
@@ -4660,6 +5049,33 @@ def main() -> int:
                             f"out_proj of a layer, summed)", k4_src, k4_rep,
                             total(launches["xnor_matmul"], ssm_runs), errs["k4"], ssm_k4),
                     "device_ms_per_shape": [r[6] for r in ssm_k4]})
+    print(f"== {SSM_ARCH} on the (2, 2) mesh, decode shapes a position runs (M = 2: a data "
+          f"group's slots; det/stoch: N/2 of each projection; xnor: in_proj on N/2, out_proj "
+          f"on K/2, K4's int32 partial unscaled)")
+    ssm_mesh_runs = [r for r in run_mode if r[0] == SSM_ARCH and "mesh" in r[1]]
+    ssm_mesh_k2 = [k2_lm_row(2, k_, n_) for k_, n_ in SSM_MESH_K2]
+    kernels.append({**entry(f"binary_matmul ({SSM_ARCH} det/stoch on a (2, 2) mesh, decode: a "
+                            f"position's N shard at M=2, bf16, scaled: in_proj and out_proj "
+                            f"of a layer, summed)",
+                            "src/repro_torch/kernels/csrc/binary_matmul.cu",
+                            "src/repro/kernels/binary_matmul.py:125",
+                            total(launches["binary_matmul"], ssm_mesh_runs),
+                            errs["k2_ssm_mesh"], ssm_mesh_k2),
+                    "device_ms_per_shape": [r[6] for r in ssm_mesh_k2]})
+    ssm_mesh_k3 = [k3_row(2, k_, torch.bfloat16) for k_, _, _ in SSM_MESH_K4]
+    kernels.append({**entry(f"sign_pack, no prologue ({SSM_ARCH} xnor on a (2, 2) mesh, "
+                            f"decode: a position's input range at M=2, bf16: in_proj and "
+                            f"out_proj of a layer, summed)", k3_src, k3_rep,
+                            total(launches["sign_pack"], ssm_mesh_runs), errs["k3"],
+                            ssm_mesh_k3),
+                    "device_ms_per_shape": [r[6] for r in ssm_mesh_k3]})
+    ssm_mesh_k4 = [k4_row(2, k_ // 32, n_, k_, scaled) for k_, n_, scaled in SSM_MESH_K4]
+    kernels.append({**entry(f"xnor_matmul ({SSM_ARCH} xnor on a (2, 2) mesh, decode: a "
+                            f"position's shard at M=2, in_proj scaled on N/2, out_proj int32 "
+                            f"on K/2: a layer's, summed)", k4_src, k4_rep,
+                            total(launches["xnor_matmul"], ssm_mesh_runs), errs["k4"],
+                            ssm_mesh_k4),
+                    "device_ms_per_shape": [r[6] for r in ssm_mesh_k4]})
 
     print(f"== {HYB_ARCH} decode shapes (M = 4 slots; a period runs 28 2-D K2: w_qkv, w_o, "
           f"7 mixers' in_proj and out_proj, 4 dense GLUs' w_gate, w_up and w_down; and 12 "
@@ -4797,6 +5213,32 @@ def main() -> int:
           f"{r['chunks']} chunks; whole-prompt {r['whole_tok_s']:.1f} tok/s), prefix "
           f"{r['prefix']['hits']} hits, {r['n_equal']}/{r['n']} streams equal the whole-prompt "
           f"mesh streams, {r['near_ties']} near ties")
+    for rax in ("data", "model"):
+        r = mesh6k[f"ensemble {rax}"]
+        print(f"  K = {LM_ENSEMBLE['k']} stoch ensemble ({LM_6F_LAYERS} layers), replicas over "
+              f"{rax!r}: drawn and placed in {r['place_s']:.3f} s, "
+              f"{', '.join(f'{v / 1e6:.1f}' for v in r['bytes_per_position'])} MB a position; "
+              f"{r['tok_s']:.1f} tok/s ({r['steps']} steps in {r['seconds']:.3f} s), decode "
+              f"step {r['step'][0]:.3f} ms wall, {fmt(r['step'][1])} device, "
+              f"{fmt_count(r['step'][2])} launches, collectives a step {r['collectives']}; "
+              f"streams, mean logits and agreement (mean {r['agreement']:.3f}) 6f's bit for bit")
+    print(f"== {SSM_ARCH} on the (2, 2) ('data', 'model') mesh, one card (full width, "
+          f"{LM_SERVE}) [{smi}]")
+    for mode in LM_MODES:
+        r = ssm_mesh[mode]
+        print(f"  {mode}: placed in {r['place_s']:.3f} s, "
+              f"{', '.join(f'{v / 1e6:.1f}' for v in r['bytes_per_position'])} MB a position; "
+              f"{r['tok_s']:.1f} tok/s ({r['steps']} steps in {r['seconds']:.3f} s), median "
+              f"TTFT {r['ttft_ms']:.1f} ms, decode step {r['step_ms']:.3f} ms (device "
+              f"{fmt(r['step_device_ms'])} ms, K2/K3/K4 {fmt(r['step_kernel_ms'])} ms of it, "
+              f"{fmt_count(r['step_launches'])} launches), collectives a step "
+              f"{r['collectives']}, peak {r['peak_gb']:.2f} GB; {r['n_equal']}/16 streams 6h's "
+              f"({r['ties']} near ties), the head's inputs bit for bit, logits {r['steps_bitwise']}/{m_slots * m_new} steps bit for "
+              f"bit, {r['logits_off']} logits off (max {r['logit_err']:.4g})")
+    r = ssm_mesh["chunked"]
+    print(f"  chunked det: {r['tok_s']:.1f} tok/s ({r['steps']} steps, {r['chunks']} chunks), "
+          f"prefix {r['prefix']['hits']} hits; {r['n_equal']}/{r['n']} streams equal 6h's "
+          f"chunked ones ({r['ties']} near ties)")
     print(f"== {MOE_ARCH} serving summary (full width, {MOE_LAYERS} of 48 layers, {LM_SERVE})")
     for mode in MOE_MODES:
         r = moe_rows[mode]

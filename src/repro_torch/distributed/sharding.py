@@ -390,20 +390,24 @@ class PlacedTensor(Placed):
         return math.prod(self.shape)
 
 
-def _place_node(mesh: Mesh, spec: Spec, node):
+def _place_node(mesh: Mesh, spec: Spec, node, arrays: Optional[dict] = None):
     """Places one plan row's node under its master-shape spec, each stored
     array under the spec adapted to its rank and sanitized again (a word
     dim may not divide where its master dim did). A serving leaf's
     effective spec is its words': where they cannot split, the whole leaf
-    replicates."""
+    replicates. ``arrays`` (field name -> sanitized spec) gives each stored
+    array its own spec instead (a replica stack's,
+    ``stoch.ensemble.replica_specs``); ``spec`` is then ignored."""
     if isinstance(node, torch.Tensor):
-        s = sanitize_spec(mesh, _adapt_spec(spec, node.ndim), node.shape)
+        s = (arrays if arrays is not None
+             else sanitize_spec(mesh, _adapt_spec(spec, node.ndim), node.shape))
         local = np.empty(mesh.shape, dtype=object)
         for p in range(mesh.size):
             local.flat[p] = _shard(node, mesh, s, p)
         return PlacedTensor(mesh, s, local, shape=tuple(node.shape))
     words = node.packed
-    eff = sanitize_spec(mesh, _adapt_spec(spec, words.ndim), words.shape)
+    eff = (arrays["packed"] if arrays is not None
+           else sanitize_spec(mesh, _adapt_spec(spec, words.ndim), words.shape))
     tensors = {f.name: getattr(node, f.name) for f in dataclasses.fields(node)
                if isinstance(getattr(node, f.name), torch.Tensor)}
     row = len(eff) >= 2 and MODEL in entry_axes(eff[-2])
@@ -411,7 +415,8 @@ def _place_node(mesh: Mesh, spec: Spec, node):
     for p in range(mesh.size):
         kw = {}
         for name, a in tensors.items():
-            s = sanitize_spec(mesh, _adapt_spec(eff, a.ndim), a.shape)
+            s = (arrays[name] if arrays is not None
+                 else sanitize_spec(mesh, _adapt_spec(eff, a.ndim), a.shape))
             kw[name] = _shard(a, mesh, s, p)
         if row:
             # a row-parallel shard is a leaf of its own word range: its k
@@ -487,10 +492,11 @@ class ModelShards:
         return ModelShards([p[i] for p in self.parts], self.dim)
 
 
-def group_view(placed, g: int):
+def group_view(placed, g: int, lead: Optional[int] = None):
     """Data group ``g``'s view of a placed tree: a leaf that "model" splits
-    becomes :class:`ModelShards` of the group's positions, any other its
-    lead position's tensor or serving leaf."""
+    becomes :class:`ModelShards` of the group's positions, any other the
+    tensor or serving leaf of position ``lead`` (a flat position index in
+    the group; default its lead position), where the group's call runs."""
     from repro_torch.engine.plan import tree_leaves_with_path, tree_unflatten
 
     out = []
@@ -500,7 +506,7 @@ def group_view(placed, g: int):
             raise NotImplementedError(f"{path}: a leaf split over a batch axis "
                                       f"({leaf.spec}) has no serving route")
         dim = leaf.model_dim()
-        out.append(leaf.local.flat[row[0]] if dim is None
+        out.append(leaf.local.flat[row[0] if lead is None else lead] if dim is None
                    else ModelShards([leaf.local.flat[p] for p in row], dim))
     return tree_unflatten(placed, out)
 

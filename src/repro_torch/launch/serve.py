@@ -70,21 +70,26 @@ the ensemble-mean logits and reports the replicas' vote agreement;
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mnist_fc \
       --binarize stoch --ensemble 8 --abstain-threshold 0.6
 
-Token archs of the dense family also serve on a device mesh: ``--mesh
-data,model --mesh-shape 2,2`` places the packed tree by the plan's sharding
-column (words split over "model") and the decode slots over "data"
-(``ServeEngine(mesh=, plan=)``); the mesh's positions go round-robin over
-the visible cards, so on one card all four share ``cuda:0``:
+Token archs of the dense and SSM families also serve on a device mesh:
+``--mesh data,model --mesh-shape 2,2`` places the packed tree by the plan's
+sharding column (words split over "model") and the decode slots over
+"data" (``ServeEngine(mesh=, plan=)``); the mesh's positions go round-robin
+over the visible cards, so on one card all four share ``cuda:0``. A
+K-replica ensemble (``--ensemble K``) splits its replicas over
+``--replica-axis`` (data or model):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
       --smoke --device cpu --packed --binarize xnor --mesh data,model \
       --mesh-shape 2,2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \
+      --smoke --device cpu --packed --binarize stoch --ensemble 4 \
+      --replica-axis model --mesh data,model --mesh-shape 2,2
 
 Runs on the CUDA device unless ``--device cpu`` is given; asking for CUDA
 where there is none raises. The collective audit and compiled-program
 analysis of a token arch (ROADMAP item 8) are not ported: their flags exit
-naming the item, and so do an ensemble, MoE, SSM or hybrid arch on a mesh
-(item 7b).
+naming the item, and so do an MoE or hybrid arch on a mesh (item 7b: MoE
+routing across the data groups).
 """
 from __future__ import annotations
 
@@ -426,7 +431,7 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
              override=(), trace: str = "", trace_fence: bool = True,
              metrics_out: str = "", prefill_chunk: int = 0, prefix_cache: int = 0,
              shared_prefix: int = 0, ensemble: int = 1,
-             abstain_threshold: float | None = None,
+             abstain_threshold: float | None = None, replica_axis: str = "data",
              n_layers: int | None = None, mesh: Mesh | None = None) -> LMServeResult:
     """Step-level continuous-batching serving of a token arch, as the
     reference's ``launch.serve`` token path: master weights drawn from
@@ -451,9 +456,11 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     packs it at once, which gives ``plan.pack(T.init_lm(...))`` bit for
     bit. Its ensemble, and every other family, draws the masters whole.
 
-    ``mesh`` (``distributed.sharding.Mesh``, the dense family) serves the
-    tree placed on it by the plan's sharding column, the decode slots split
-    over its data groups (``ServeEngine(mesh=, plan=)``)."""
+    ``mesh`` (``distributed.sharding.Mesh``; the dense and SSM families)
+    serves the tree placed on it by the plan's sharding column, the decode
+    slots split over its data groups (``ServeEngine(mesh=, plan=)``); an
+    ensemble's replicas split over ``replica_axis`` (recorded in the
+    plan)."""
     arch = cb.canonical_arch(arch)
     if (prefill_chunk or prefix_cache) and ensemble > 1:
         raise SystemExit("--prefill-chunk/--prefix-cache are single-sample serving features; "
@@ -463,10 +470,9 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if cfg.frontend:
         raise SystemExit(f"{arch} uses a stubbed frontend; serve a token arch")
-    if mesh is not None and (ensemble > 1 or cfg.n_experts or cfg.is_ssm_only
-                             or cfg.is_hybrid):
-        what = "a K-replica ensemble" if ensemble > 1 else f"the {cfg.family} family"
-        raise SystemExit(f"--mesh: serving {what} on a mesh waits for ROADMAP item 7b")
+    if mesh is not None and (cfg.n_experts or cfg.is_hybrid):
+        raise SystemExit(f"--mesh: serving the {cfg.family} family on a mesh waits for "
+                         f"ROADMAP item 7b (MoE routing across the data groups)")
     if (plan_from or override) and not packed:
         raise SystemExit("--plan-from/--override change how weights are packed; add "
                          "--packed (use --plan/--plan-report alone for a dry inspection)")
@@ -483,7 +489,8 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     if packed or plan_out or plan_from or show_report or override:
         plan = make_plan(params, DEFAULT_POLICY, binarize=binarize, plan_out=plan_out,
                          plan_from=plan_from, show_report=show_report, report_batch=slots,
-                         override=override, mesh=mesh)
+                         override=override, ensemble=ensemble, replica_axis=replica_axis,
+                         mesh=mesh)
     pack_seconds = replicas = None
     if cfg.n_experts and packed and plan.mode == "xnor":
         raise SystemExit(f"{arch}: {XNOR_EXPERTS_ABSENT}")
@@ -522,6 +529,8 @@ def serve_lm(*, arch: str = "starcoder2_3b", packed: bool = False, binarize: str
     if mesh is not None:
         del params          # the engine holds the placed tree
         per = position_nbytes(engine.params)
+        if engine._replicas is not None:      # the replica stacks, beside the base
+            per = per + sum(leaf.position_nbytes() for leaf in engine._replicas.stacked.values())
         print(f"placed on the mesh: {', '.join(f'{b / 1e6:.1f}' for b in per.flat)} MB "
               f"a position (row-major)")
     pc = PrefixCache(max_entries=prefix_cache) if prefix_cache else None
@@ -657,8 +666,9 @@ def main(argv=None) -> ServeResult | LMServeResult:
                     help="token archs: give every request the same first P prompt tokens "
                          "(prefix-cache hits on the synthetic prompts)")
     ap.add_argument("--mesh", default="",
-                    help="token archs of the dense family: serve on a device mesh, comma-"
-                         "separated axis names (e.g. 'data,model')")
+                    help="token archs of the dense and SSM families (and an ensemble): "
+                         "serve on a device mesh, comma-separated axis names (e.g. "
+                         "'data,model')")
     ap.add_argument("--mesh-shape", default="",
                     help="per-axis sizes for --mesh, e.g. '2,2' (default: every visible "
                          "card on the last axis); positions share the cards round-robin")
@@ -704,6 +714,7 @@ def main(argv=None) -> ServeResult | LMServeResult:
                     prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
                     shared_prefix=args.shared_prefix, ensemble=args.ensemble,
                     abstain_threshold=args.abstain_threshold,
+                    replica_axis=args.replica_axis,
                     mesh=make_serve_mesh(args.mesh, args.mesh_shape, device=args.device))
 
 

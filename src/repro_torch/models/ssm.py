@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import LeafDraw, apply_linear, draw_leaves, filled, rms_norm
 
 NEG_EXP = -1e30       # the masked exponent of the intra-chunk decay
@@ -70,8 +71,19 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _conv_taps(pad: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
-    """sum_i pad[:, i:i + s] * w[i], in f32, summed tap by tap in order."""
+def _conv_taps(pad: torch.Tensor, w, s: int) -> torch.Tensor:
+    """sum_i pad[:, i:i + s] * w[i], in f32, summed tap by tap in order. On
+    a mesh group's channel shards (``w`` a ``ModelShards`` split on its last
+    dim) each position sums its channel range's taps in the same order and
+    the ranges are gathered: a depthwise conv is per channel, so the bits
+    are the unsharded call's."""
+    if isinstance(w, SH.ModelShards):
+        outs, start = [], 0
+        for part in w.parts:
+            c = part.shape[-1]
+            outs.append(_conv_taps(pad[..., start:start + c].to(part.device), part, s))
+            start += c
+        return SH.all_gather(outs, -1, pad.device)
     out = torch.zeros(pad.shape[:1] + (s,) + pad.shape[2:], dtype=torch.float32,
                       device=pad.device)
     for i in range(w.shape[0]):
@@ -85,7 +97,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, history=None) -> torch.Tens
     ``history`` is an optional (B, W-1, C) window of the raw pre-conv
     channels before ``xbc`` (a decode ``conv_state``); ``None`` means the
     start of the sequence, zeros."""
-    width = w.shape[0]
+    width = (w.parts[0] if isinstance(w, SH.ModelShards) else w).shape[0]
     if history is None:
         pad = F.pad(xbc, (0, 0, width - 1, 0))
     else:

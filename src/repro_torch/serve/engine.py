@@ -25,16 +25,23 @@ decodes from the replicas' mean logits over a (K, ...) cache: where the
 reference vmaps over the replicas, the port loops over them, each replica's
 forward on its own view of the one cache.
 
-On a device mesh (``ServeEngine(cfg, params, mesh=Mesh(...), plan=plan)``,
-the dense family) the engine places the tree as the plan's sharding column
-says (``distributed.sharding.place_packed_params``: packed words split over
-"model" on N, an xnor row-parallel projection on whole words) and the
-decode cache as ``T.cache_pspecs`` says: the slots split over the data
-groups (:class:`MeshCache`). Every entry point runs each data group's model
-call on its own slots with the group's shards, running the model-axis
-collectives itself (``distributed.sharding``); the groups' logits rows come
-back to the lead position, so ``stream_serve``, sampling and the prefix
-cache stay one host loop. The retrace sentinel waits for ROADMAP item 8.
+On a device mesh (``ServeEngine(cfg, params, mesh=Mesh(...), plan=plan)``;
+the dense and SSM families, and the ensemble) the engine places the tree
+as the plan's sharding column says (``distributed.sharding.
+place_packed_params``: packed words split over "model" on N, an xnor
+row-parallel projection on whole words, a mixer's conv on its channels)
+and the decode cache as ``T.cache_pspecs`` says: the slots split over the
+data groups (:class:`MeshCache`). Every entry point runs each data group's
+model call on its own slots with the group's shards, running the
+model-axis collectives itself (``distributed.sharding``); the groups'
+logits rows come back to the lead position, so ``stream_serve``, sampling
+and the prefix cache stay one host loop. An ensemble's stacked leaves
+carry the plan's ``replica_axis`` on their lead dim
+(``stoch.place_replicas``), and so does its cache
+(:class:`ReplicaMeshCache`): each (replica, slot shard) runs on the
+position holding that replica, and the K replicas' logits come back to the
+lead position in replica order before ``ensemble_stats``. The retrace
+sentinel waits for ROADMAP item 8.
 """
 from __future__ import annotations
 
@@ -53,7 +60,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.obs.metrics import record_request_metrics
 from repro_torch.obs.trace import NULL_TRACER
-from repro_torch.stoch import ReplicaSet, ensemble_stats
+from repro_torch.stoch import (ReplicaSet, ensemble_stats, place_replicas,
+                               prepend_replica_axis, replica_view)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -176,6 +184,35 @@ class MeshCache:
         return dataclasses.replace(self, parts=parts)
 
 
+@dataclasses.dataclass
+class ReplicaMeshCache:
+    """The (K, ...) decode cache of a K-replica ensemble placed on a mesh as
+    ``prepend_replica_axis(plan.replica_axis, T.cache_pspecs(...))`` says:
+    ``parts[(r, s)]`` is the cache dict of replica r's slot shard s (``per``
+    slots; one shard of every slot where the slots do not split, as under
+    ``replica_axis="data"``), on the position that runs that replica for
+    those slots. ``cache[name]`` reads an entry of every replica and slot,
+    (K, ...) stacked, on the first part's device."""
+
+    parts: dict
+    per: int
+    k: int
+    axes: dict                 # entry -> slot axis (T.cache_slot_axes)
+
+    def locate(self, slot: int) -> tuple[int, int]:
+        """(slot shard, the slot's index within it)."""
+        return divmod(slot, self.per)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        dev = self.parts[(0, 0)][name].device
+        shards = len(self.parts) // self.k
+        return torch.stack([torch.cat([self.parts[(r, s)][name].to(dev) for s in range(shards)],
+                                      dim=self.axes[name]) for r in range(self.k)])
+
+    def with_parts(self, parts: dict) -> "ReplicaMeshCache":
+        return dataclasses.replace(self, parts=parts)
+
+
 def _replica_cache(cache: dict, r: int) -> dict:
     """Replica ``r``'s view of a (K, ...) ensemble cache: writes through the
     views land in the stacked tensors."""
@@ -206,8 +243,11 @@ class ServeEngine:
       (or the same rules re-derived without a plan) and splits the decode
       slots over the data groups; streams equal the single-device engine's
       where the arithmetic allows it (every K2 and K4 column sums in an
-      order N and M do not change). The dense family only: an ensemble,
-      MoE, SSM or hybrid cfg on a mesh waits for ROADMAP item 7b.
+      order N and M do not change). The dense and SSM families, and a
+      K-replica ensemble (``ensemble=``: its stacked leaves and cache split
+      over the plan's ``replica_axis``, "data", "model" or None); an MoE or
+      hybrid cfg on a mesh waits for ROADMAP item 7b (MoE routing across
+      the data groups).
 
     ``tracer`` (``repro_torch.obs.Tracer``) wraps every entry point in a
     span with a ``dispatch`` child (the call returns with its kernels
@@ -235,36 +275,49 @@ class ServeEngine:
                 raise ValueError("pass either params or ensemble=ReplicaSet, not both "
                                  "(the ensemble's base tree is the parameter tree)")
             params = ensemble.base
+            if mesh is not None and plan is None:
+                plan = ensemble.plan
             # K = 1 (or no stochastic rows) is the single-sample path on base
             if ensemble.k > 1 and ensemble.stacked:
                 self._replicas = ensemble
-                self._trees = [ensemble.merge_replica(r) for r in range(ensemble.k)]
+                if mesh is None:
+                    self._trees = [ensemble.merge_replica(r) for r in range(ensemble.k)]
         if mesh is not None:
-            self._views = self._place(mesh, params, plan, ensemble)
+            self._views = self._place(mesh, params, plan)
             params = self.params
         else:
             self.params = params
         self.device = (mesh.devices.flat[0] if mesh is not None
                        else params["embed"]["embedding"].device)
 
-    def _place(self, mesh, params, plan, ensemble) -> list:
+    def _place(self, mesh, params, plan) -> list:
         """Places ``params`` on ``mesh`` (``self.params``) and returns each
-        data group's view of it."""
+        data group's view of it. An ensemble's replicas are placed by
+        ``stoch.place_replicas`` and each (replica, data group) that holds a
+        copy gets its view and the device of the position that runs it."""
         cfg = self.cfg
-        if ensemble is not None:
-            raise NotImplementedError("ServeEngine(mesh=..., ensemble=...): placing a "
-                                      "K-replica ensemble on a mesh waits for ROADMAP item 7b")
-        if cfg.n_experts or cfg.is_ssm_only or cfg.is_hybrid:
+        if cfg.n_experts or cfg.is_hybrid:
             raise NotImplementedError(
                 f"{cfg.name}: serving the {cfg.family} family on a mesh waits for ROADMAP "
-                f"item 7b (an MoE layer's capacity follows the tokens of a call, so a data "
-                f"split would change it; the SSM and hybrid caches are not placed yet)")
+                f"item 7b (an MoE layer's capacity follows the tokens of a call, so each data "
+                f"group routing its own slots would change it: MoE routing across the data "
+                f"groups)")
         odd = set(mesh.axis_names) - {SH.MODEL, *SH.BATCH_AXES}
         if odd:
             raise ValueError(f"a serving mesh has axes among {SH.BATCH_AXES + (SH.MODEL,)}, "
                              f"got {mesh.axis_names}")
-        self.params = SH.place_packed_params(mesh, params, plan)
         self._group_devs = [mesh.devices.flat[row[0]] for row in mesh.groups()]
+        if self._replicas is not None:
+            self._replicas = place_replicas(mesh, self._replicas, plan)
+            self.params = self._replicas.base
+            self._ens_views = {}
+            for g in range(len(self._group_devs)):
+                for r in range(self._replicas.k):
+                    got = replica_view(self._replicas, r, g)
+                    if got is not None:
+                        self._ens_views[(r, g)] = (mesh.devices.flat[got[0]], got[1])
+            return []
+        self.params = SH.place_packed_params(mesh, params, plan)
         return [SH.group_view(self.params, g) for g in range(len(self._group_devs))]
 
     def _split(self, n: int) -> int:
@@ -348,8 +401,49 @@ class ServeEngine:
 
     # -- the ensemble's counterparts of prefill / decode_step ---------------
 
+    def _ens_units(self, n: int) -> tuple[int, dict]:
+        """An ensemble call over ``n`` slots (or prompt rows) on the mesh:
+        (slots a shard, {(replica, slot shard): (device, tree)}) in replica
+        order. The shards are those of the cache's sanitized slot spec
+        (``prepend_replica_axis`` takes the replica axis out of it, so
+        under "data" every slot is one shard); each (replica, shard) runs
+        in the first data group of that shard that holds the replica."""
+        mesh, k = self.mesh, self._replicas.k
+        spec = SH.sanitize_spec(mesh, prepend_replica_axis(
+            self._replicas.plan.replica_axis,
+            T.cache_pspecs(self.cfg, SH.batch_axes(mesh))["pos"]), (k, n))
+        slot = spec[1]
+        shards = math.prod(mesh.axis_sizes()[a] for a in SH.entry_axes(slot))
+        rows = mesh.groups()
+        units = {}
+        for r in range(k):
+            for s in range(shards):
+                g = next(g for g, row in enumerate(rows)
+                         if SH._shard_index(mesh, slot, row[0]) == s and (r, g) in self._ens_views)
+                units[(r, s)] = self._ens_views[(r, g)]
+        return n // shards, units
+
+    def _ens_mesh_calls(self, fn, rows: torch.Tensor, parts: Optional[dict] = None):
+        """``fn(tree, rows of the shard on its device, the shard's cache
+        part or None)`` -> (logits, cache part) for every (replica, slot
+        shard) of the mesh: (EnsembleStats of the (K, n, V) logits on the
+        lead position, {(r, s): cache part}, slots a shard)."""
+        per, units = self._ens_units(rows.shape[0])
+        lgs = [[] for _ in range(self._replicas.k)]
+        out = {}
+        for (r, s), (dev, tree) in units.items():
+            lg, out[(r, s)] = fn(tree, rows[s * per:(s + 1) * per].to(dev),
+                                 None if parts is None else parts[(r, s)])
+            lgs[r].append(lg.to(self.device))
+        return ensemble_stats(torch.stack([torch.cat(lg) for lg in lgs])), out, per
+
     def _ens_prefill(self, prompts: torch.Tensor, max_len: int):
         """Every replica's prefill: (EnsembleStats, (K, ...) cache)."""
+        if self.mesh is not None:
+            es, parts, per = self._ens_mesh_calls(
+                lambda tree, toks, _: T.prefill(self.cfg, tree, toks, max_len=max_len), prompts)
+            return es, ReplicaMeshCache(parts, per, self._replicas.k,
+                                        T.cache_slot_axes(self.cfg))
         lgs, caches = [], []
         for tree in self._trees:
             lg, cache = T.prefill(self.cfg, tree, prompts, max_len=max_len)
@@ -361,7 +455,13 @@ class ServeEngine:
     def _ens_decode(self, cache: dict, tokens: torch.Tensor):
         """One decode step of every replica on its view of the (K, ...)
         cache (K/V written in place; the entries a decode step returns
-        anew, ``T.STEP_STATE``, stacked): (EnsembleStats, cache)."""
+        anew, ``T.STEP_STATE``, stacked; on a mesh each part's own):
+        (EnsembleStats, cache)."""
+        if self.mesh is not None:
+            es, parts, _ = self._ens_mesh_calls(
+                lambda tree, toks, part: T.decode_step(self.cfg, tree, part, toks), tokens,
+                cache.parts)
+            return es, cache.with_parts(parts)
         lgs, news = [], []
         for r, tree in enumerate(self._trees):
             lg, new = T.decode_step(self.cfg, tree, _replica_cache(cache, r), tokens)
@@ -435,22 +535,27 @@ class ServeEngine:
         uncertainty columns at their no-signal values (agreement 1,
         variance 0). On a mesh the cache is placed: a :class:`MeshCache` of
         the slots split over the data groups, each part on its group's lead
-        position; the logits stay on the lead position."""
+        position (an ensemble's a :class:`ReplicaMeshCache`); the logits
+        stay on the lead position."""
         ctx = prompt_len + max_new_cap
-        if self.mesh is not None:
+        ens = self._replicas
+        if self.mesh is None:
+            cache = T.init_cache(self.cfg, n_slots, ctx, device=self.device)
+            if ens is not None:
+                cache = {k: torch.zeros((ens.k,) + tuple(v.shape), dtype=v.dtype,
+                                        device=v.device) for k, v in cache.items()}
+        elif ens is None:
             per = n_slots // self._split(n_slots)
             cache = MeshCache([T.init_cache(self.cfg, per, ctx, device=self._group_devs[g])
                                for g in range(n_slots // per)], per,
                               T.cache_slot_axes(self.cfg))
-            logits = torch.zeros((n_slots, self.cfg.vocab_size),
-                                 dtype=self.cfg.activation_dtype, device=self.device)
-            return DecodeState(cache, logits, n_slots, prompt_len, max_new_cap)
-        cache = T.init_cache(self.cfg, n_slots, ctx, device=self.device)
-        ens = self._replicas
+        else:
+            per, units = self._ens_units(n_slots)
+            cache = ReplicaMeshCache({u: T.init_cache(self.cfg, per, ctx, device=dev)
+                                      for u, (dev, _) in units.items()}, per, ens.k,
+                                     T.cache_slot_axes(self.cfg))
         agreement = variance = None
         if ens is not None:
-            cache = {k: torch.zeros((ens.k,) + tuple(v.shape), dtype=v.dtype, device=v.device)
-                     for k, v in cache.items()}
             agreement = torch.ones((n_slots,), dtype=torch.float32, device=self.device)
             variance = torch.zeros((n_slots,), dtype=torch.float32, device=self.device)
         logits = torch.zeros((n_slots, self.cfg.vocab_size),
@@ -468,8 +573,8 @@ class ServeEngine:
         prompt = self._tokens(prompt, (1, state.prompt_len))
         with tr.span("prefill_into", slot=slot):
             with tr.span("dispatch"):
-                if self.mesh is not None:    # the slot's data group prefills it
-                    g, local = state.cache.locate(slot)
+                if self._replicas is None and self.mesh is not None:
+                    g, local = state.cache.locate(slot)     # the slot's data group
                     lg, one = T.prefill(self.cfg, self._views[g],
                                         prompt.to(self._group_devs[g]),
                                         max_len=state.context_len)
@@ -482,10 +587,18 @@ class ServeEngine:
                     T.cache_insert(self.cfg, state.cache, one, slot)
                 else:
                     lgs = []
-                    for r, tree in enumerate(self._trees):
-                        lg, one = T.prefill(self.cfg, tree, prompt, max_len=state.context_len)
-                        T.cache_insert(self.cfg, _replica_cache(state.cache, r), one, slot)
-                        lgs.append(lg)
+                    for r in range(self._replicas.k):
+                        if self.mesh is None:
+                            tree, dev, part, local = (self._trees[r], self.device,
+                                                      _replica_cache(state.cache, r), slot)
+                        else:       # the position holding replica r for the slot's shard
+                            s_, local = state.cache.locate(slot)
+                            dev, tree = self._ens_units(state.n_slots)[1][(r, s_)]
+                            part = state.cache.parts[(r, s_)]
+                        lg, one = T.prefill(self.cfg, tree, prompt.to(dev),
+                                            max_len=state.context_len)
+                        T.cache_insert(self.cfg, part, one, local)
+                        lgs.append(lg.to(self.device))
                     es = ensemble_stats(torch.stack(lgs))       # mean (1, V); stats (1,)
                     state.logits[slot] = es.mean_logits[0]
                     state.agreement[slot] = es.agreement[0]

@@ -7,12 +7,16 @@ normal kernel path, and ``ensemble_stats`` condenses the replica logits
 into mean logits, logit variance and vote agreement. Leaves the plan does
 not binarize are stored once and shared by every replica.
 
-Placing replicas on a mesh (the reference's ``replica_specs`` and
-``place_replicas``) waits for ROADMAP item 7b; ``ServeEngine(mesh=...,
-ensemble=...)`` refuses it.
+``place_replicas`` puts the replicas on a mesh: the stacked leaves' lead (K)
+dim over the plan's ``replica_axis`` (``replica_specs``,
+``prepend_replica_axis``), the shared leaves by the plan's sharding column;
+``ServeEngine(cfg, None, ensemble=rs, mesh=mesh, plan=plan)`` serves them.
 """
-from repro_torch.stoch.ensemble import EnsembleStats, ensemble_forward, ensemble_stats
+from repro_torch.stoch.ensemble import (EnsembleStats, ensemble_forward, ensemble_stats,
+                                        place_replicas, prepend_replica_axis, replica_specs,
+                                        replica_view)
 from repro_torch.stoch.replicas import ReplicaSet, replica_key, sample_replicas
 
 __all__ = ["EnsembleStats", "ReplicaSet", "ensemble_forward", "ensemble_stats",
-           "replica_key", "sample_replicas"]
+           "place_replicas", "prepend_replica_axis", "replica_key", "replica_specs",
+           "replica_view", "sample_replicas"]

@@ -1531,6 +1531,104 @@ def test_mesh_stream_equals_single_device_on_the_card(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["det", "stoch", "xnor"])
+def test_ssm_mesh_equals_single_device_on_the_card(cuda, mode):
+    """mamba2's SMOKE config on a (2, 2) ("data", "model") mesh whose four
+    positions share the card: the streams, whole-prompt and chunked with
+    the prefix cache, equal the single-device engine's, and a decode
+    step's logits and ssm/conv rows equal its bit for bit (K2's column
+    sums and K4's popcounts do not depend on N or M, the conv taps are per
+    channel, and at this size the tied head's GEMM takes one K order for a
+    vocab shard and the whole); each step launches each projection once a
+    position."""
+    from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.serve import PrefixCache, ServeEngine, SlotBatcher, stream_serve
+
+    cfg = cb.get_config("mamba2_130m", smoke=True)
+    mesh = SH.Mesh((2, 2), ("data", "model"), device="cuda")
+    params = T.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    plan = compile_plan(params, DEFAULT_POLICY, mode, mesh=mesh)
+    packed = plan.pack(params, key=prng.key(3))
+
+    def run(engine, **kw):
+        rng = np.random.default_rng(0)
+        b = SlotBatcher(2, 8)
+        for m in (3, 5, 2, 4):
+            b.submit(rng.integers(0, cfg.vocab_size, 8), m)
+        stream_serve(engine, b, **kw)
+        return {r.uid: r.generated for r in b.completed}
+
+    eng, single = ServeEngine(cfg, packed, mesh=mesh, plan=plan), ServeEngine(cfg, packed)
+    assert run(eng) == run(single)
+    assert (run(eng, prefill_chunk=3, prefix_cache=PrefixCache())
+            == run(single, prefill_chunk=3, prefix_cache=PrefixCache()))
+    states = []
+    for e in (single, eng):
+        st = e.init_decode(4, 8, 4)
+        for s in range(4):
+            st = e.prefill_into(st, s, np.arange(8) + 3 * s)
+        states.append(st)
+    counts = (binary_matmul, sign_pack, xnor_matmul)
+    before = [f.launches for f in counts]
+    b_ = eng.decode_step(states[1], np.arange(4, dtype=np.int32))
+    calls = 4 * 2 * cfg.n_layers
+    got = [f.launches - b for f, b in zip(counts, before)]
+    assert got == ([0, calls, calls] if mode == "xnor" else [calls, 0, 0])
+    a_ = single.decode_step(states[0], np.arange(4, dtype=np.int32))
+    assert torch.equal(a_.logits, b_.logits)
+    for name in ("ssm", "conv"):
+        assert torch.equal(a_.cache[name], b_.cache[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rax", ["data", "model"])
+def test_ensemble_mesh_equals_single_device_on_the_card(cuda, rax):
+    """starcoder2's SMOKE K = 4 stochastic ensemble on a (2, 2) mesh sharing
+    the card, its replicas split over ``rax``: the streams, the mean
+    logits, the vote agreement and the variance equal the single-device
+    ensemble's bit for bit, and a decode step launches K2 32 times a
+    layer either way: under "data" each group runs its 2 replicas' 4
+    projections over every slot, each on its 2 positions' shards; under
+    "model" each group runs all 4 replicas over its 2 slots, each replica's
+    words whole on one position."""
+    from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.serve import ServeEngine, SlotBatcher, stream_serve
+
+    cfg = cb.get_config("starcoder2_3b", smoke=True)
+    mesh = SH.Mesh((2, 2), ("data", "model"), device="cuda")
+    params = T.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    plan = compile_plan(params, DEFAULT_POLICY, "stoch", mesh=mesh, replica_axis=rax)
+    rs = sample_replicas(params, plan, prng.key(1), 4)
+
+    def run(engine):
+        rng = np.random.default_rng(0)
+        b = SlotBatcher(2, 8)
+        for m in (3, 5, 2):
+            b.submit(rng.integers(0, cfg.vocab_size, 8), m)
+        stream_serve(engine, b)
+        return {r.uid: r.generated for r in b.completed}
+
+    eng = ServeEngine(cfg, None, ensemble=rs, mesh=mesh, plan=plan)
+    single = ServeEngine(cfg, None, ensemble=rs)
+    assert eng._replicas.stacked["layers/attn/w_qkv"].spec[0] == rax
+    assert run(eng) == run(single)
+    states = []
+    for e in (single, eng):
+        st = e.init_decode(4, 8, 3)
+        for s in range(4):
+            st = e.prefill_into(st, s, np.arange(8) + 3 * s)
+        states.append(st)
+    before = binary_matmul.launches
+    b_ = eng.decode_step(states[1], np.arange(4, dtype=np.int32))
+    assert binary_matmul.launches - before == 32 * cfg.n_layers
+    a_ = single.decode_step(states[0], np.arange(4, dtype=np.int32))
+    for name in ("logits", "agreement", "variance"):
+        assert torch.equal(getattr(a_, name), getattr(b_, name)), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_model", [2, 4])
 def test_xnor_row_partials_are_exact_on_the_card(cuda, n_model):
     """A row-parallel xnor projection at StarCoder2's w_down shape (12288 x

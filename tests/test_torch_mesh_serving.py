@@ -34,7 +34,6 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 from repro_torch.serve import PrefixCache, ServeEngine, SlotBatcher, stream_serve
 from repro_torch.serve.engine import MeshCache
-from repro_torch.stoch import sample_replicas
 
 ARCH = "starcoder2_3b"
 TEMPERATURE = 0.8
@@ -208,21 +207,17 @@ def test_generate_on_the_mesh_equals_single_device(rows):
 
 
 def _refused(what):
-    cfg = cb.get_config({"moe": "moonshot_v1_16b_a3b", "ssm": "mamba2_130m",
-                         "hybrid": "jamba_1_5_large"}.get(what, ARCH), smoke=True)
+    cfg = cb.get_config({"moe": "moonshot_v1_16b_a3b", "hybrid": "jamba_1_5_large"}[what],
+                        smoke=True)
     params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    if what == "ensemble":
-        plan = compile_plan(params, DEFAULT_POLICY, "stoch", warn=False)
-        rs = sample_replicas(params, plan, prng.key(1), 2)
-        return lambda: ServeEngine(cfg, None, ensemble=rs, mesh=_mesh())
     return lambda: ServeEngine(cfg, params, mesh=_mesh())
 
 
-@pytest.mark.parametrize("what", ["ensemble", "moe", "ssm", "hybrid"])
+@pytest.mark.parametrize("what", ["moe", "hybrid"])
 def test_mesh_refusals_name_item_7b(what):
-    """An ensemble's replica placement, and the MoE, SSM and hybrid families
-    on a mesh, wait for ROADMAP item 7b (an MoE layer's capacity follows
-    the tokens of a call, so a data split would change it)."""
+    """The MoE and hybrid families on a mesh wait for ROADMAP item 7b (an
+    MoE layer's capacity follows the tokens of a call, so each data group
+    routing its own slots would change it)."""
     with pytest.raises(NotImplementedError, match="item 7b"):
         _refused(what)()
 
@@ -243,8 +238,9 @@ def test_cli_serves_on_a_mesh(capsys):
     """``--mesh data,model --mesh-shape 2,2`` serves (xnor, packed) with the
     mesh and the placed bytes printed, its streams the single-device
     CLI's; the classifier and a bare ``--mesh-shape`` exit with the
-    reference's messages, an ensemble or an SSM arch on a mesh naming
-    item 7b."""
+    reference's messages. A K = 2 ensemble (replicas over "model") and the
+    SSM arch serve on the mesh, their streams one device's; the hybrid
+    arch on a mesh exits naming item 7b."""
     mesh_args = ["--mesh", "data,model", "--mesh-shape", "2,2"]
     res = serve.main(LM_SMOKE + ["--packed", "--binarize", "xnor"] + mesh_args)
     out = capsys.readouterr().out
@@ -258,8 +254,14 @@ def test_cli_serves_on_a_mesh(capsys):
         serve.main(["--arch", "mnist_fc", "--device", "cpu", "--smoke"] + mesh_args)
     with pytest.raises(SystemExit, match="--mesh-shape requires --mesh"):
         serve.main(LM_SMOKE + ["--mesh-shape", "2,2"])
+    ens = LM_SMOKE + ["--packed", "--binarize", "stoch", "--ensemble", "2"]
+    ssm = ["--arch", "mamba2_130m"] + LM_SMOKE[2:] + ["--packed", "--binarize", "xnor"]
+    for args, extra in ((ens, ["--replica-axis", "model"]), (ssm, [])):
+        res = serve.main(args + extra + mesh_args)
+        assert res.engine.mesh is not None and len(res.batcher.completed) == 5
+        one = serve.main(args)
+        assert ({r.uid: r.generated for r in res.batcher.completed}
+                == {r.uid: r.generated for r in one.batcher.completed})
+    assert res.engine.cfg.family == "ssm"
     with pytest.raises(SystemExit, match="item 7b"):
-        serve.main(LM_SMOKE + ["--packed", "--binarize", "stoch", "--ensemble", "2"]
-                   + mesh_args)
-    with pytest.raises(SystemExit, match="item 7b"):
-        serve.main(["--arch", "mamba2_130m", "--smoke", "--device", "cpu"] + mesh_args)
+        serve.main(["--arch", "jamba_1_5_large", "--smoke", "--device", "cpu"] + mesh_args)

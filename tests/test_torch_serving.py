@@ -12,7 +12,7 @@ and weights (carried with ``interop.from_jax_tree``), each test printing
 the smallest top-2 logit margin it met (``-s``), so a near tie shows; the
 CLI serves a token arch on the CPU, chunked prefill, the prefix cache and
 the LM ensemble included; and every feature still deferred raises naming
-ROADMAP (a mesh serves; an ensemble or MoE arch on it waits for item 7b).
+ROADMAP (a mesh serves; an MoE or hybrid arch on it waits for item 7b).
 """
 import json
 
@@ -296,8 +296,8 @@ def test_cli_classifier_metrics(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "data,model", "--mesh-shape", "2,2", "--packed", "--binarize", "stoch",
-      "--ensemble", "2"], "item 7"),
+    (["--mesh", "data,model", "--mesh-shape", "2,2", "--arch", "moonshot_v1_16b_a3b",
+      "--packed", "--binarize", "det"], "item 7"),
     (["--audit-collectives"], "item 8"),
     (["--analyze", "--packed"], "item 8"),
 ])
